@@ -8,14 +8,21 @@ fails):
 1. environment: the card's name and power limit; build every CUDA kernel
    from ``ospo_tpu_torch/ops/csrc`` (one nvcc per source, in parallel);
 2. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, with timings (kernel, plain version, one library call
+   paths' shapes, with timings (kernel, plain version, one library call
    where one computes the same function) and the card's lower bound;
-3. a small model (head dim 128) through the teacher-forced CFG probe on the
-   GPU (kernels) and on the CPU (plain versions), same weights;
-4. the main path: ``ospo_tpu_torch.pipeline.step3.main`` on the step-3
+3. a small model (head dim 128) on the GPU (kernels) and on the CPU (plain
+   versions), same weights: the teacher-forced CFG probe, and one SimPO
+   training step (loss and LoRA gradients);
+4. the step-3 main path: ``ospo_tpu_torch.pipeline.step3.main`` on the
    serving configuration (``configs/step3.yaml``) at the full Janus-Pro-7B
-   width (random int8 weights), 24 prompt items; every kernel's launch
-   counter must move, and the PNG tree must hold real images.
+   width (random int8 weights), 24 prompt items; its kernels' launch
+   counters must move, and the PNG tree must hold real images;
+5. the step-5 main path: ``ospo_tpu_torch.pipeline.step5.main`` on
+   ``configs/step5.yaml`` at the 7B width (random bf16 trunk) with
+   ``attn_impl: flash``, 3 optimizer steps over the 21 records of
+   ``tests/fixtures/examples/step4/train.json`` whose images phase 4 wrote;
+   the flash forward, dQ and dK/dV counters must match 30 layers (the
+   forward twice under remat) per micro-step, and the checkpoint must land.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -25,6 +32,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -36,6 +44,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "examples", "step2",
                        "long_prompt.json")
+TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "examples", "step4",
+                             "train.json")
 N_ITEMS = 24
 
 # configs/step3.yaml as a dict (a CPU test holds the two equal)
@@ -59,6 +69,63 @@ STEP3_CONFIG = {
     "drop_lm_head": True,
     "drop_understanding": True,
 }
+
+# configs/step5.yaml as a dict (a CPU test holds the two equal)
+STEP5_CONFIG = {
+    "base": {"save_path": "./outputs/step5", "exp_name": "ospo",
+             "world_size": None, "resume": None},
+    "model": {"model_path": "./checkpoints/Janus-Pro-7B", "model_preset": None,
+              "cache_dir": "./checkpoints/hf_cache"},
+    "use_peft": True,
+    "lora": {"lora_rank": 32, "lora_alpha": 64, "lora_dropout": 0.05,
+             "target_modules": ["q_proj", "k_proj", "v_proj", "o_proj",
+                                "gate_proj", "down_proj", "up_proj"],
+             "modules_to_save": None},
+    "dataset": {"train": {"batch_size": 16, "num_workers": 4,
+                          "data_path": "./outputs/step4/train.json",
+                          "num_samples": None},
+                "val": {"batch_size": 1, "num_workers": 1}},
+    "optimizer": {"init_lr": "4e-5", "betas": [0.9, 0.95], "weight_decay": 0.0,
+                  "eps": "1e-8", "scheduler_type": "constant",
+                  "min_lr": "1e-6"},
+    "experiment": {"seed": 42, "precision": "bf16", "warmup_ratio": 0.0,
+                   "gradient_clip_val": 1.0, "enable_checkpointing": True,
+                   "gradient_checkpointing": True, "quantize_base": False,
+                   "gradient_accumulation_steps": None,
+                   "max_training_steps": 1000, "max_epochs": 1,
+                   "save_steps": 500, "log_steps": 10, "val_steps": None,
+                   "freeze": {"vision_model": True, "aligner": True,
+                              "gen_vision_model": True, "gen_aligner": True,
+                              "gen_head": True, "gen_embed": True,
+                              "language_model": False}},
+    "tokenizer": {"max_length": 2048, "max_prompt_length": 1024,
+                  "truncation_mode": "keep_end", "truncation_side": "left",
+                  "label_pad_token_id": -100},
+    "algo": {"beta": 10, "gamma_beta_ratio": 0.5, "sft_weight": 0.0,
+             "label_smoothing": 0.0, "loss_type": "sigmoid"},
+}
+
+
+def step5_overrides(data_path: str, image_root: str, save_path: str) -> dict:
+    """What phase 5 changes in ``STEP5_CONFIG``: a random-init 7B model
+    (``model_path`` unset, as the random-init opt-in requires), the flash
+    attention path, 3 optimizer steps over at most 2 epochs, no periodic
+    save, and where the data, images and outputs are."""
+    return {"model": {"model_path": None, "model_preset": "7b"},
+            "experiment": {"attn_impl": "flash", "max_training_steps": 3,
+                           "max_epochs": 2, "save_steps": None},
+            "dataset": {"train": {"data_path": data_path}},
+            "image_root": image_root,
+            "base": {"save_path": save_path}}
+
+
+def merged(base: dict, over: dict) -> dict:
+    out = dict(base)
+    for k, v in over.items():
+        out[k] = merged(base[k], v) if isinstance(v, dict) and isinstance(
+            base.get(k), dict) else v
+    return out
+
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, int8 tensor cores,
 # HBM3 bandwidth
@@ -87,9 +154,13 @@ def max_err(a, b) -> float:
 
 
 class Smoke:
-    def __init__(self):
+    def __init__(self, workdir: str):
         self.failures = []
         self.kernels = {}
+        self.workdir = workdir          # phase 4 writes PNGs, phase 5 reads
+        self.text_bucket = train_bucket()
+        self.launches = {}              # kernel → launches in the main paths
+        self.train_kernel_ms = {}       # phase 2's times at the training shape
 
     def check(self, ok: bool, what: str) -> None:
         print(("PASS " if ok else "FAIL ") + what, flush=True)
@@ -284,6 +355,168 @@ class Smoke:
             "bound_by": timing[3], "library_ms": None,
         }
 
+    def flash_backward_kernels(self):
+        from ospo_tpu_torch.ops import flash_attention as fa
+
+        dev = torch.device("cuda")
+        tol = dict(atol=1e-4, rtol=2 ** -7)  # one bf16 step; fp32 inside
+        worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def case(rows, T, H, KVH, dtype, masked, seed, what):
+            """Inputs of the backward at one shape, with m, l and di from the
+            plain forward; the forward kernel is held against it first, so a
+            forward wrong at this shape cannot hide behind the backward."""
+            g = torch.Generator(device=dev).manual_seed(seed)
+            q, do = (torch.randn((rows, T, H, 128), generator=g, device=dev)
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn((rows, T, KVH, 128), generator=g, device=dev)
+                    .to(dtype) for _ in range(2))
+            mask = torch.ones((rows, T), dtype=torch.int32, device=dev)
+            if masked:
+                mask[-1, T // 3] = 0
+            out, l, m = fa.flash_attention(q, k, v, mask, return_stats=True)
+            ref, l_ref, m_ref = fa.flash_attention_plain(q, k, v, mask)
+            torch.cuda.synchronize()
+            errs = [max_err(out, ref),
+                    max_err(l, l_ref) / float(l_ref.abs().max()),
+                    max_err(m, m_ref)]
+            # as phase 2's forward check: O by the final rounding (bf16: one
+            # ulp, 2^-8 relative), l and m by fp32 summation order
+            o_tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+            ok = (torch.allclose(out.float(), ref.float(), atol=o_tol,
+                                 rtol=o_tol if dtype == torch.bfloat16 else 0)
+                  and errs[1] < 1e-5 and errs[2] < 1e-4)
+            self.check(ok, f"flash_fwd {what}: max|dO|={errs[0]:.3g} (tol "
+                           f"{o_tol:g}{'+1e-2|O|' if o_tol == 1e-2 else ''}), "
+                           f"max|dl|/|l|={errs[1]:.3g} (tol 1e-5), "
+                           f"max|dm|={errs[2]:.3g} (tol 1e-4)")
+            worst["fwd"] = max(worst["fwd"], errs[0])
+            del out, l, m
+            return (q, k, v, mask, do, m_ref, l_ref, fa.row_dot(ref, do))
+
+        def check(args, what):
+            dq = fa.flash_dq(*args)
+            dk, dv = fa.flash_dkv(*args)
+            torch.cuda.synchronize()
+            for name, got, ref in (("dq", dq, fa.flash_dq_plain(*args)),) + tuple(
+                    zip(("dk", "dv"), (dk, dv), fa.flash_dkv_plain(*args))):
+                err = max_err(got, ref)
+                ok = bool(torch.allclose(got.float(), ref.float(), **tol))
+                self.check(ok, f"{name} {what}: max|d|={err:.3g} "
+                               f"(tol 1e-4+2^-7|ref|)")
+                key = "dq" if name == "dq" else "dkv"
+                worst[key] = max(worst[key], err)
+                del ref
+            torch.cuda.empty_cache()
+
+        def timed(args, iters):
+            """(kernel ms, plain ms, SDPA forward ms, SDPA backward ms): the
+            forward, dQ and dK/dV kernels; their plain versions; and one
+            ``torch.autograd.grad`` of ``scaled_dot_product_attention``
+            (dq, dk and dv in one call; GQA heads repeated beforehand)."""
+            q, k, v, mask, do = args[:5]
+            ms = {"fwd": cuda_ms(lambda: fa.flash_attention(
+                      q, k, v, mask, return_stats=True), iters),
+                  "dq": cuda_ms(lambda: fa.flash_dq(*args), iters),
+                  "dkv": cuda_ms(lambda: fa.flash_dkv(*args), iters)}
+            plain = {"dq": cuda_ms(lambda: fa.flash_dq_plain(*args), 2, 1),
+                     "dkv": cuda_ms(lambda: fa.flash_dkv_plain(*args), 2, 1)}
+            torch.cuda.empty_cache()
+            T, H = q.shape[1], q.shape[2]
+            qt, kt, vt = (x.repeat_interleave(H // x.shape[2], dim=2)
+                          .transpose(1, 2).detach().requires_grad_(True)
+                          for x in (q, k, v))
+            if bool((mask > 0).all()):
+                kw = {"is_causal": True}
+            else:
+                kw = {"attn_mask": (mask[:, None, None, :] > 0) & torch.ones(
+                    (T, T), dtype=torch.bool, device=dev).tril()[None, None]}
+            fwd_ms = cuda_ms(lambda: sdpa(qt, kt, vt, **kw), iters)
+            o = sdpa(qt, kt, vt, **kw)
+            bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+                o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), iters)
+            del o, qt, kt, vt
+            torch.cuda.empty_cache()
+            return ms, plain, fwd_ms, bwd_ms
+
+        # a small ragged case: T not a multiple of 64, a masked key, GQA 4/2
+        ragged = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            what = f"{str(dtype)[6:]} rows=3 T=200 H=4/KVH=2, one masked key"
+            ragged[dtype] = case(3, 200, 4, 2, dtype, True, 6, what)
+            check(ragged[dtype], what)
+        ms, plain, fwd_ms, bwd_ms = timed(ragged[torch.bfloat16], 20)
+        print(f"flash ragged case (bf16 rows=3 T=S=200 H=4/KVH=2, one masked "
+              f"key): forward {ms['fwd']:.4f} ms (sdpa {fwd_ms:.4f}); dq "
+              f"{ms['dq']:.4f} ms, plain {plain['dq']:.4f} ms; dkv "
+              f"{ms['dkv']:.4f} ms, plain {plain['dkv']:.4f} ms; sdpa "
+              f"backward (dq, dk, dv in one call) {bwd_ms:.4f} ms")
+        # and against a reference independent of the plain versions' formulas:
+        # torch autograd through the plain masked attention (fp32)
+        from ospo_tpu_torch.ops.attention import attention
+
+        q, k, v, mask, do = ragged.pop(torch.float32)[:5]
+        grads = []
+        for impl in ("flash", "xla"):
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            grads.append(torch.autograd.grad(
+                attention(*leaves, mask=mask, impl=impl), leaves, do))
+        err = max(max_err(a, b) for a, b in zip(*grads))
+        self.check(err < 1e-4, f"flash autograd (kernels) vs autograd of "
+                               f"xla_attention, fp32 rows=3 T=200 GQA 4/2: "
+                               f"max|d|={err:.3g} (tol 1e-4)")
+        del ragged, grads, q, k, v, mask, do
+        # the training shape: 16 pairs, the run's text bucket + 576 image
+        # tokens, all-ones mask (the trainer's)
+        rows, H, D = 32, 32, 128
+        T = self.text_bucket + 576
+        what = f"bf16 rows={rows} T=S={T} H={H} causal (training shape)"
+        args = case(rows, T, H, H, torch.bfloat16, False, 7, what)
+        check(args, what)
+        ms, plain, sdpa_fwd_ms, lib_bwd_ms = timed(args, 10)
+        pairs = rows * H * T * (T + 1) / 2
+        tensor = rows * T * H * D * 2                     # one bf16 [B,T,H,D]
+        stats = 3 * rows * H * T * 4 + rows * T * 4       # m, l, di, mask
+        work = {"fwd": (4 * D * pairs, 4 * tensor + 2 * rows * H * T * 4
+                        + rows * T * 4),
+                "dq": (6 * D * pairs, 5 * tensor + stats),
+                "dkv": (8 * D * pairs, 6 * tensor + stats)}
+        bound = {}
+        for name, (flops, nbytes) in work.items():
+            bound[name] = (max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3,
+                           "operations" if flops / PEAK_BF16 > nbytes / PEAK_BYTES
+                           else "bytes")
+            print(f"flash {name} at the training shape (rows={rows} T=S={T} "
+                  f"H={H} bf16 causal): kernel {ms[name]:.4f} ms, bound "
+                  f"{bound[name][0]:.5f} ms ({bound[name][1]}; "
+                  f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)"
+                  + (f", plain {plain[name]:.4f} ms" if name in plain else
+                     f", sdpa forward {sdpa_fwd_ms:.4f} ms"))
+        print(f"sdpa backward (dq, dk, dv in one call) at the training shape: "
+              f"{lib_bwd_ms:.4f} ms")
+        self.train_kernel_ms = ms
+        if "flash_fwd" in self.kernels:
+            entry = self.kernels["flash_fwd"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], worst["fwd"])
+        for name, src, line in (("dq", "flash_bwd_dq", 137),
+                                ("dkv", "flash_bwd_dkv", 181)):
+            self.kernels[src] = {
+                "name": src, "route": "cuda",
+                "source": f"ospo_tpu_torch/ops/csrc/{src}.cu",
+                "replaces": f"ospo_tpu/ops/flash_attention.py:{line}",
+                "launches": None, "max_abs_err": worst[name],
+                "ms": ms[name], "plain_ms": plain[name],
+                "bound_ms": bound[name][0], "bound_by": bound[name][1],
+                "library_ms": lib_bwd_ms,
+                "library_note": "one torch.autograd.grad of "
+                                "scaled_dot_product_attention computing dq, "
+                                "dk and dv together; the same figure stands "
+                                "in flash_bwd_dq and flash_bwd_dkv",
+            }
+        del args
+        torch.cuda.empty_cache()
+
     # -- phase 3 ---------------------------------------------------------
     def small_model(self):
         import dataclasses
@@ -329,6 +562,81 @@ class Smoke:
         self.check(err < 1e-4, f"VQ decode GPU (fp32, TF32 off) vs CPU: "
                                f"max|d|={err:.3g} (tol 1e-4)")
 
+    def small_train_step(self):
+        import dataclasses
+
+        import numpy as np
+
+        from ospo_tpu_torch.config import Config
+        from ospo_tpu_torch.image_processing import ImageProcessor
+        from ospo_tpu_torch.models import janus, llama, vqgan
+        from ospo_tpu_torch.ops import flash_attention as fa
+        from ospo_tpu_torch.ops.pixels import normalize_pixels
+        from ospo_tpu_torch.processing import Processor
+        from ospo_tpu_torch.tokenizer import ByteTokenizer
+        from ospo_tpu_torch.train.trainer import SimPOTrainer
+
+        cfg = dataclasses.replace(
+            janus.tiny_janus_config(),
+            language=llama.tiny_config(hidden_size=256, intermediate_size=512,
+                                       num_heads=2))
+        cpu_model = janus.JanusModel.init(cfg, seed=1, device="cpu")
+        gpu_model = janus.JanusModel(
+            cfg, _tree_map(cpu_model.params, lambda t: t.to("cuda")),
+            torch.device("cuda"))
+        proc = Processor(ByteTokenizer(cfg.language.vocab_size),
+                         ImageProcessor(image_size=cfg.image_size))
+        config = Config.from_nested({
+            "base": {"save_path": os.path.join(self.workdir, "small")},
+            "lora": {"lora_rank": 8, "lora_alpha": 16, "lora_dropout": 0.0},
+            "experiment": {"seed": 0, "attn_impl": "flash",
+                           "gradient_checkpointing": True},
+            "algo": {"beta": 10, "gamma_beta_ratio": 0.5}})
+        rng = np.random.default_rng(0)
+        b, t = 2, 32
+        mask = np.ones((b, t), np.float32)
+        mask[1, 20:] = 0
+        batch = (rng.integers(0, 256, (b, t)).astype(np.int32), mask,
+                 rng.integers(0, 256, (b, 32, 32, 3)).astype(np.uint8),
+                 rng.integers(0, 256, (b, 32, 32, 3)).astype(np.uint8))
+        trainers = [SimPOTrainer(config, m, proc) for m in (cpu_model, gpu_model)]
+        # the same adapters on both, B non-zero so A has a gradient too
+        lora = {n: {"a": ab["a"], "b": torch.randn(
+                    ab["b"].shape, generator=torch.Generator().manual_seed(2))
+                    * 0.05} for n, ab in trainers[0].trainable.items()}
+        for tr in trainers:
+            tr._set_trainable(lora)
+        n0 = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        out = [tr.loss_and_grads(*batch) for tr in trainers]
+        torch.cuda.synchronize()
+        moved = (fa.launches - n0[0], fa.dq_launches - n0[1],
+                 fa.dkv_launches - n0[2])
+        self.check(moved == (4, 2, 2), f"small training step on the GPU "
+                   f"launched flash fwd/dq/dkv {moved} (2 layers, remat: "
+                   f"(4, 2, 2))")
+        ids = [vqgan.encode_to_ids(
+            m.params["gen_vision_model"], cfg.vq,
+            normalize_pixels(torch.as_tensor(batch[2]).to(m.device),
+                             proc.image_processor)).cpu()
+            for m in (cpu_model, gpu_model)]
+        self.check(bool((ids[0] == ids[1]).all()),
+                   "VQ encode ids GPU (fp32, TF32 off) vs CPU equal")
+        (_, mc, gc), (_, mg, gg) = out
+        lc, lg = float(mc["loss"]), float(mg["loss"])
+        self.check(abs(lc - lg) <= 1e-4 * max(1.0, abs(lc)),
+                   f"SimPO loss GPU vs CPU (small model, flash path, fp32): "
+                   f"{lg:.6f} vs {lc:.6f} (tol 1e-4)")
+        worst = 0.0
+        for n in gc:
+            for key in ("a", "b"):
+                ref, got = gc[n][key], gg[n][key].cpu()
+                scale = float(ref.abs().max())
+                err = max_err(got, ref)
+                worst = max(worst, err / max(scale, 1e-30))
+        self.check(worst <= 1e-3, f"LoRA gradients GPU vs CPU: worst "
+                                  f"max|d|/max|ref| over 14 leaves "
+                                  f"{worst:.3g} (tol 1e-3)")
+
     # -- phase 4 ---------------------------------------------------------
     def main_path(self):
         from ospo_tpu_torch.config import Config
@@ -338,55 +646,159 @@ class Smoke:
         from ospo_tpu_torch.pipeline import step3
         from ospo_tpu_torch.utils.png import read_png
 
-        with tempfile.TemporaryDirectory() as tmp:
-            config = Config.from_nested({
-                **STEP3_CONFIG, "model_path": None, "model_preset": "7b",
-                "data_path": FIXTURE, "e_idx": N_ITEMS,
-                "save_path": os.path.join(tmp, "step3")})
-            torch.cuda.reset_peak_memory_stats()
-            fa.launches = da.launches = 0
-            t0 = time.time()
-            stats = step3.main(config)
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-            counts = {"flash_fwd": fa.launches, "decode_attention": da.launches}
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            print(f"main path: {stats['groups']} groups, {stats['images']} "
-                  f"images, {stats['image_tokens']} image tokens in "
-                  f"{stats['seconds']:.1f} s of serving "
-                  f"({stats['image_tokens'] / stats['seconds']:.1f} img-tok/s); "
-                  f"step3.main {wall:.1f} s with the 7B init; peak memory "
-                  f"{peak_gb:.2f} GB")
-            layers, n_img = 30, 576
-            groups = stats["groups"]
-            self.check(counts["flash_fwd"] == layers * groups,
-                       f"flash_fwd launches {counts['flash_fwd']} == "
-                       f"{layers} x {groups} groups")
-            self.check(counts["decode_attention"] == layers * (n_img - 1) * groups,
-                       f"decode_attention launches {counts['decode_attention']}"
-                       f" == {layers} x {n_img - 1} x {groups} groups")
-            for name, n in counts.items():
-                if name in self.kernels:
-                    self.kernels[name]["launches"] = n
+        tmp = self.workdir  # the PNG tree stays for phase 5
+        config = Config.from_nested({
+            **STEP3_CONFIG, "model_path": None, "model_preset": "7b",
+            "data_path": FIXTURE, "e_idx": N_ITEMS,
+            "save_path": os.path.join(tmp, "step3")})
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = da.launches = 0
+        t0 = time.time()
+        stats = step3.main(config)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = {"flash_fwd": fa.launches, "decode_attention": da.launches}
+        print(f"main path step 3 launches: {counts}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"main path: {stats['groups']} groups, {stats['images']} "
+              f"images, {stats['image_tokens']} image tokens in "
+              f"{stats['seconds']:.1f} s of serving "
+              f"({stats['image_tokens'] / stats['seconds']:.1f} img-tok/s); "
+              f"step3.main {wall:.1f} s with the 7B init; peak memory "
+              f"{peak_gb:.2f} GB")
+        layers, n_img = 30, 576
+        groups = stats["groups"]
+        self.check(counts["flash_fwd"] == layers * groups,
+                   f"flash_fwd launches {counts['flash_fwd']} == "
+                   f"{layers} x {groups} groups")
+        self.check(counts["decode_attention"] == layers * (n_img - 1) * groups,
+                   f"decode_attention launches {counts['decode_attention']}"
+                   f" == {layers} x {n_img - 1} x {groups} groups")
+        for name, n in counts.items():
+            self.launches[name] = self.launches.get(name, 0) + n
 
-            data = read_json(FIXTURE)[:N_ITEMS]
-            n_png = 0
-            bad = []
-            for sample in data:
-                for ptype in ("base", "negative"):
-                    d = os.path.join(tmp, "step3", ptype, sample["category"],
-                                     sample["item_id"])
-                    if read_json(os.path.join(d, "metadata.json")) != sample:
-                        bad.append(f"{d}/metadata.json")
-                    for i in range(3):
-                        img = read_png(os.path.join(d, f"{i:02d}.png"))
-                        n_png += 1
-                        if img.shape != (384, 384, 3) or img.dtype.name != "uint8" \
-                                or int(img.max()) == int(img.min()):
-                            bad.append(f"{d}/{i:02d}.png {img.shape}")
-            self.check(not bad and n_png == 6 * N_ITEMS and groups == 6,
-                       f"output tree: {n_png} PNGs (384x384x3 uint8, "
-                       f"non-constant) + metadata.json; bad: {bad[:3]}")
+        data = read_json(FIXTURE)[:N_ITEMS]
+        n_png = 0
+        bad = []
+        for sample in data:
+            for ptype in ("base", "negative"):
+                d = os.path.join(tmp, "step3", ptype, sample["category"],
+                                 sample["item_id"])
+                if read_json(os.path.join(d, "metadata.json")) != sample:
+                    bad.append(f"{d}/metadata.json")
+                for i in range(3):
+                    img = read_png(os.path.join(d, f"{i:02d}.png"))
+                    n_png += 1
+                    if img.shape != (384, 384, 3) or img.dtype.name != "uint8" \
+                            or int(img.max()) == int(img.min()):
+                        bad.append(f"{d}/{i:02d}.png {img.shape}")
+        self.check(not bad and n_png == 6 * N_ITEMS and groups == 6,
+                   f"output tree: {n_png} PNGs (384x384x3 uint8, "
+                   f"non-constant) + metadata.json; bad: {bad[:3]}")
+
+    # -- phase 5 ---------------------------------------------------------
+    def train_path(self):
+        import gc
+
+        import numpy as np
+
+        from ospo_tpu_torch.config import Config
+        from ospo_tpu_torch.io import read_json
+        from ospo_tpu_torch.ops import flash_attention as fa
+        from ospo_tpu_torch.pipeline import step5
+
+        gc.collect()  # the int8 step-3 model of phase 4 goes first
+        torch.cuda.empty_cache()
+        print(f"device memory before step 5: "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        image_root = os.path.join(self.workdir, "step3")
+        records = train_records()
+        self.check(len(records) == 21 and all(
+            os.path.exists(os.path.join(image_root, *r[k].split("/")[-4:]))
+            for r in records for k in ("chosen", "rejected")),
+            f"{len(records)} train.json records with their step-3 PNGs "
+            "(expected 21)")
+        data_path = os.path.join(self.workdir, "step4", "train.json")
+        os.makedirs(os.path.dirname(data_path), exist_ok=True)
+        with open(data_path, "w") as f:
+            json.dump(records, f)
+        save_path = os.path.join(self.workdir, "step5")
+        config = Config.from_nested(merged(STEP5_CONFIG, step5_overrides(
+            data_path, image_root, save_path)))
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        t0 = time.time()
+        trainer = step5.main(config)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+                  "flash_bwd_dkv": fa.dkv_launches}
+        print(f"main path step 5 launches: {counts}")
+        for name, n in counts.items():
+            self.launches[name] = self.launches.get(name, 0) + n
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps = trainer.update_seconds
+        stats = trainer.stats
+        print(f"step 5: {trainer.global_step} optimizer steps, text bucket "
+              f"{trainer._t_pad} (sequence {trainer._t_pad + 576}), step "
+              f"seconds {[round(x, 3) for x in steps]}, samples/s steady "
+              f"{stats.get('samples_per_s_steady')}, wall "
+              f"{stats.get('samples_per_s_wall')}; step5.main {wall:.1f} s "
+              f"with the 7B init; peak memory {peak_gb:.2f} GB")
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True)
+        print(f"step 5 card: {smi.stdout.strip()}")
+        if steps and self.train_kernel_ms:
+            ms = self.train_kernel_ms
+            flash_s = (60 * ms["fwd"] + 30 * ms["dq"] + 30 * ms["dkv"]) / 1e3
+            print(f"flash kernels at the 16-pair shape (phase 2 times x 60/30/30"
+                  f" launches): {flash_s:.3f} s of the last step's "
+                  f"{steps[-1]:.3f} s ({100 * flash_s / steps[-1]:.1f}%)")
+        micro = trainer.global_step  # no accumulation in configs/step5.yaml
+        want = {"flash_fwd": 60 * micro, "flash_bwd_dq": 30 * micro,
+                "flash_bwd_dkv": 30 * micro}
+        self.check(counts == want and micro == 3,
+                   f"step 5 launches {counts} == 60/30/30 x {micro} micro-steps")
+        loss = trainer.logged[0]["loss"] if trainer.logged else float("nan")
+        leaves = [t for ab in trainer.trainable.values() for t in ab.values()]
+        finite = all(bool(torch.isfinite(t).all()) for t in leaves)
+        moved = all(bool(ab["b"].abs().max() > 0)
+                    for ab in trainer.trainable.values())
+        self.check(np.isfinite(loss) and finite and moved,
+                   f"step 5: logged loss {loss:.4f} finite, adapters finite "
+                   f"and B moved off zero")
+        ck = os.path.join(trainer.log_dir, "step_000003")
+        files = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
+        meta = read_json(os.path.join(ck, "meta.json")) if files else {}
+        tstats = os.path.join(trainer.log_dir, "train_stats.json")
+        keys = set(read_json(tstats)) if os.path.exists(tstats) else set()
+        self.check(files == ["lora.npz", "meta.json", "opt.npz"]
+                   and meta.get("step") == 3 and meta.get("mode") == "lora"
+                   and keys == {"first_update_s", "total_s", "samples",
+                                "samples_per_s_wall", "samples_per_s_steady"},
+                   f"step_000003/ {files}, meta step {meta.get('step')}, "
+                   f"train_stats.json keys {sorted(keys)}")
+
+
+def train_records():
+    """The records of the step-4 fixture whose images phase 4 writes."""
+    from ospo_tpu_torch.io import read_json
+
+    items = {(d["category"], d["item_id"]) for d in read_json(FIXTURE)[:N_ITEMS]}
+    return [r for r in read_json(TRAIN_FIXTURE)
+            if (r["category"], r["item_id"]) in items]
+
+
+def train_bucket() -> int:
+    """Phase 5's run-level text bucket, as the trainer computes it."""
+    from ospo_tpu_torch.processing import Processor, t2i_prompt
+    from ospo_tpu_torch.tokenizer import load_tokenizer
+    from ospo_tpu_torch.train.trainer import _bucket
+
+    proc = Processor(load_tokenizer(None, vocab_size=102400))
+    return _bucket(max(len(proc.tokenizer.encode(t2i_prompt(proc, r["prompt"])))
+                       for r in train_records()))
 
 
 def _dominant_last_key(q, kc, vc, ks, vs, layer, cur):
@@ -429,18 +841,29 @@ def main() -> int:
     except ImportError:
         traceback.print_exc()
         return 3
-    smoke = Smoke()
-    smoke.phase("environment and kernel build", smoke.environment)
-    if smoke.failures:
-        return 1
-    smoke.phase("flash_fwd kernel vs plain", smoke.flash_kernel)
-    smoke.phase("decode_attention kernel vs plain", smoke.decode_kernel)
-    smoke.phase("small model GPU vs CPU", smoke.small_model)
-    if not args.skip_main:
-        smoke.phase("main path: step 3 at 7B width", smoke.main_path)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        smoke = Smoke(workdir)
+        smoke.phase("environment and kernel build", smoke.environment)
+        if smoke.failures:
+            return 1
+        smoke.phase("flash_fwd kernel vs plain", smoke.flash_kernel)
+        smoke.phase("flash dQ and dK/dV kernels vs plain",
+                    smoke.flash_backward_kernels)
+        smoke.phase("decode_attention kernel vs plain", smoke.decode_kernel)
+        smoke.phase("small model GPU vs CPU", smoke.small_model)
+        smoke.phase("small model training step GPU vs CPU",
+                    smoke.small_train_step)
+        if not args.skip_main:
+            smoke.phase("main path: step 3 at 7B width", smoke.main_path)
+            smoke.phase("main path: step 5 at 7B width", smoke.train_path)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     if smoke.failures or args.skip_main:
         print(f"FAILED: {smoke.failures}")
         return 1
+    for name, entry in smoke.kernels.items():
+        entry["launches"] = smoke.launches.get(name, 0)
     print(json.dumps({"kernels": list(smoke.kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

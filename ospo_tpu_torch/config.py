@@ -1,6 +1,6 @@
 """Config system: YAML file + dot-list CLI overrides (copy of the
-``build_config`` part of ``ospo_tpu/config.py``; PyYAML is imported where a
-file or an override is parsed).
+``build_config`` and ``save_config`` parts of ``ospo_tpu/config.py``; PyYAML
+is imported where a file or an override is parsed).
 
 Replicates the contract of the reference's ``build_config``
 (``ospo/utils/common.py:74-100``): load a YAML file, optionally re-merge a
@@ -12,6 +12,8 @@ plain PyYAML plus a small merge/interpolation engine.
 from __future__ import annotations
 
 import copy
+import json
+import os
 import re
 from typing import Any, Iterable, Mapping, Optional
 
@@ -178,3 +180,11 @@ def build_config(
         cfg = _deep_merge(cfg, from_cli())
     cfg = _interpolate(cfg)
     return Config.from_nested(cfg)
+
+
+def save_config(save_path: str, config: Mapping) -> None:
+    """Persist the run config as ``config.yaml`` beside logs and checkpoints,
+    JSON-formatted like the reference (``ospo/utils/common.py:102-108``)."""
+    os.makedirs(save_path, exist_ok=True)
+    with open(os.path.join(save_path, "config.yaml"), "w") as f:
+        json.dump(dict(config), f, indent=4, default=str)

@@ -30,6 +30,7 @@ class JanusConfig:
     gen_aligner_depth: int = 2
     image_token_size: int = 16384    # VQ codebook size = image vocab
     gen_image_size: int = 384        # generated-image resolution
+    image_size: int = 384            # image-processor size (the vision tower's)
     dtype: Any = torch.bfloat16
 
     @property
@@ -52,13 +53,14 @@ JANUS_PRO_1B = JanusConfig(language=llama.LLAMA_1B)
 
 def tiny_janus_config(vocab_size: int = 512, dtype=torch.float32) -> JanusConfig:
     """The JAX package's tiny Janus (2 layers, width 64, 16px images →
-    8×8 = 64 image tokens)."""
+    8×8 = 64 image tokens; its processor size is the tiny ViT's 32px)."""
     return JanusConfig(
         language=llama.tiny_config(vocab_size=vocab_size, dtype=dtype),
         vq=vqgan.tiny_vq_config(),
         gen_embed_dim=8,
         image_token_size=64,
         gen_image_size=16,
+        image_size=32,
         dtype=dtype,
     )
 
@@ -192,6 +194,33 @@ def _init_vq_decoder(ini: _Init, cfg: vqgan.VQConfig) -> Params:
             "post_quant_conv": ini.conv(1, cfg.codebook_dim, cfg.z_channels)}
 
 
+def _init_vq_encoder(ini: _Init, cfg: vqgan.VQConfig) -> Params:
+    """The encoder side (``vqgan.init_params`` :111-135) and quant_conv."""
+    ch, mults = cfg.base_ch, cfg.ch_mult
+    n_levels = len(mults)
+    enc: Params = {"conv_in": ini.conv(3, 3, ch)}
+    levels = []
+    block_in = ch
+    for i in range(n_levels):
+        block_out = ch * mults[i]
+        level: Params = {"res": [], "attn": []}
+        for _ in range(cfg.num_res_blocks):
+            level["res"].append(ini.res(block_in, block_out))
+            block_in = block_out
+            if i == n_levels - 1:
+                level["attn"].append(ini.attn(block_in))
+        if i != n_levels - 1:
+            level["downsample"] = ini.conv(3, block_in, block_in)
+        levels.append(level)
+    enc["levels"] = levels
+    enc["mid"] = [ini.res(block_in, block_in), ini.attn(block_in),
+                  ini.res(block_in, block_in)]
+    enc["norm_out"] = ini.gn(block_in)
+    enc["conv_out"] = ini.conv(3, block_in, cfg.z_channels)
+    return {"encoder": enc,
+            "quant_conv": ini.conv(1, cfg.z_channels, cfg.codebook_dim)}
+
+
 @dataclasses.dataclass
 class JanusModel:
     """Config + params (+ the device they live on)."""
@@ -223,4 +252,7 @@ class JanusModel:
             "gen_embed": ini.normal((cfg.image_token_size, cfg.gen_embed_dim),
                                     0.02, dt),
         }
+        # drawn last, so the step-3 weights of a seed are those drawn before
+        # the encoder existed
+        params["gen_vision_model"].update(_init_vq_encoder(ini, cfg.vq))
         return cls(cfg, params, device)

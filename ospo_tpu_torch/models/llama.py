@@ -13,6 +13,11 @@ JAX package threads a new cache through its scan instead).  Prefill
 flash kernel; a cached T=1 step writes its row and reads the cache with the
 decode-attention kernel.  Numerics follow the reference: weights in the
 model dtype, RMSNorm / RoPE / softmax / SiLU in fp32.
+
+Without a cache the trunk is the training forward: LoRA adapters with
+dropout, per-layer activation checkpointing, and attention through the
+differentiable flash path (forward and backward kernels) or the plain
+masked attention.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ospo_tpu_torch.ops.attention import attention
 from ospo_tpu_torch.ops.decode_attention import decode_attention
@@ -118,6 +124,44 @@ def _layer(layers: Params, li: int) -> Params:
 
 
 # ---------------------------------------------------------------------------
+# LoRA
+# ---------------------------------------------------------------------------
+
+PROJ_INDEX = {
+    "q_proj": 0, "k_proj": 1, "v_proj": 2, "o_proj": 3,
+    "gate_proj": 4, "up_proj": 5, "down_proj": 6,
+}
+
+
+def fold_seed(seed: int, i: int) -> int:
+    """A new 63-bit seed from ``seed`` and an index (the counterpart of
+    ``jax.random.fold_in`` for the dropout seeds; different numbers)."""
+    return (seed * 0x9E3779B97F4A7C15 + (i + 1) * 0xBF58476D1CE4E5B9) % (1 << 63)
+
+
+def _maybe_lora(x: torch.Tensor, w, lora: Optional[Params], name: str,
+                scaling: float, dropout_rate: float = 0.0,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
+    """y = x @ wᵀ (+ scaling * (x_l @ A) @ B when an adapter exists), as in
+    ``ospo_tpu/models/llama.py:163-224``: A [d_in, r] and B [r, d_out] are
+    cast to x's dtype; dropout (peft semantics) applies to the adapter
+    input only.  The mask is drawn from a generator seeded with
+    ``fold_seed(dropout_seed, PROJ_INDEX[name])`` each call, so a
+    checkpointed layer's recompute redraws the same mask."""
+    y = linear(x, w)
+    if lora is None or name not in lora:
+        return y
+    a, b = lora[name]["a"], lora[name]["b"]
+    x_l = x
+    if dropout_rate and dropout_seed is not None:
+        gen = torch.Generator(device=x.device)
+        gen.manual_seed(fold_seed(dropout_seed, PROJ_INDEX[name]))
+        keep = torch.empty_like(x).bernoulli_(1.0 - dropout_rate, generator=gen)
+        x_l = x * keep / (1.0 - dropout_rate)
+    return y + scaling * ((x_l @ a.to(x.dtype)) @ b.to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
 # KV cache
 # ---------------------------------------------------------------------------
 
@@ -184,10 +228,43 @@ def _write_kv(cache: Dict[str, Any], li: int, start: int,
 # ---------------------------------------------------------------------------
 
 
+def _train_layer(x: torch.Tensor, lp: Params, llora: Optional[Params],
+                 cfg: LlamaConfig, cos, sin, attention_mask, scaling: float,
+                 dropout_rate: float, dropout_seed: Optional[int],
+                 attn_impl: str) -> torch.Tensor:
+    """One layer of the no-cache path (``layer_body`` at
+    ``ospo_tpu/models/llama.py:751-755``)."""
+    B, T = x.shape[:2]
+
+    def proj(h, w, name):
+        return _maybe_lora(h, w, llora, name, scaling, dropout_rate,
+                           dropout_seed)
+
+    h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+    q = proj(h, lp["wq"], "q_proj").view(B, T, cfg.num_heads, cfg.dim_head)
+    k = proj(h, lp["wk"], "k_proj").view(B, T, cfg.kv_heads, cfg.dim_head)
+    v = proj(h, lp["wv"], "v_proj").view(B, T, cfg.kv_heads, cfg.dim_head)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    attn = attention(q, k, v, mask=attention_mask, impl=attn_impl)
+    x = x + proj(attn.reshape(B, T, cfg.num_heads * cfg.dim_head), lp["wo"],
+                 "o_proj")
+    h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    gate = proj(h, lp["w_gate"], "gate_proj")
+    up = proj(h, lp["w_up"], "up_proj")
+    act = F.silu(gate.float()).to(h.dtype) * up
+    return x + proj(act, lp["w_down"], "down_proj")
+
+
 def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
             attention_mask: torch.Tensor, positions: torch.Tensor,
             kv_cache: Optional[Dict[str, Any]] = None,
             self_attn: bool = False,
+            lora: Optional[Params] = None,
+            lora_scaling: float = 1.0,
+            lora_dropout: float = 0.0,
+            lora_dropout_seed: Optional[int] = None,
+            remat: bool = False,
+            attn_impl: str = "auto",
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Run the decoder trunk; returns (final-norm hidden states, cache).
 
@@ -197,19 +274,50 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     step writes its row at ``cache['length']`` and reads positions
     ``[0, length + 1)`` of the cache; ``attention_mask`` covers the whole
     cache window ``[B, S_max]`` (int32).
+
+    Training (no cache, ``ospo_tpu/models/llama.py:325-776``): ``lora``
+    ``{proj: {"a": [L, d_in, r], "b": [L, r, d_out]}}`` adds adapters with
+    ``lora_scaling``; ``lora_dropout`` with a ``lora_dropout_seed`` (one per
+    micro-step) drops adapter inputs, each (layer, projection) mask from its
+    own seed; ``remat`` checkpoints each layer
+    (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``);
+    ``attn_impl`` is passed to :func:`attention` (``"flash"`` runs the
+    backward kernels).
     """
     x = inputs_embeds.to(cfg.dtype)
     B, T = x.shape[:2]
     cos, sin = rope_frequencies(cfg, positions)
-    cache_len = kv_cache["length"] if kv_cache is not None else 0
-    if kv_cache is not None and not self_attn:
+    if kv_cache is None:
+        for li in range(cfg.num_layers):
+            lp = _layer(params["layers"], li)
+            llora = None if lora is None else {
+                n: {"a": ab["a"][li], "b": ab["b"][li]} for n, ab in lora.items()}
+            seed = (None if lora_dropout_seed is None
+                    else fold_seed(lora_dropout_seed, li))
+            args = (lp, llora, cfg, cos, sin, attention_mask, lora_scaling,
+                    lora_dropout, seed, attn_impl)
+            if remat:
+                # the dropout masks come from explicit per-call generators,
+                # so no global RNG state needs stashing for the recompute
+                x = torch.utils.checkpoint.checkpoint(
+                    _train_layer, x, *args, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                x = _train_layer(x, *args)
+        return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), None
+    if lora is not None or remat or attn_impl != "auto":
+        raise NotImplementedError(
+            "LoRA, remat and attn_impl are options of the training (no-cache) "
+            "path; merge adapters for generation (train/lora.merge)")
+    cache_len = kv_cache["length"]
+    if not self_attn:
         if T != 1:
             raise NotImplementedError(
                 "cached multi-token steps (speculative Jacobi) are queued in "
                 "ROADMAP.md (slice 5, opt-in modes)")
         if cfg.kv_heads != cfg.num_heads:
             raise NotImplementedError("the decode-attention kernel is MHA only")
-    if self_attn and (kv_cache is None or cache_len != 0):
+    if self_attn and cache_len != 0:
         raise ValueError("self_attn prefill needs an empty cache")
 
     for li in range(cfg.num_layers):
@@ -219,9 +327,8 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
         k = linear(h, lp["wk"]).view(B, T, cfg.kv_heads, cfg.dim_head)
         v = linear(h, lp["wv"]).view(B, T, cfg.kv_heads, cfg.dim_head)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        if kv_cache is not None:
-            _write_kv(kv_cache, li, cache_len, k, v)
-        if kv_cache is None or self_attn:
+        _write_kv(kv_cache, li, cache_len, k, v)
+        if self_attn:
             attn = attention(q, k, v, mask=attention_mask)
         else:
             attn = decode_attention(q, kv_cache["k"], kv_cache["v"], li,
@@ -235,8 +342,7 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
         act = F.silu(gate.float()).to(h.dtype) * up
         x = x + linear(act, lp["w_down"])
 
-    if kv_cache is not None:
-        kv_cache["length"] = cache_len + T
+    kv_cache["length"] = cache_len + T
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), kv_cache
 
 

@@ -1,10 +1,10 @@
-"""VQ-GAN detokenizer (decode side) in PyTorch — counterpart of the decode
-half of ``ospo_tpu/models/vqgan.py``.
+"""VQ-GAN tokenizer (encode side, step 5) and detokenizer (decode side,
+step 3) in PyTorch — counterpart of ``ospo_tpu/models/vqgan.py``.
 
 Runs NCHW with OIHW convolution weights, in fp32 throughout; the public
-:func:`decode_code` takes ids and returns NHWC pixels like the JAX function.
-On the GPU :func:`decode_code` runs with cuDNN's TF32 off, so convolutions
-keep full fp32 as in the reference.
+:func:`encode_to_ids` and :func:`decode_code` take and return NHWC pixels
+like the JAX functions.  On the GPU both run with TF32 off, so convolutions
+and the codebook product keep full fp32 as in the reference.
 The attention block at the lowest resolution is a plain product
 (``torch.matmul``), as the reference leaves it to the compiler.
 """
@@ -90,6 +90,30 @@ def upsample(p: Params, x: torch.Tensor) -> torch.Tensor:
     return conv2d(p, x)
 
 
+def downsample(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Pad (left 0, right 1, top 0, bottom 1), then a stride-2 valid
+    convolution (``vqgan.py:229-232``)."""
+    x = F.pad(x, (0, 1, 0, 1))
+    return F.conv2d(x, p["w"], p["b"], stride=2)
+
+
+def encoder_forward(p: Params, cfg: VQConfig, x: torch.Tensor) -> torch.Tensor:
+    """NCHW pixels → NCHW latents (``vqgan.py:246-260``)."""
+    h = conv2d(p["conv_in"], x)
+    n_levels = len(cfg.ch_mult)
+    for i, level in enumerate(p["levels"]):
+        for j, rp in enumerate(level["res"]):
+            h = res_block(rp, h)
+            if level["attn"]:
+                h = attn_block(level["attn"][j], h)
+        if i != n_levels - 1:
+            h = downsample(level["downsample"], h)
+    h = res_block(p["mid"][0], h)
+    h = attn_block(p["mid"][1], h)
+    h = res_block(p["mid"][2], h)
+    return conv2d(p["conv_out"], swish(group_norm(p["norm_out"], h)))
+
+
 def decoder_forward(p: Params, cfg: VQConfig, z: torch.Tensor) -> torch.Tensor:
     h = conv2d(p["conv_in"], z)
     h = res_block(p["mid"][0], h)
@@ -111,6 +135,49 @@ def normalized_codebook(params: Params, cfg: VQConfig) -> torch.Tensor:
     if cfg.l2_norm_codebook:
         cb = cb / torch.linalg.vector_norm(cb, dim=-1, keepdim=True)
     return cb
+
+
+def _nearest_code(params: Params, cfg: VQConfig, z: torch.Tensor):
+    """z NHWC → (zn, looked-up codes NHWC, flat ids): argmin over the
+    codebook of ‖z‖² − 2 z·e + ‖e‖² in fp32 (``vqgan.py:287-303``)."""
+    cb = normalized_codebook(params, cfg)
+    zn = z
+    if cfg.l2_norm_codebook:
+        zn = z / torch.linalg.vector_norm(z, dim=-1, keepdim=True).clamp_min(1e-12)
+    flat = zn.reshape(-1, zn.shape[-1])
+    dots = flat @ cb.T
+    d = (flat * flat).sum(dim=-1, keepdim=True) - 2 * dots + (cb * cb).sum(dim=-1)
+    ids = torch.argmin(d, dim=-1)
+    return zn, cb[ids].reshape(zn.shape), ids
+
+
+def quantize(params: Params, cfg: VQConfig, z: torch.Tensor):
+    """Nearest-codebook lookup. z NHWC [B, h, w, Cd] → (z_q, ids [B, h, w]);
+    the straight-through z_q passes gradients to the normalised z."""
+    zn, z_q_raw, ids = _nearest_code(params, cfg, z)
+    return zn + (z_q_raw - zn).detach(), ids.reshape(z.shape[:-1])
+
+
+def encode(params: Params, cfg: VQConfig, pixels: torch.Tensor):
+    """NHWC pixels in [-1, 1] → (z_q NHWC, ids [B, h, w]); convolutions and
+    the codebook product in full fp32 (TF32 off on the GPU)."""
+    x = pixels.float().permute(0, 3, 1, 2).contiguous()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            h = encoder_forward(params["encoder"], cfg, x)
+            z = conv2d(params["quant_conv"], h)
+        return quantize(params, cfg, z.permute(0, 2, 3, 1))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def encode_to_ids(params: Params, cfg: VQConfig, pixels: torch.Tensor) -> torch.Tensor:
+    """The step-5 hot path: images → flat codebook ids [B, h*w]
+    (``vqgan.py:354-358``)."""
+    _, ids = encode(params, cfg, pixels)
+    return ids.reshape(ids.shape[0], -1)
 
 
 def decode(params: Params, cfg: VQConfig, z_q: torch.Tensor) -> torch.Tensor:

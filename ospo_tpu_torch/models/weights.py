@@ -7,9 +7,9 @@
 - :func:`load_janus` reads the generation-side keys of an HF-keyed Janus-Pro
   safetensors checkpoint, by the key map of ``ospo_tpu/models/weights.py``
   (``port_llama`` :170, ``port_vqgan`` :307, ``port_mlp_projector`` :378,
-  ``port_vision_head`` :392, ``config_from_checkpoint`` :410).  The
-  understanding tower and the encoder side of the VQ model are not read
-  (not built in the port yet), nor is ``lm_head`` when it is dropped.
+  ``port_vision_head`` :392, ``config_from_checkpoint`` :410), the VQ
+  model's encoder and decoder included.  The understanding tower is not
+  read (not built in the port yet), nor is ``lm_head`` when it is dropped.
 """
 
 from __future__ import annotations
@@ -59,12 +59,7 @@ def from_jax_params(tree: Params, device=None) -> Params:
             t = t.permute(3, 2, 0, 1).contiguous()      # HWIO → OIHW
         return t
 
-    out = _map_tree({k: tree[k] for k in _GEN_KEYS if k in tree}, leaf)
-    vq = out.get("gen_vision_model")
-    if vq is not None:
-        out["gen_vision_model"] = {k: vq[k] for k in
-                                   ("decoder", "codebook", "post_quant_conv")}
-    return out
+    return _map_tree({k: tree[k] for k in _GEN_KEYS if k in tree}, leaf)
 
 
 # ---------------------------------------------------------------------------
@@ -102,6 +97,7 @@ def config_from_checkpoint(model_path: str) -> janus_lib.JanusConfig:
         z_channels=vqp.get("z_channels", 256),
     ) if vqp else vqgan_lib.VQ_16
     gap = hf.get("gen_aligner_config", {}).get("params", {})
+    vp = hf.get("vision_config", {}).get("params", {})
     return janus_lib.JanusConfig(
         language=lang,
         vq=vq,
@@ -109,6 +105,7 @@ def config_from_checkpoint(model_path: str) -> janus_lib.JanusConfig:
         image_token_size=gvp.get("image_token_size", 16384),
         gen_image_size=gvp.get("image_size", 384),
         gen_aligner_depth=gap.get("depth", 2),
+        image_size=vp.get("image_size", 384),
         dtype=dtype,
     )
 
@@ -167,8 +164,8 @@ def _port_llama(ck: _Checkpoint, cfg: llama_lib.LlamaConfig, quantize: bool,
     return out
 
 
-def _port_vq_decoder(ck: _Checkpoint, cfg: vqgan_lib.VQConfig,
-                     prefix: str = "gen_vision_model.") -> Params:
+def _port_vq(ck: _Checkpoint, cfg: vqgan_lib.VQConfig,
+             prefix: str = "gen_vision_model.") -> Params:
     f32 = torch.float32
 
     def conv(name):  # checkpoint kernels are OIHW already
@@ -190,25 +187,32 @@ def _port_vq_decoder(ck: _Checkpoint, cfg: vqgan_lib.VQConfig,
                 "k": conv(name + ".k"), "v": conv(name + ".v"),
                 "proj_out": conv(name + ".proj_out")}
 
-    d = prefix + "decoder."
-    dec: Params = {"conv_in": conv(d + "conv_in"),
-                   "mid": [res(d + "mid.0"), attn(d + "mid.1"), res(d + "mid.2")]}
-    levels = []
-    for i in range(len(cfg.ch_mult)):
-        base = f"{d}conv_blocks.{i}"
-        level: Params = {"res": [], "attn": []}
-        for j in range(cfg.num_res_blocks + 1):
-            level["res"].append(res(f"{base}.res.{j}"))
-            if f"{base}.attn.{j}.q.weight" in ck:
-                level["attn"].append(attn(f"{base}.attn.{j}"))
-        if f"{base}.upsample.conv.weight" in ck:
-            level["upsample"] = conv(f"{base}.upsample.conv")
-        levels.append(level)
-    dec["levels"] = levels
-    dec["norm_out"] = gn(d + "norm_out")
-    dec["conv_out"] = conv(d + "conv_out")
-    return {"decoder": dec,
+    def levels(side: str, n_res: int, resample: str):
+        out = []
+        for i in range(len(cfg.ch_mult)):
+            base = f"{prefix}{side}.conv_blocks.{i}"
+            level: Params = {"res": [], "attn": []}
+            for j in range(n_res):
+                level["res"].append(res(f"{base}.res.{j}"))
+                if f"{base}.attn.{j}.q.weight" in ck:
+                    level["attn"].append(attn(f"{base}.attn.{j}"))
+            if f"{base}.{resample}.conv.weight" in ck:
+                level[resample] = conv(f"{base}.{resample}.conv")
+            out.append(level)
+        return out
+
+    def tower(side: str, n_res: int, resample: str) -> Params:
+        d = f"{prefix}{side}."
+        return {"conv_in": conv(d + "conv_in"),
+                "mid": [res(d + "mid.0"), attn(d + "mid.1"), res(d + "mid.2")],
+                "levels": levels(side, n_res, resample),
+                "norm_out": gn(d + "norm_out"),
+                "conv_out": conv(d + "conv_out")}
+
+    return {"encoder": tower("encoder", cfg.num_res_blocks, "downsample"),
+            "decoder": tower("decoder", cfg.num_res_blocks + 1, "upsample"),
             "codebook": ck.get(prefix + "quantize.embedding.weight", f32),
+            "quant_conv": conv(prefix + "quant_conv"),
             "post_quant_conv": conv(prefix + "post_quant_conv")}
 
 
@@ -240,7 +244,7 @@ def load_janus(model_path: str, device=None,
     ck = _Checkpoint(model_path, device)
     params = {
         "language_model": _port_llama(ck, cfg.language, quantize, lm_head),
-        "gen_vision_model": _port_vq_decoder(ck, cfg.vq),
+        "gen_vision_model": _port_vq(ck, cfg.vq),
         "gen_aligner": _port_mlp_projector(ck, "gen_aligner.",
                                            cfg.gen_aligner_depth, cfg.dtype),
         "gen_head": _port_vision_head(ck, "gen_head.", cfg.dtype),

@@ -1,5 +1,5 @@
-"""Attention dispatch: the flash kernel for self-attention prefill, the plain
-masked attention :func:`xla_attention` elsewhere (counterpart of
+"""Attention dispatch: the flash kernels for self-attention, the plain masked
+attention :func:`xla_attention` elsewhere (counterpart of
 ``ospo_tpu/ops/attention.py``).
 
 Shared semantics:
@@ -44,13 +44,30 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-def attention(q, k, v, mask=None, q_offset: int = 0,
-              causal: bool = True) -> torch.Tensor:
-    """Self-attention prefill (``q_offset == 0`` and T == S) goes to the
-    flash kernel (its plain version for CPU tensors); any other shape takes
-    :func:`xla_attention`."""
-    if q_offset != 0 or q.shape[1] != k.shape[1]:
-        return xla_attention(q, k, v, mask, q_offset, causal)
-    from ospo_tpu_torch.ops.flash_attention import flash_attention
+def attention(q, k, v, mask=None, q_offset: int = 0, causal: bool = True,
+              impl: str = "auto") -> torch.Tensor:
+    """``impl`` as in ``ospo_tpu.ops.attention.attention`` (:263-313):
 
-    return flash_attention(q, k, v, mask=mask, causal=causal)
+    - ``"auto"``: self-attention (``q_offset == 0`` and T == S) takes the
+      flash path, any other shape :func:`xla_attention`;
+    - ``"flash"``: the flash path; only a ``q_offset`` of 0 (the kernels'
+      causality is row-local);
+    - ``"xla"``: :func:`xla_attention`, differentiated by autograd.
+
+    The flash path is differentiable: the forward kernel, and the dQ and
+    dK/dV kernels in the backward (the plain versions for CPU tensors).
+    """
+    if impl not in ("auto", "flash", "xla"):
+        raise ValueError(f"unknown attention impl {impl!r} "
+                         "(expected auto | flash | xla)")
+    offset_zero = isinstance(q_offset, int) and q_offset == 0
+    if impl == "flash" and not offset_zero:
+        raise ValueError(
+            "impl='flash' supports only a static q_offset of 0 (prefill); "
+            "cached/offset reads take the XLA path")
+    if impl == "xla" or (impl == "auto" and (
+            not offset_zero or q.shape[1] != k.shape[1])):
+        return xla_attention(q, k, v, mask, q_offset, causal)
+    from ospo_tpu_torch.ops.flash_attention import flash_attention_train
+
+    return flash_attention_train(q, k, v, mask=mask, causal=causal)

@@ -30,6 +30,8 @@ P, I = ctypes.c_void_p, ctypes.c_int
 # as c_void_p, every int as c_int; each returns a cudaError_t)
 SIGNATURES = {
     "flash_fwd": ("ospo_flash_fwd", [P] * 7 + [I] * 8 + [P]),
+    "flash_bwd_dq": ("ospo_flash_bwd_dq", [P] * 9 + [I] * 8 + [P]),
+    "flash_bwd_dkv": ("ospo_flash_bwd_dkv", [P] * 10 + [I] * 8 + [P]),
     "decode_attention": ("ospo_decode_attention", [P] * 9 + [I] * 10 + [P]),
 }
 

@@ -1,11 +1,18 @@
-"""Pipeline dataset helpers used by step 3 (copy of ``load_base_dataset``
-and ``batched`` from ``ospo_tpu/pipeline/datasets.py``)."""
+"""Pipeline dataset helpers used by steps 3 and 5 (copy of
+``load_base_dataset``, ``batched`` and ``PreferenceDataset`` from
+``ospo_tpu/pipeline/datasets.py``; PNGs are decoded by ``utils/png``)."""
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import os
+import random
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
 
 from ospo_tpu_torch.io import read_json
+from ospo_tpu_torch.processing import Processor, t2i_prompt
+from ospo_tpu_torch.utils.png import read_png
 
 # gen_dataset.py:14-24 — default perturbation methods per sub_category
 DEFAULT_PERTURBED_METHODS = {
@@ -36,3 +43,74 @@ def load_base_dataset(fpath: str, s_idx: Optional[int] = None,
 def batched(items: Sequence, batch_size: int):
     for i in range(0, len(items), batch_size):
         yield items[i : i + batch_size]
+
+
+class PreferenceDataset:
+    """train.json records → (item_id, text token ids, chosen/rejected uint8
+    pixels) — ``PreferenceDataset`` (``ospo_tpu/pipeline/datasets.py:76-165``).
+    Image → VQ-token encoding happens on the device in the train step."""
+
+    def __init__(self, seed: int, data_path: str, processor: Processor,
+                 num_samples: Optional[int] = None):
+        self.processor = processor
+        self.dataset = read_json(data_path)
+        if num_samples is not None:
+            if not 0 < num_samples <= len(self.dataset):
+                raise ValueError(f"num_samples {num_samples} outside 1.."
+                                 f"{len(self.dataset)} ({data_path})")
+            rng = random.Random(seed)
+            idx = rng.sample(range(len(self.dataset)), num_samples)
+            self.dataset = [self.dataset[i] for i in idx]
+        self.data_root: Optional[str] = None  # override for relocated images
+
+    def __len__(self) -> int:
+        return len(self.dataset)
+
+    def resolve_path(self, path: str) -> str:
+        """train.json may carry absolute paths from another machine: re-root
+        at ``self.data_root`` from the LAST base|negative component (the
+        step-3 layout anchor)."""
+        if os.path.exists(path) or self.data_root is None:
+            return path
+        parts = path.replace("\\", "/").split("/")
+        for i in range(len(parts) - 1, -1, -1):
+            if parts[i] in ("base", "negative"):
+                return os.path.join(self.data_root, *parts[i:])
+        return path
+
+    def get_text_tokens(self, prompt: str) -> np.ndarray:
+        full = t2i_prompt(self.processor, prompt)
+        return np.asarray(self.processor.tokenizer.encode(full), np.int32)
+
+    def get_image(self, path: str) -> np.ndarray:
+        """uint8 [H, W, 3]; rescale and normalize run on the device."""
+        return self.processor.image_processor.process_one_u8(
+            read_png(self.resolve_path(path)))
+
+    def __getitem__(self, idx: int) -> Dict:
+        ex = self.dataset[idx]
+        for key in ("prompt", "chosen", "rejected"):
+            if key not in ex:
+                raise ValueError(
+                    f"Could not format example for SimPO: missing '{key}' "
+                    f"(has {list(ex.keys())})")
+        return {
+            "item_id": ex["item_id"],
+            "text_tokens": self.get_text_tokens(ex["prompt"]),
+            "chosen_pixels": self.get_image(ex["chosen"]),
+            "rejected_pixels": self.get_image(ex["rejected"]),
+        }
+
+    def max_text_len(self) -> int:
+        """Longest tokenized prompt (a host pass, no image IO): the trainer
+        pads every batch to one run-level text bucket."""
+        return max(len(self.get_text_tokens(ex["prompt"]))
+                   for ex in self.dataset)
+
+    def iter_batches(self, batch_size: int, shuffle: bool = True,
+                     seed: int = 0):
+        order = list(range(len(self.dataset)))
+        if shuffle:
+            random.Random(seed).shuffle(order)
+        for i in range(0, len(order), batch_size):
+            yield [self[j] for j in order[i : i + batch_size]]

@@ -9,9 +9,13 @@ Resolution (fail-fast, as in the JAX package):
 3. neither → error.
 
 The model lives on ``config.device`` (default ``cuda``; ``cpu`` only when
-asked).  ``quantize: int8`` gives an int8 trunk; ``drop_lm_head`` and
+asked).  ``ckpt_path`` (a LoRA checkpoint of step 5, from either package)
+is merged into the trunk before ``quantize: int8`` makes it int8
+(``ospo_tpu/pipeline/model_factory.py:154-177``); ``drop_lm_head`` and
 ``drop_understanding`` are honoured by never building those parts (the port
-builds neither in this slice).
+builds neither yet).  The processor's image processor comes from the
+checkpoint's ``preprocessor_config.json`` or the defaults at the model's
+image size.
 """
 
 from __future__ import annotations
@@ -20,7 +24,9 @@ import glob
 import os
 from typing import Optional, Tuple
 
+from ospo_tpu_torch.image_processing import load_image_processor
 from ospo_tpu_torch.models import janus as janus_lib
+from ospo_tpu_torch.ops import quant
 from ospo_tpu_torch.platform import resolve_device
 from ospo_tpu_torch.processing import Processor
 from ospo_tpu_torch.tokenizer import load_tokenizer
@@ -54,16 +60,16 @@ def _validate_quantize_mode(config) -> str:
 
 
 def _reject_unported(config) -> None:
-    if config.get("ckpt_path"):
-        raise NotImplementedError(
-            "ckpt_path (LoRA merge) is queued in ROADMAP.md (slice 4, "
-            "training)")
     if int(config.get("tensor_parallel") or 1) > 1 \
-            or int(config.get("data_parallel") or 0) > 1 \
-            or config.get("mesh_scope"):
+            or int(config.get("data_parallel") or 0) > 1:
         raise NotImplementedError(
-            "tensor_parallel / data_parallel / mesh_scope (multi-GPU) are "
-            "queued in ROADMAP.md (slice 5, scale-out)")
+            "tensor_parallel / data_parallel (multi-GPU) are queued in "
+            "ROADMAP.md (slice 5, scale-out)")
+    # one device: a 'local' or 'global' mesh (step 5 sets global) is that
+    # device alone
+    scope = config.get("mesh_scope") or "local"
+    if scope not in ("local", "global"):
+        raise ValueError(f"mesh_scope must be local|global, got {scope!r}")
 
 
 def build_model(config, quantize: bool = False) -> janus_lib.JanusModel:
@@ -107,10 +113,28 @@ def get_model(config) -> Tuple[janus_lib.JanusModel, object, Processor]:
     """→ (JanusModel, tokenizer, Processor)."""
     qmode = _validate_quantize_mode(config)
     _reject_unported(config)
+    ckpt_path = config.get("ckpt_path")
+    if ckpt_path:
+        from ospo_tpu_torch.train.checkpoint import (merge_lora_checkpoint,
+                                                     resolve_checkpoint_dir)
+
+        ckpt_path = resolve_checkpoint_dir(ckpt_path)  # fail before the build
     if qmode:
         print("# Quantizing language-model weights to int8 (W8A16).")
-    model = build_model(config, quantize=bool(qmode))
+    # a random-init trunk is quantized as it is drawn, unless adapters are
+    # merged into it first
+    model = build_model(config, quantize=bool(qmode) and not ckpt_path)
+    if ckpt_path:
+        print(f"# Merging LoRA checkpoint {ckpt_path} into base weights.")
+        merge_lora_checkpoint(model, ckpt_path)
+        if qmode:
+            layers = model.params["language_model"]["layers"]
+            for name in quant.QUANTIZABLE:
+                layers[name] = quant.quantize_matrix(layers[name])
     model_path = config.get("model_path")
     tokenizer = load_tokenizer(model_path if has_weights(model_path) else None,
                                vocab_size=model.cfg.language.vocab_size)
-    return model, tokenizer, Processor(tokenizer)
+    image_processor = load_image_processor(
+        model_path if has_weights(model_path) else None,
+        image_size=model.cfg.image_size)
+    return model, tokenizer, Processor(tokenizer, image_processor)

@@ -1,14 +1,13 @@
-"""Prompt processor for the generation path — the part of
-``ospo_tpu/processing.py`` that step 3 uses.
-
-The image processor (understanding path) comes with the understanding
-slice; until then ``image_processor`` is ``None``.
-"""
+"""Prompt processor — the part of ``ospo_tpu/processing.py`` that steps 3
+and 5 use: the tokenizer, the image processor (set by ``get_model`` from the
+checkpoint's preprocessor config, or the defaults at the model's size) and
+the text-to-image prompt."""
 
 from __future__ import annotations
 
 from ospo_tpu_torch import chat
 from ospo_tpu_torch.constants import IMAGE_START_TAG
+from ospo_tpu_torch.image_processing import ImageProcessor
 from ospo_tpu_torch.tokenizer import BaseTokenizer
 
 
@@ -17,7 +16,7 @@ class Processor:
 
     def __init__(self, tokenizer: BaseTokenizer, image_processor=None):
         self.tokenizer = tokenizer
-        self.image_processor = image_processor
+        self.image_processor = image_processor or ImageProcessor()
 
     @property
     def pad_id(self) -> int:

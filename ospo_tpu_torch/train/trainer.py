@@ -1,0 +1,325 @@
+"""SimPO trainer (step 5), LoRA mode — counterpart of
+``ospo_tpu/train/trainer.py`` (:71-533).
+
+One step does what the JAX package's ``_jit_step`` does (:289-350):
+
+  uint8 pixels → normalize → VQ encode to 576 ids each (no grad)
+  → text embeds zeroed at padding, stacked for chosen and rejected
+  → gen-aligner image embeds → all-ones mask, ``arange`` positions
+  → 2B trunk forward with LoRA (remat) → gen-head logits
+  → labels −100 on text, image ids after it → SimPO loss
+  → LoRA gradients → grad_norm (before clipping) → AdamW update.
+
+Text is right-padded, so the first image label is predicted from a
+zero-embedded pad position when a prompt is shorter than the bucket — a
+quirk of the reference kept as it is.
+
+``fit`` pins one text bucket per run, counts optimizer updates in
+``global_step``, saves every ``save_steps`` and at the end, and writes
+``train_stats.json``.  Scalars go to ``scalars.jsonl`` in the log directory
+(one JSON object per logged step, the JAX package's ``train/<name>`` tags)
+instead of a TensorBoard writer.  Full fine-tune (``use_peft: False``),
+``quantize_base`` and more than one process raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from ospo_tpu_torch.config import save_config
+from ospo_tpu_torch.constants import IGNORE_ID
+from ospo_tpu_torch.models import janus as janus_lib
+from ospo_tpu_torch.models import llama as llama_lib
+from ospo_tpu_torch.models import vqgan
+from ospo_tpu_torch.ops.pixels import normalize_pixels
+from ospo_tpu_torch.pipeline.datasets import PreferenceDataset
+from ospo_tpu_torch.train import checkpoint as ckpt_lib
+from ospo_tpu_torch.train import lora as lora_lib
+from ospo_tpu_torch.train.optim import AdamW, global_norm, make_schedule
+from ospo_tpu_torch.train.simpo import SimPOConfig, loss_and_metrics
+from ospo_tpu_torch.utils.prefetch import prefetch_iter
+
+_NOT_PORTED = "queued in ROADMAP.md (training remainder: full fine-tune / quantize_base)"
+
+
+def _bucket(n: int, step: int = 32) -> int:
+    return max(step, ((n + step - 1) // step) * step)
+
+
+def _parse_quantize_base(value):
+    """``experiment.quantize_base`` → None | "int8" | "w8a8"; unknown
+    spellings raise (``trainer.py:48-68``)."""
+    if value is None or value is False:
+        return None
+    if value is True:
+        return "int8"
+    s = str(value).strip().lower()
+    if s in ("", "none", "false", "bf16", "0", "off"):
+        return None
+    if s in ("true", "1", "on"):
+        return "int8"
+    if s in ("int8", "w8a8"):
+        return s
+    raise ValueError(
+        f"unrecognized quantize_base value {value!r}: use int8, w8a8, "
+        "true (= int8), or false/unset (bf16 trunk)")
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE") or 1)
+
+
+class SimPOTrainer:
+    def __init__(self, config, model: janus_lib.JanusModel, processor):
+        self.config = config
+        self.model = model
+        self.processor = processor
+        self.device = model.device
+        self._t_pad = None          # run-level text bucket, set by fit()
+
+        algo = config.get("algo") or {}
+        self.simpo_cfg = SimPOConfig(
+            beta=float(algo.get("beta", 1.0)),
+            gamma_beta_ratio=float(algo.get("gamma_beta_ratio", 0.0)),
+            label_smoothing=float(algo.get("label_smoothing", 0.0)),
+            sft_weight=float(algo.get("sft_weight", 0.0)),
+            loss_type=algo.get("loss_type", "sigmoid"),
+        )
+        if not bool(config.get("use_peft", True)):
+            raise NotImplementedError(f"full fine-tune (use_peft: False) is "
+                                      f"{_NOT_PORTED}")
+        lcfg = config.get("lora") or {}
+        self.lora_cfg = lora_lib.LoraConfig(
+            rank=int(lcfg.get("lora_rank", 32)),
+            alpha=int(lcfg.get("lora_alpha", 64)),
+            dropout=float(lcfg.get("lora_dropout", 0.05)),
+            target_modules=tuple(lcfg.get("target_modules")
+                                 or lora_lib.DEFAULT_TARGETS),
+        )
+
+        exp = config.get("experiment") or {}
+        opt_cfg = config.get("optimizer") or {}
+        if _parse_quantize_base(exp.get("quantize_base")):
+            raise NotImplementedError(f"experiment.quantize_base is "
+                                      f"{_NOT_PORTED}")
+        if _world_size() > 1:
+            raise NotImplementedError(
+                "training in more than one process is queued in ROADMAP.md "
+                "(slice 5, scale-out)")
+        self.max_steps = int(exp.get("max_training_steps") or 1000)
+        self.save_steps = exp.get("save_steps")
+        self.log_steps = int(exp.get("log_steps") or 10)
+        self.grad_accum = int(exp.get("gradient_accumulation_steps") or 1)
+        self.remat = bool(exp.get("gradient_checkpointing", True))
+        self.seed = int(exp.get("seed", 42))
+        # XLA-style attention by default, as in the JAX trainer; "flash"
+        # runs the flash forward and backward kernels
+        self.attn_impl = exp.get("attn_impl", "xla")
+
+        self.init_lr = float(opt_cfg.get("init_lr", 4e-5))
+        self._lr_fn = make_schedule(
+            opt_cfg.get("scheduler_type", "constant"), self.init_lr,
+            self.max_steps, float(exp.get("warmup_ratio") or 0.0),
+            float(opt_cfg.get("min_lr") or 1e-6))
+        self._opt_args = dict(
+            betas=tuple(opt_cfg.get("betas", (0.9, 0.95))),
+            eps=float(opt_cfg.get("eps") or 1e-8),
+            weight_decay=float(opt_cfg.get("weight_decay") or 0.0),
+            grad_clip=exp.get("gradient_clip_val", 1.0),
+            accumulation_steps=self.grad_accum)
+
+        base = config.get("base") or {}
+        self.save_path = base.get("save_path") or "./checkpoints/simpo"
+        self.log_dir = os.path.join(self.save_path,
+                                    base.get("exp_name") or "ospo")
+
+        self._set_trainable(lora_lib.init_lora(
+            model.cfg.language, self.lora_cfg, self.seed, self.device))
+        self.global_step = 0
+        self.update_seconds: List[float] = []  # wall time of each update
+        self.stats: Dict[str, float] = {}      # fit()'s train_stats.json
+        self.logged: List[Dict[str, float]] = []  # metrics of logged steps
+
+    def _set_trainable(self, tree) -> None:
+        self.trainable = {
+            n: {k: torch.as_tensor(t, dtype=torch.float32, device=self.device)
+                .clone().requires_grad_(True) for k, t in ab.items()}
+            for n, ab in tree.items()}
+        self.opt = AdamW(self.trainable, self._lr_fn, **self._opt_args)
+
+    # ------------------------------------------------------------------
+    # preprocessing (host): variable-length text → bucketed arrays
+    # ------------------------------------------------------------------
+    def collate(self, items: List[Dict]) -> Dict[str, np.ndarray]:
+        t_max = self._t_pad or _bucket(
+            max(len(it["text_tokens"]) for it in items))
+        b = len(items)
+        text_ids = np.zeros((b, t_max), np.int32)
+        text_mask = np.zeros((b, t_max), np.float32)
+        for i, it in enumerate(items):
+            ids = it["text_tokens"]
+            text_ids[i, : len(ids)] = ids       # right padding (train.py:237-239)
+            text_mask[i, : len(ids)] = 1.0
+        return {
+            "text_ids": text_ids,
+            "text_mask": text_mask,
+            "chosen_pixels": np.stack([it["chosen_pixels"] for it in items]),
+            "rejected_pixels": np.stack([it["rejected_pixels"] for it in items]),
+        }
+
+    # ------------------------------------------------------------------
+    # one step
+    # ------------------------------------------------------------------
+    def loss_and_grads(self, text_ids, text_mask, chosen_pixels,
+                       rejected_pixels, dropout_seed=None):
+        """→ (loss, metrics, LoRA gradients) of one micro-batch."""
+        cfg, params, dev = self.model.cfg, self.model.params, self.device
+        as_dev = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
+        text_ids = as_dev(text_ids).long()
+        text_mask = as_dev(text_mask).float()
+        b = text_ids.shape[0]
+        with torch.no_grad():
+            pixels = torch.cat([as_dev(chosen_pixels), as_dev(rejected_pixels)])
+            pixels = normalize_pixels(pixels, self.processor.image_processor)
+            img_ids = vqgan.encode_to_ids(params["gen_vision_model"], cfg.vq,
+                                          pixels)                  # [2B, N]
+        text_embeds = janus_lib.embed_text(params, text_ids) * text_mask[..., None]
+        text_2b = torch.cat([text_embeds, text_embeds])
+        img_embeds = janus_lib.prepare_gen_img_embeds(params, cfg, img_ids)
+        seq = torch.cat([text_2b.to(img_embeds.dtype), img_embeds], dim=1)
+        t_total = seq.shape[1]
+        attn = torch.ones((2 * b, t_total), dtype=torch.int32, device=dev)
+        pos = torch.arange(t_total, device=dev).expand(2 * b, t_total)
+        hidden, _ = llama_lib.forward(
+            params["language_model"], cfg.language, seq, attn, pos,
+            lora=self.trainable, lora_scaling=self.lora_cfg.scaling,
+            lora_dropout=self.lora_cfg.dropout,
+            lora_dropout_seed=dropout_seed, remat=self.remat,
+            attn_impl=self.attn_impl)
+        logits = janus_lib.gen_logits(params, hidden)
+        text_labels = torch.full((2 * b, text_ids.shape[1]), IGNORE_ID,
+                                 dtype=torch.long, device=dev)
+        labels = torch.cat([text_labels, img_ids.long()], dim=1)
+        loss, metrics = loss_and_metrics(self.simpo_cfg, logits, labels)
+        names = [(n, k) for n, ab in self.trainable.items() for k in ab]
+        flat = torch.autograd.grad(
+            loss, [self.trainable[n][k] for n, k in names])
+        grads: Dict = {}
+        for (n, k), g in zip(names, flat):
+            grads.setdefault(n, {})[k] = g
+        return loss, metrics, grads
+
+    def _step(self, text_ids, text_mask, chosen_pixels, rejected_pixels,
+              dropout_seed=None) -> Dict[str, torch.Tensor]:
+        """One micro-batch: gradients, grad_norm before clipping, and the
+        optimizer (an update every ``gradient_accumulation_steps``)."""
+        _, metrics, grads = self.loss_and_grads(
+            text_ids, text_mask, chosen_pixels, rejected_pixels, dropout_seed)
+        metrics["grad_norm"] = global_norm(grads)
+        self.opt.step(self.trainable, grads)
+        return metrics
+
+    # ------------------------------------------------------------------
+    # host loop
+    # ------------------------------------------------------------------
+    def _log_scalars(self, metrics: Dict[str, float]) -> None:
+        os.makedirs(self.log_dir, exist_ok=True)
+        with open(os.path.join(self.log_dir, "scalars.jsonl"), "a") as f:
+            f.write(json.dumps({"step": self.global_step, **{
+                f"train/{k}": v for k, v in metrics.items()}}) + "\n")
+
+    def resume(self, ckpt_path: str) -> None:
+        tree, lora_cfg, step, opt_flat = ckpt_lib.load_checkpoint(ckpt_path)
+        self.lora_cfg = lora_cfg
+        self._set_trainable(tree)
+        if opt_flat is not None:
+            self.opt.load_state_dict(opt_flat)
+        self.global_step = step
+        print(f"# Resumed from {ckpt_path} at step {step}.")
+
+    def save(self) -> str:
+        path = ckpt_lib.save_checkpoint(
+            self.log_dir, self.global_step, self.trainable, self.lora_cfg,
+            opt_state=self.opt.state_dict())
+        print(f"# Saved checkpoint: {path}")
+        return path
+
+    def fit(self, dataset: PreferenceDataset, batch_size: int,
+            max_epochs: int = 1) -> Dict[str, float]:
+        save_config(self.log_dir, self.config)
+        self._t_pad = _bucket(dataset.max_text_len())
+        t0 = time.time()
+        samples = 0
+        first_update_s = None
+        first_update_samples = 0
+        # dropout seeds fold in the MICRO-batch index, so accumulation
+        # micro-batches draw different masks
+        micro = self.global_step * self.grad_accum
+        for epoch in range(max_epochs):
+            if self.global_step >= self.max_steps:
+                break
+            for batch_items, batch in prefetch_iter(dataset.iter_batches(
+                    batch_size, shuffle=True, seed=self.seed + epoch),
+                    self.collate):
+                if self.global_step >= self.max_steps:
+                    break
+                t_step = time.time()
+                metrics = self._step(
+                    batch["text_ids"], batch["text_mask"],
+                    batch["chosen_pixels"], batch["rejected_pixels"],
+                    dropout_seed=llama_lib.fold_seed(self.seed, micro))
+                micro += 1
+                samples += len(batch_items)
+                if micro % self.grad_accum:
+                    continue  # accumulation micro-batch — no update yet
+                self.global_step += 1
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                self.update_seconds.append(time.time() - t_step)
+
+                if self.global_step % self.log_steps == 0 \
+                        or self.global_step == 1:
+                    metrics = {k: float(v) for k, v in metrics.items()}
+                    if first_update_s is None:
+                        first_update_s = time.time() - t0
+                        first_update_samples = samples
+                    metrics["lr"] = self._lr_fn(self.global_step)
+                    metrics["samples_per_sec"] = samples / (time.time() - t0)
+                    self._log_scalars(metrics)
+                    self.logged.append(metrics)
+                    print(f"step {self.global_step}: loss={metrics['loss']:.4f} "
+                          f"acc={metrics['rewards/accuracies']:.3f} "
+                          f"margin={metrics['rewards/margins']:.4f} "
+                          f"{metrics['samples_per_sec']:.2f} samples/s")
+
+                if self.save_steps and self.global_step % int(self.save_steps) == 0:
+                    self.save()
+        self.save()
+        total_s = time.time() - t0
+        steady_s = total_s - (first_update_s or 0.0)
+        steady_n = samples - first_update_samples
+        self.stats = {
+            "first_update_s": round(first_update_s or 0.0, 1),
+            "total_s": round(total_s, 1),
+            "samples": samples,
+            "samples_per_s_wall": round(samples / total_s, 3)
+            if total_s > 0 else 0.0,
+            "samples_per_s_steady": round(steady_n / steady_s, 3)
+            if steady_s > 0 and steady_n > 0 else None,
+        }
+        try:
+            with open(os.path.join(self.log_dir, "train_stats.json"), "w") as f:
+                json.dump(self.stats, f, indent=1)
+        except OSError as e:  # diagnostics, never fail training
+            print(f"# train_stats.json not written: {e}")
+        return self.logged[-1] if self.logged else {}

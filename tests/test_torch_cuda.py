@@ -41,6 +41,73 @@ def test_flash_kernel_matches_plain(cuda, dtype, causal, kvh):
     torch.testing.assert_close(m, m_ref, atol=1e-4, rtol=0)
 
 
+def _bwd_inputs(cuda, dtype, b, t, h, kvh, seed):
+    from ospo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((b, t, h, 128), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((b, t, kvh, 128), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    do = torch.randn((b, t, h, 128), generator=g, device=cuda).to(dtype)
+    mask = torch.ones((b, t), dtype=torch.int32, device=cuda)
+    mask[-1, t // 3] = 0
+    return q, k, v, do, mask, fa
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,h,kvh,causal", [(128, 4, 4, True),
+                                            (77, 4, 2, True),
+                                            (150, 6, 2, False)])
+def test_flash_backward_kernels_match_plain(cuda, dtype, t, h, kvh, causal):
+    """dQ and dK/dV kernels against their plain versions on the same
+    inputs and forward statistics: T a tile multiple and ragged, GQA, a
+    masked key.  fp32 inside both; fp32 outputs within 1e-4 (summation
+    order), bf16 outputs within one bf16 step (1e-4 + 2^-7 |ref|)."""
+    q, k, v, do, mask, fa = _bwd_inputs(cuda, dtype, 3, t, h, kvh, 3)
+    out, l, m = fa.flash_attention(q, k, v, mask, causal=causal,
+                                   return_stats=True)
+    di = fa.row_dot(out, do)
+    n0 = (fa.dq_launches, fa.dkv_launches)
+    dq = fa.flash_dq(q, k, v, mask, do, m, l, di, causal)
+    dk, dv = fa.flash_dkv(q, k, v, mask, do, m, l, di, causal)
+    torch.cuda.synchronize()
+    assert (fa.dq_launches, fa.dkv_launches) == (n0[0] + 1, n0[1] + 1)
+    ref_dq = fa.flash_dq_plain(q, k, v, mask, do, m, l, di, causal)
+    ref_dk, ref_dv = fa.flash_dkv_plain(q, k, v, mask, do, m, l, di, causal)
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-4, 2 ** -7)
+    for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                           ("dv", dv, ref_dv)):
+        assert got.dtype == dtype and got.shape == ref.shape, name
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol, msg=name)
+
+
+def test_flash_autograd_on_cuda_never_takes_the_plain_path(cuda, monkeypatch):
+    """A CUDA tensor in the differentiable path launches the three kernels
+    (the plain versions are replaced by a trap) and its gradients equal the
+    plain backward's."""
+    from ospo_tpu_torch.ops import attention as tattn
+
+    q, k, v, do, mask, fa = _bwd_inputs(cuda, torch.float32, 2, 96, 4, 2, 4)
+    out, l, m = fa.flash_attention_plain(q, k, v, mask)
+    ref = fa.flash_attention_bwd_plain(q, k, v, mask, out, l, m, do)
+
+    def trap(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("flash_attention_plain", "flash_dq_plain", "flash_dkv_plain"):
+        monkeypatch.setattr(fa, name, trap)
+    n0 = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    o = tattn.attention(*leaves, mask=mask, impl="flash")
+    grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == \
+        (n0[0] + 1, n0[1] + 1, n0[2] + 1)
+    for got, want in zip(grads, ref):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("kind", ["int8", "bf16"])
 @pytest.mark.parametrize("cur_len", [0, 1, 65, 77, 256])
 def test_decode_kernel_matches_plain(cuda, kind, cur_len):
@@ -92,6 +159,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 8, 2, 64), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 128), device=cuda)
+    stat = torch.zeros((1, 2, 8), device=cuda)
+    with pytest.raises(ValueError, match="di"):
+        fa.flash_dq(q, q, q, None, q, stat, stat, stat[:, :1])
+    with pytest.raises(ValueError, match="dO"):
+        fa.flash_dkv(q, q, q, None, q.bfloat16(), stat, stat, stat)
     qd = torch.zeros((2, 1, 2, 128), device=cuda)
     cache = torch.zeros((1, 16, 2, 2, 128), device=cuda)
     with pytest.raises(ValueError, match="mask"):

@@ -23,6 +23,12 @@ from ospo_tpu_torch.models.weights import from_jax_params
 from ospo_tpu_torch.ops import quant as tquant
 
 torch.set_num_threads(2)
+# torch's CPU exp (MKL's vector math) sets itself up on its first call; in
+# some processes the worker thread's share of that first parallel call came
+# out ~1e-4 off, and every later call was exact: make that call here, once on
+# this thread and once spread over both threads
+torch.exp(torch.zeros(64))
+torch.exp(torch.zeros(1 << 17))
 
 
 def _np_tree(tree):

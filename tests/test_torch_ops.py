@@ -6,6 +6,7 @@ and ``tests/test_decode_attention`` run them.  Inputs come from numpy with a
 seed and go to both packages.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,12 +17,19 @@ from ospo_tpu.ops import quant as jquant
 from ospo_tpu.ops.decode_attention import decode_attention as jdecode
 from ospo_tpu.ops.flash_attention import flash_attention as jflash
 from ospo_tpu_torch.ops import attention as tattn
+from ospo_tpu_torch.ops import flash_attention as fa
 from ospo_tpu_torch.ops import quant as tquant
 from ospo_tpu_torch.ops.decode_attention import decode_attention
 from ospo_tpu_torch.ops.flash_attention import flash_attention
 from ospo_tpu_torch.ops.sampling import sample_categorical
 
 torch.set_num_threads(2)
+# torch's CPU exp (MKL's vector math) sets itself up on its first call; in
+# some processes the worker thread's share of that first parallel call came
+# out ~1e-4 off, and every later call was exact: make that call here, once on
+# this thread and once spread over both threads
+torch.exp(torch.zeros(64))
+torch.exp(torch.zeros(1 << 17))
 
 
 def _t(x):
@@ -99,6 +107,99 @@ def test_attention_dispatch():
                                flash_attention(q, k, v, mask))
     torch.testing.assert_close(tattn.attention(q[:, :2], k, v, mask, q_offset=4),
                                tattn.xla_attention(q[:, :2], k, v, mask, 4))
+
+
+# ---------------------------------------------------------------------------
+# flash backward
+# ---------------------------------------------------------------------------
+
+
+def _bwd_case(seed, b=2, t=70, h=4, kvh=2, d=128):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, t, h, d), np.float32)
+    k = rng.standard_normal((b, t, kvh, d), np.float32)
+    v = rng.standard_normal((b, t, kvh, d), np.float32)
+    g = rng.standard_normal((b, t, h, d), np.float32)
+    mask = np.ones((b, t), np.int32)
+    mask[1, 9] = 0  # one masked key inside every later row's window
+    return q, k, v, g, mask
+
+
+def _jax_vjp(q, k, v, g, mask, causal):
+    fn = lambda q_, k_, v_: jflash(q_, k_, v_, mask=jnp.asarray(mask),  # noqa: E731
+                                   causal=causal, blk_q=128, blk_k=128,
+                                   interpret=True)
+    _, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+
+@pytest.mark.parametrize("causal,kvh", [(True, 2), (False, 2), (True, 4)])
+def test_flash_backward_matches_jax_custom_vjp(causal, kvh):
+    """The plain backward from the port's forward statistics, and the
+    autograd path, against ``jax.vjp`` of the Pallas flash attention in
+    interpret mode (its custom VJP, the dQ and dK/dV kernels).  GQA 4/2 and
+    MHA; a masked key; T=70 (not a tile multiple).  fp32 both sides;
+    tolerance 2e-5 absolute and relative (summation order)."""
+    q, k, v, g, mask = _bwd_case(10, kvh=kvh)
+    ref = _jax_vjp(q, k, v, g, mask, causal)
+    tq, tk, tv, tg, tm = (_t(x) for x in (q, k, v, g, mask))
+    out, l, m = flash_attention(tq, tk, tv, tm, causal=causal,
+                                return_stats=True)
+    plain = fa.flash_attention_bwd_plain(tq, tk, tv, tm, out, l, m, tg,
+                                         causal=causal)
+    leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+    o2 = tattn.attention(*leaves, mask=tm, causal=causal, impl="flash")
+    auto = torch.autograd.grad(o2, leaves, tg)
+    for name, r, p, a in zip(("dq", "dk", "dv"), ref, plain, auto):
+        assert p.shape == a.shape == r.shape, name
+        np.testing.assert_allclose(p.numpy(), r, atol=2e-5, rtol=2e-5,
+                                   err_msg=name)
+        torch.testing.assert_close(a, p, atol=0, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_autograd_matches_autograd_of_xla_attention(causal):
+    """The flash path's gradients against torch autograd through the plain
+    masked attention (``xla_attention``): same function wherever a row has
+    a valid key, so a masked key mid-sequence (not a pad row).  fp32;
+    tolerance 2e-5."""
+    q, k, v, g, mask = _bwd_case(11, t=40, d=128)
+    grads = []
+    for impl in ("flash", "xla"):
+        leaves = [_t(x).requires_grad_(True) for x in (q, k, v)]
+        out = tattn.attention(*leaves, mask=_t(mask), causal=causal, impl=impl)
+        grads.append(torch.autograd.grad(out, leaves, _t(g)))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_backward_wrappers_take_the_plain_path_on_cpu():
+    """On CPU tensors the dQ and dK/dV wrappers are their plain versions
+    and launch nothing."""
+    q, k, v, g, mask = (_t(x) for x in _bwd_case(12, t=20))
+    out, l, m = flash_attention(q, k, v, mask, return_stats=True)
+    di = fa.row_dot(out, g)
+    n0 = (fa.dq_launches, fa.dkv_launches)
+    torch.testing.assert_close(fa.flash_dq(q, k, v, mask, g, m, l, di),
+                               fa.flash_dq_plain(q, k, v, mask, g, m, l, di))
+    for a, b in zip(fa.flash_dkv(q, k, v, mask, g, m, l, di),
+                    fa.flash_dkv_plain(q, k, v, mask, g, m, l, di)):
+        torch.testing.assert_close(a, b)
+    assert (fa.dq_launches, fa.dkv_launches) == n0
+
+
+def test_attention_impl_argument():
+    """``impl`` as in the JAX dispatcher: flash refuses an offset, an
+    unknown impl is an error, xla is the plain masked attention."""
+    rng = np.random.default_rng(13)
+    q, k, v = (_t(rng.standard_normal((1, 6, 2, 16), np.float32))
+               for _ in range(3))
+    with pytest.raises(ValueError, match="q_offset"):
+        tattn.attention(q[:, :2], k, v, q_offset=4, impl="flash")
+    with pytest.raises(ValueError, match="impl"):
+        tattn.attention(q, k, v, impl="pallas")
+    torch.testing.assert_close(tattn.attention(q, k, v, impl="xla"),
+                               tattn.xla_attention(q, k, v, None))
 
 
 # ---------------------------------------------------------------------------

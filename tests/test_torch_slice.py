@@ -29,6 +29,12 @@ from ospo_tpu_torch.processing import t2i_prompt as t_t2i
 from ospo_tpu_torch.tokenizer import ByteTokenizer as TByteTokenizer
 
 torch.set_num_threads(2)
+# torch's CPU exp (MKL's vector math) sets itself up on its first call; in
+# some processes the worker thread's share of that first parallel call came
+# out ~1e-4 off, and every later call was exact: make that call here, once on
+# this thread and once spread over both threads
+torch.exp(torch.zeros(64))
+torch.exp(torch.zeros(1 << 17))
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "examples", "step2",
@@ -281,12 +287,14 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("override,error", [
-    ({"ckpt_path": "x"}, NotImplementedError),
+    ({"data_parallel": 2}, NotImplementedError),
     ({"tensor_parallel": 2}, NotImplementedError),
     ({"quantize": "int4"}, NotImplementedError),
     ({"quantize": "int_8"}, ValueError),
     ({"model_path": "/does/not/exist"}, FileNotFoundError),
     ({"model_preset": None}, ValueError),
+    ({"mesh_scope": "pod"}, ValueError),
+    ({"ckpt_path": "/does/not/exist"}, FileNotFoundError),
 ])
 def test_get_model_rejects_what_is_not_ported(override, error):
     from ospo_tpu_torch.pipeline.model_factory import get_model
