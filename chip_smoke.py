@@ -9,10 +9,13 @@ fails):
    from ``ospo_tpu_torch/ops/csrc`` (one nvcc per source, in parallel);
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, with timings (kernel, plain version, one library call
-   where one computes the same function) and the card's lower bound;
+   where one computes the same function, or for the int4 matmuls the
+   cuBLAS bf16 product on the dequantized weight as a yardstick) and the
+   card's lower bound;
 3. a small model (head dim 128) on the GPU (kernels) and on the CPU (plain
-   versions), same weights: the teacher-forced CFG probe, and one SimPO
-   training step (loss and LoRA gradients);
+   versions), same weights: the teacher-forced CFG probe with int8 and
+   with int4g weights, and one SimPO training step (loss and LoRA
+   gradients);
 4. the step-3 main path: ``ospo_tpu_torch.pipeline.step3.main`` on the
    serving configuration (``configs/step3.yaml``) at the full Janus-Pro-7B
    width (random int8 weights), 24 prompt items; its kernels' launch
@@ -22,7 +25,11 @@ fails):
    ``attn_impl: flash``, 3 optimizer steps over the 21 records of
    ``tests/fixtures/examples/step4/train.json`` whose images phase 4 wrote;
    the flash forward, dQ and dK/dV counters must match 30 layers (the
-   forward twice under remat) per micro-step, and the checkpoint must land.
+   forward twice under remat) per micro-step, and the checkpoint must land;
+6. step 3 as in phase 4 with ``quantize: int4g`` over one group of 24 CFG
+   pairs (the first prompt of the first 24 items): the group kernel must
+   launch 7 x 30 x 575 times, and the tree must hold 24 real images;
+7. the same with ``quantize: int4`` and the row kernel.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -517,6 +524,105 @@ class Smoke:
         del args
         torch.cuda.empty_cache()
 
+    def int4_kernels(self):
+        """The int4 row and group decode matmuls against their plain version
+        at the 7B projection shapes (M = 48 rows: 24 CFG pairs), a ragged
+        case and fp32 x; timed at each 7B shape beside the cuBLAS bf16
+        product on the weight pre-dequantized to bf16 (a yardstick that
+        reads 4x the weight bytes: no PyTorch call takes this packing)."""
+        from ospo_tpu_torch.ops import int4_matmul as i4
+        from ospo_tpu_torch.ops import quant
+
+        dev = torch.device("cuda")
+        M = 48
+        shapes = {"wq/wk/wv/wo": (4096, 4096), "w_gate/w_up": (11008, 4096),
+                  "w_down": (4096, 11008)}
+        per_layer = {"wq/wk/wv/wo": 4, "w_gate/w_up": 2, "w_down": 1}
+        dequant = {"int4": quant.dequantize_matrix_int4,
+                   "int4g": quant.dequantize_matrix_int4_group}
+
+        def close(got, ref, mode, dtype):
+            """bf16: one rounding step (2^-7 |ref|; 2^-6 for the row form,
+            rounded before and after its scale) + 1e-3 max|ref|; fp32: 1e-5
+            (|ref| and max|ref|).  The products are exact in fp32 on both
+            sides; only the order of the fp32 sums differs."""
+            g, r = got.float(), ref.float()
+            top = float(r.abs().max())
+            if dtype == torch.float32:
+                tol = 1e-5 * top + 1e-5 * r.abs()
+            else:
+                tol = 1e-3 * top + (2 ** -6 if mode == "int4" else 2 ** -7) * r.abs()
+            return bool(((g - r).abs() <= tol).all()), max_err(g, r)
+
+        for mode, kname, line in (("int4", "int4_matmul_row", 76),
+                                  ("int4g", "int4_matmul_group", 87)):
+            g = torch.Generator(device=dev).manual_seed(11)
+            worst, timing, step_ms = 0.0, None, 0.0
+            for label, (F, D) in shapes.items():
+                w = (torch.randn((F, D), generator=g, device=dev) * 0.02
+                     ).to(torch.bfloat16)
+                qw = quant.quant_fn(mode)(w)
+                del w
+                x = torch.randn((M, 1, D), generator=g, device=dev).to(torch.bfloat16)
+                got = i4.int4_matmul_decode(x, qw)
+                ref = i4.int4_matmul_decode_plain(x, qw)
+                ok, err = close(got, ref, mode, torch.bfloat16)
+                worst = max(worst, err)
+                self.check(ok, f"{kname} bf16 M={M} F={F} D={D}: max|d|={err:.3g}"
+                               f" (tol {'2^-6' if mode == 'int4' else '2^-7'}"
+                               f"|ref| + 1e-3 max|ref|)")
+                ms = cuda_ms(lambda: i4.int4_matmul_decode(x, qw), 50)
+                plain_ms = cuda_ms(lambda: i4.int4_matmul_decode_plain(x, qw), 3, 1)
+                wb = dequant[mode](qw, torch.bfloat16)
+                x2 = x[:, 0]
+                lib_ms = cuda_ms(lambda: x2 @ wb.T, 50)
+                del wb
+                scale_bytes = sum(t.numel() * 4 for k, t in qw.items() if k != "q4")
+                nbytes = F // 2 * D + scale_bytes + M * D * 2 + M * F * 2
+                flops = 2.0 * M * F * D
+                bound_ms = max(nbytes / PEAK_BYTES, flops / PEAK_BF16) * 1e3
+                by = "bytes" if nbytes / PEAK_BYTES > flops / PEAK_BF16 else "operations"
+                step_ms += 30 * per_layer[label] * ms
+                print(f"{kname} {label} (M={M} F={F} D={D} bf16): kernel "
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cuBLAS bf16 on "
+                      f"the dequantized weight (reads 4x the weight bytes) "
+                      f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({by}; "
+                      f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP; "
+                      f"{nbytes / ms / 1e6:.1f} GB/s)")
+                if label == "w_gate/w_up":
+                    timing = (ms, plain_ms, bound_ms, by, lib_ms)
+                del qw, x, got, ref
+            print(f"{kname}: the 7 projections x 30 layers of one 7B decode "
+                  f"step at these times: {step_ms:.3f} ms")
+            # ragged: F/2 no multiple of the 64-row tile, M = 2 and 40; fp32 x
+            for m, F, D, dtype in ((2, 200, 4096, torch.bfloat16),
+                                   (40, 1000, 4096, torch.bfloat16),
+                                   (8, 4096, 4096, torch.float32)):
+                w = torch.randn((F, D), generator=g, device=dev) * 0.02
+                qw = quant.quant_fn(mode)(w.to(dtype))
+                x = torch.randn((m, 1, D), generator=g, device=dev).to(dtype)
+                ok, err = close(i4.int4_matmul_decode(x, qw),
+                                i4.int4_matmul_decode_plain(x, qw), mode, dtype)
+                worst = max(worst, err)
+                tol = ("1e-5 (|ref| + max|ref|)" if dtype == torch.float32 else
+                       f"{'2^-6' if mode == 'int4' else '2^-7'}|ref| + 1e-3 max|ref|")
+                self.check(ok, f"{kname} {str(dtype)[6:]} M={m} F={F} D={D}: "
+                               f"max|d|={err:.3g} (tol {tol})")
+            torch.cuda.empty_cache()
+            self.kernels[kname] = {
+                "name": kname, "route": "cuda",
+                "source": f"ospo_tpu_torch/ops/csrc/{kname}.cu",
+                "replaces": f"ospo_tpu/ops/int4_matmul.py:{line}",
+                "launches": None, "max_abs_err": worst, "ms": timing[0],
+                "plain_ms": timing[1], "bound_ms": timing[2],
+                "bound_by": timing[3], "library_ms": timing[4],
+                "library_note": "cuBLAS bf16 x @ W^T on the weight "
+                                "pre-dequantized to bf16, at the w_gate shape "
+                                "(M=48 F=11008 D=4096): a yardstick that reads "
+                                "4x the weight bytes; no PyTorch call takes "
+                                "this packing",
+            }
+
     # -- phase 3 ---------------------------------------------------------
     def small_model(self):
         import dataclasses
@@ -530,30 +636,41 @@ class Smoke:
             janus.tiny_janus_config(),
             language=llama.tiny_config(hidden_size=256, intermediate_size=512,
                                        num_heads=2))
-        cpu_model = janus.JanusModel.init(cfg, seed=0, quantize="int8",
-                                          device="cpu")
-        to_cuda = lambda t: t.to("cuda")  # noqa: E731
-        gpu_params = _tree_map(cpu_model.params, to_cuda)
-        gpu_model = janus.JanusModel(cfg, gpu_params, torch.device("cuda"))
+        from ospo_tpu_torch.ops import int4_matmul as i4
+
         proc = Processor(ByteTokenizer(cfg.language.vocab_size))
         prompts = [t2i_prompt(proc, "A red cube on a blue sphere"),
                    t2i_prompt(proc, "Two cats")]
         forced = torch.randint(0, cfg.image_token_size, (2, cfg.num_gen_tokens),
                                generator=torch.Generator().manual_seed(0)).numpy()
-        outs = []
-        for model in (cpu_model, gpu_model):
-            eng = ImageGenEngine(model, proc, image_token_num=cfg.num_gen_tokens,
-                                 img_size=cfg.gen_image_size,
-                                 patch_size=cfg.vq.downsample_factor,
-                                 kv_quant="int8")
-            outs.append(eng.forced_cfg_logits(prompts, forced))
-        ref, got = outs
-        err = float(abs(ref - got).max())
-        scale = float(abs(ref).max())
-        self.check(err <= 1e-2 * scale,
-                   f"forced CFG logits GPU vs CPU (small model, int8 weights "
-                   f"and KV): max|d|={err:.3g}, max|ref|={scale:.3g} "
-                   f"(tol 1e-2 max|ref|)")
+        to_cuda = lambda t: t.to("cuda")  # noqa: E731
+        # int8 weights, then int4g (the group kernel on the GPU side, its
+        # plain version on the CPU side); int8 KV in both
+        for mode in ("int8", "int4g"):
+            cpu_model = janus.JanusModel.init(cfg, seed=0, quantize=mode,
+                                              device="cpu")
+            gpu_params = _tree_map(cpu_model.params, to_cuda)
+            gpu_model = janus.JanusModel(cfg, gpu_params, torch.device("cuda"))
+            outs = []
+            n0 = i4.group_launches
+            for model in (cpu_model, gpu_model):
+                eng = ImageGenEngine(model, proc,
+                                     image_token_num=cfg.num_gen_tokens,
+                                     img_size=cfg.gen_image_size,
+                                     patch_size=cfg.vq.downsample_factor,
+                                     kv_quant="int8")
+                outs.append(eng.forced_cfg_logits(prompts, forced))
+            ref, got = outs
+            err = float(abs(ref - got).max())
+            scale = float(abs(ref).max())
+            moved = i4.group_launches - n0
+            want = 7 * cfg.language.num_layers * (cfg.num_gen_tokens - 1) \
+                if mode == "int4g" else 0
+            self.check(err <= 1e-2 * scale and moved == want,
+                       f"forced CFG logits GPU vs CPU (small model, {mode} "
+                       f"weights, int8 KV): max|d|={err:.3g}, max|ref|="
+                       f"{scale:.3g} (tol 1e-2 max|ref|); int4 group kernel "
+                       f"launches {moved} (expected {want})")
         ids = torch.as_tensor(forced[:, :cfg.num_gen_tokens])
         px_cpu = vqgan.decode_code(cpu_model.params["gen_vision_model"], cfg.vq, ids)
         px_gpu = vqgan.decode_code(gpu_params["gen_vision_model"], cfg.vq,
@@ -651,13 +768,17 @@ class Smoke:
             **STEP3_CONFIG, "model_path": None, "model_preset": "7b",
             "data_path": FIXTURE, "e_idx": N_ITEMS,
             "save_path": os.path.join(tmp, "step3")})
+        from ospo_tpu_torch.ops import int4_matmul as i4
+
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = da.launches = 0
+        fa.launches = da.launches = i4.row_launches = i4.group_launches = 0
         t0 = time.time()
         stats = step3.main(config)
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = {"flash_fwd": fa.launches, "decode_attention": da.launches}
+        self.check(i4.row_launches == i4.group_launches == 0,
+                   "int8 weights launched no int4 kernel")
         print(f"main path step 3 launches: {counts}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         print(f"main path: {stats['groups']} groups, {stats['images']} "
@@ -781,6 +902,93 @@ class Smoke:
                    f"train_stats.json keys {sorted(keys)}")
 
 
+    # -- phases 6 and 7 ----------------------------------------------------
+    def int4_path(self, mode: str):
+        """Step 3 at the 7B width and depth with ``quantize: mode`` (int4g:
+        the group kernel; int4: the row kernel), everything else as
+        ``configs/step3.yaml``, over one group of 24 CFG pairs (M = 48 in
+        every decode projection): the first prompt of each of the first 24
+        fixture items, their other prompts left empty (step 3 skips an empty
+        prompt), so the tree holds 24 images."""
+        import gc
+
+        from ospo_tpu_torch.config import Config
+        from ospo_tpu_torch.io import read_json
+        from ospo_tpu_torch.ops import decode_attention as da
+        from ospo_tpu_torch.ops import flash_attention as fa
+        from ospo_tpu_torch.ops import int4_matmul as i4
+        from ospo_tpu_torch.pipeline import step3
+        from ospo_tpu_torch.utils.png import read_png
+
+        gc.collect()  # the previous phase's model goes first
+        torch.cuda.empty_cache()
+        print(f"device memory before step 3 ({mode}): "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        data = read_json(FIXTURE)[:N_ITEMS]
+        for sample in data:
+            sample["long_prompt"] = [sample["long_prompt"][0], "", ""]
+            sample["negative_long_prompt"] = ["", "", ""]
+        root = os.path.join(self.workdir, f"step3_{mode}")
+        os.makedirs(root, exist_ok=True)
+        data_path = os.path.join(root, "long_prompt.json")
+        with open(data_path, "w") as f:
+            json.dump(data, f)
+        config = Config.from_nested({
+            **STEP3_CONFIG, "model_path": None, "model_preset": "7b",
+            "quantize": mode, "data_path": data_path, "e_idx": N_ITEMS,
+            "save_path": os.path.join(root, "out")})
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = da.launches = i4.row_launches = i4.group_launches = 0
+        t0 = time.time()
+        stats = step3.main(config)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        kname = "int4_matmul_group" if mode == "int4g" else "int4_matmul_row"
+        other = i4.row_launches if mode == "int4g" else i4.group_launches
+        counts = {"flash_fwd": fa.launches, "decode_attention": da.launches,
+                  kname: i4.group_launches if mode == "int4g" else i4.row_launches}
+        print(f"step 3 {mode} launches: {counts}")
+        for name, n in counts.items():
+            self.launches[name] = self.launches.get(name, 0) + n
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True).stdout.strip()
+        print(f"step 3 {mode}: {stats['groups']} group(s), {stats['images']} "
+              f"images, {stats['image_tokens']} image tokens in "
+              f"{stats['seconds']:.1f} s of serving "
+              f"({stats['image_tokens'] / stats['seconds']:.1f} img-tok/s); "
+              f"step3.main {wall:.1f} s with the 7B init; peak memory "
+              f"{peak_gb:.2f} GB; card {smi}")
+        layers, steps, groups = 30, 575, stats["groups"]
+        self.check(groups == 1 and counts[kname] == 7 * layers * steps * groups
+                   and other == 0,
+                   f"{kname} launches {counts[kname]} == 7 x {layers} x {steps} "
+                   f"x {groups} group(s) (expected 1), the other int4 kernel "
+                   f"{other}")
+        self.check(counts["flash_fwd"] == layers * groups
+                   and counts["decode_attention"] == layers * steps * groups,
+                   f"flash_fwd {counts['flash_fwd']} == {layers} x {groups}, "
+                   f"decode_attention {counts['decode_attention']} == "
+                   f"{layers} x {steps} x {groups}")
+        bad, n_png = [], 0
+        for sample in data:
+            for ptype in ("base", "negative"):
+                d = os.path.join(root, "out", ptype, sample["category"],
+                                 sample["item_id"])
+                if read_json(os.path.join(d, "metadata.json")) != sample:
+                    bad.append(f"{d}/metadata.json")
+            img = read_png(os.path.join(root, "out", "base", sample["category"],
+                                        sample["item_id"], "00.png"))
+            n_png += 1
+            if img.shape != (384, 384, 3) or img.dtype.name != "uint8" \
+                    or int(img.max()) == int(img.min()):
+                bad.append(f"{sample['item_id']}/00.png {img.shape}")
+        self.check(not bad and n_png == N_ITEMS and stats["images"] == N_ITEMS,
+                   f"step 3 {mode} output tree: {n_png} PNGs (384x384x3 uint8, "
+                   f"non-constant) + metadata.json; bad: {bad[:3]}")
+
+
 def train_records():
     """The records of the step-4 fixture whose images phase 4 writes."""
     from ospo_tpu_torch.io import read_json
@@ -851,12 +1059,18 @@ def main() -> int:
         smoke.phase("flash dQ and dK/dV kernels vs plain",
                     smoke.flash_backward_kernels)
         smoke.phase("decode_attention kernel vs plain", smoke.decode_kernel)
+        smoke.phase("int4 row and group decode-matmul kernels vs plain",
+                    smoke.int4_kernels)
         smoke.phase("small model GPU vs CPU", smoke.small_model)
         smoke.phase("small model training step GPU vs CPU",
                     smoke.small_train_step)
         if not args.skip_main:
             smoke.phase("main path: step 3 at 7B width", smoke.main_path)
             smoke.phase("main path: step 5 at 7B width", smoke.train_path)
+            smoke.phase("main path: step 3 at 7B width, quantize int4g",
+                        lambda: smoke.int4_path("int4g"))
+            smoke.phase("main path: step 3 at 7B width, quantize int4",
+                        lambda: smoke.int4_path("int4"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if smoke.failures or args.skip_main:

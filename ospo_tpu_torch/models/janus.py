@@ -135,7 +135,7 @@ class _Init:
                 "proj_out": self.conv(1, ch, ch)}
 
 
-def _init_language(ini: _Init, cfg: llama.LlamaConfig, quantize: bool) -> Params:
+def _init_language(ini: _Init, cfg: llama.LlamaConfig, quantize: str) -> Params:
     d, f, n = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     qd, kvd = cfg.num_heads * cfg.dim_head, cfg.kv_heads * cfg.dim_head
     shapes = {"wq": (qd, d), "wk": (kvd, d), "wv": (kvd, d), "wo": (d, qd),
@@ -144,15 +144,20 @@ def _init_language(ini: _Init, cfg: llama.LlamaConfig, quantize: bool) -> Params
         "attn_norm": torch.ones((n, d), dtype=cfg.dtype, device=ini.device),
         "mlp_norm": torch.ones((n, d), dtype=cfg.dtype, device=ini.device),
     }
+    qfn = quant.quant_fn(quantize) if quantize else None
     for name in quant.QUANTIZABLE:
         rows, cols = shapes[name]
-        if quantize:
-            q = torch.empty((n, rows, cols), dtype=torch.int8, device=ini.device)
-            s = torch.empty((n, rows), dtype=torch.float32, device=ini.device)
-            for li in range(n):  # one bf16 matrix alive at a time
-                qw = quant.quantize_matrix(ini.normal((rows, cols), 0.02, cfg.dtype))
-                q[li], s[li] = qw["q"], qw["s"]
-            layers[name] = {"q": q, "s": s}
+        if qfn:
+            stacked = None
+            for li in range(n):  # one model-dtype matrix alive at a time
+                qw = qfn(ini.normal((rows, cols), 0.02, cfg.dtype))
+                if stacked is None:
+                    stacked = {k: torch.empty((n, *t.shape), dtype=t.dtype,
+                                              device=ini.device)
+                               for k, t in qw.items()}
+                for k, t in qw.items():
+                    stacked[k][li] = t
+            layers[name] = stacked
         else:
             layers[name] = torch.stack([ini.normal((rows, cols), 0.02, cfg.dtype)
                                         for _ in range(n)])
@@ -232,18 +237,16 @@ class JanusModel:
     @classmethod
     def init(cls, cfg: JanusConfig, seed: int = 0, quantize=False,
              device: Optional[torch.device] = None) -> "JanusModel":
-        """Random init on ``device``; ``quantize`` ("int8"/True) quantizes
-        each trunk matrix as it is drawn, so the model-dtype trunk never
-        exists whole."""
-        if quantize not in (False, True, "int8"):
-            raise NotImplementedError(
-                f"quantize={quantize!r}: int4/w8a8 weights are queued in "
-                "ROADMAP.md (slice 5, opt-in modes)")
+        """Random init on ``device``; ``quantize`` (True = "int8", "int4",
+        "int4g") quantizes each trunk matrix as it is drawn, so the
+        model-dtype trunk never exists whole.  The draws are the same in
+        every mode."""
+        mode = quant.quant_mode(quantize)
         device = torch.device(device or "cuda")
         ini = _Init(seed, device)
         e, dt = cfg.n_embed, cfg.dtype
         params = {
-            "language_model": _init_language(ini, cfg.language, bool(quantize)),
+            "language_model": _init_language(ini, cfg.language, mode),
             "gen_vision_model": _init_vq_decoder(ini, cfg.vq),
             "gen_aligner": {"layers": [ini.linear(cfg.gen_embed_dim, e, dt)] + [
                 ini.linear(e, e, dt) for _ in range(cfg.gen_aligner_depth - 1)]},

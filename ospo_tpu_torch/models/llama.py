@@ -3,8 +3,9 @@ counterpart of ``ospo_tpu/models/llama.py``.
 
 Parameters are a plain dict shaped like the JAX package's tree: per-layer
 weights stacked on a leading layer axis in torch layout ``[out, in]``, each
-projection either a tensor or an int8 ``{"q", "s"}`` dict
-(``ops/quant.py``).  The layer loop is a Python loop over the stack.
+projection either a tensor or a quantized dict (int8 ``{"q", "s"}``, int4
+``{"q4", "s"}`` or ``{"q4", "gs"}``; ``ops/quant.py``).  The layer loop is a
+Python loop over the stack.
 
 The KV cache is preallocated in the batch-minor ``shbd`` layout
 ``[L, S, H, B, Dh]`` and updated in place (PyTorch tensors are mutable; the
@@ -31,7 +32,9 @@ import torch.utils.checkpoint
 
 from ospo_tpu_torch.ops.attention import attention
 from ospo_tpu_torch.ops.decode_attention import decode_attention
-from ospo_tpu_torch.ops.quant import quantized_matmul
+from ospo_tpu_torch.ops.int4_matmul import int4_matmul_decode
+from ospo_tpu_torch.ops.quant import (quantized_matmul, quantized_matmul_int4,
+                                      quantized_matmul_int4_group)
 
 Params = Dict[str, Any]
 
@@ -111,10 +114,19 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 def linear(x: torch.Tensor, w) -> torch.Tensor:
-    """y = x @ wᵀ for a plain or an int8 ``{"q", "s"}`` weight."""
-    if isinstance(w, dict):
+    """y = x @ wᵀ for a plain weight or a quantized dict: int8 ``{"q", "s"}``,
+    int4 ``{"q4", "s"}`` or int4 groups ``{"q4", "gs"}``.  A T == 1 int4
+    product runs the decode-matmul kernel (its plain version on the CPU);
+    a longer one the prefill forms of ``ops/quant.py``."""
+    if not isinstance(w, dict):
+        return x @ w.T
+    if "q4" not in w:
         return quantized_matmul(x, w)
-    return x @ w.T
+    if x.shape[1] == 1:
+        return int4_matmul_decode(x, w)
+    if "gs" in w:
+        return quantized_matmul_int4_group(x, w)
+    return quantized_matmul_int4(x, w)
 
 
 def _layer(layers: Params, li: int) -> Params:

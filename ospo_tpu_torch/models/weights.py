@@ -131,10 +131,13 @@ class _Checkpoint:
         return t.to(device=self.device, dtype=dtype or t.dtype)
 
 
-def _port_llama(ck: _Checkpoint, cfg: llama_lib.LlamaConfig, quantize: bool,
+def _port_llama(ck: _Checkpoint, cfg: llama_lib.LlamaConfig, quantize,
                 lm_head: bool, prefix: str = "language_model.") -> Params:
+    """The trunk; ``quantize`` (a mode of ``quant.quant_mode``) quantizes
+    each layer's projection as it is read."""
     from ospo_tpu_torch.ops import quant
 
+    mode = quant.quant_mode(quantize)
     dt = cfg.dtype
     names = {
         "attn_norm": "input_layernorm", "wq": "self_attn.q_proj",
@@ -147,10 +150,10 @@ def _port_llama(ck: _Checkpoint, cfg: llama_lib.LlamaConfig, quantize: bool,
     for name, hf in names.items():
         mats = [ck.get(f"{prefix}model.layers.{i}.{hf}.weight", dt)
                 for i in range(cfg.num_layers)]
-        if quantize and name in quant.QUANTIZABLE:
-            qs = [quant.quantize_matrix(m) for m in mats]  # torch [out, in]
-            layers[name] = {"q": torch.stack([x["q"] for x in qs]),
-                            "s": torch.stack([x["s"] for x in qs])}
+        if mode and name in quant.QUANTIZABLE:
+            qfn = quant.quant_fn(mode)
+            qs = [qfn(m) for m in mats]  # torch [out, in]
+            layers[name] = {k: torch.stack([x[k] for x in qs]) for k in qs[0]}
         else:
             layers[name] = torch.stack(mats)
         del mats
@@ -235,10 +238,11 @@ def _port_vision_head(ck: _Checkpoint, prefix: str, dtype) -> Params:
 
 def load_janus(model_path: str, device=None,
                cfg: Optional[janus_lib.JanusConfig] = None,
-               quantize: bool = False,
+               quantize=False,
                lm_head: bool = False) -> janus_lib.JanusModel:
     """Load the generation side of an HF-keyed Janus-Pro checkpoint onto
-    ``device`` (default ``cuda``); ``quantize`` makes the trunk int8."""
+    ``device`` (default ``cuda``); ``quantize`` (True = "int8", "int4",
+    "int4g") quantizes the trunk layer by layer."""
     device = torch.device(device or "cuda")
     cfg = cfg or config_from_checkpoint(model_path)
     ck = _Checkpoint(model_path, device)

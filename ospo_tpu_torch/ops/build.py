@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with :mod:`ctypes` (no PyTorch
 headers, so a build takes seconds).  Libraries are cached under
-``build/kernels/`` at the repository root, keyed by a hash of the source, so
-an edited source rebuilds and an unchanged one loads at once.  Nothing is
-built when a module is imported: the first launch builds what it needs, and
-:func:`build_all` builds every source in parallel up front.
+``build/kernels/`` at the repository root, keyed by a hash of the source and
+the shared headers (``csrc/*.cuh``), so an edited source rebuilds and an
+unchanged one loads at once.  Nothing is built when a module is imported:
+the first launch builds what it needs, and :func:`build_all` builds every
+source in parallel up front.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ SIGNATURES = {
     "flash_bwd_dq": ("ospo_flash_bwd_dq", [P] * 9 + [I] * 8 + [P]),
     "flash_bwd_dkv": ("ospo_flash_bwd_dkv", [P] * 10 + [I] * 8 + [P]),
     "decode_attention": ("ospo_decode_attention", [P] * 9 + [I] * 10 + [P]),
+    "int4_matmul_row": ("ospo_int4_matmul_row", [P] * 5 + [I] * 6 + [P]),
+    "int4_matmul_group": ("ospo_int4_matmul_group", [P] * 5 + [I] * 7 + [P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -48,8 +51,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, keyed by the source, the shared headers of
+    ``csrc/`` and the flags."""
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,8 +1,17 @@
-"""Weight-only int8 quantization (W8A16) — the int8 subset of
-``ospo_tpu/ops/quant.py`` (:25-75).
+"""Weight-only quantization — the int8 (W8A16) and int4 (W4A16) subsets of
+``ospo_tpu/ops/quant.py`` (:25-75, :205-329).
 
-A quantized matrix is a dict ``{"q": int8 [..., F, D], "s": f32 [..., F]}``
-with per-output-row symmetric scales (torch layout ``[out, in]``).
+A quantized matrix is a dict in torch layout ``[out, in]``:
+
+- int8: ``{"q": int8 [..., F, D], "s": f32 [..., F]}``, per-output-row
+  symmetric scales;
+- int4: ``{"q4": int8 [..., F/2, D], "s": f32 [..., F]}``, two output rows
+  packed per byte;
+- int4g: ``{"q4": int8 [..., F/2, D], "gs": f32 [..., F, D/group]}``, the
+  same packing with one scale per group of input columns.
+
+The T == 1 int4 products run in ``ops/int4_matmul.py`` (the CUDA kernels);
+the forms here serve the prefill (T > 1).
 """
 
 from __future__ import annotations
@@ -53,3 +62,129 @@ def quantized_matmul(x: torch.Tensor, qw: Dict[str, torch.Tensor]) -> torch.Tens
     then the per-row scale in x's dtype (``llama.py:207-209``)."""
     y = x @ qw["q"].to(x.dtype).T
     return y * qw["s"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# weight-only int4 (W4A16), ``ospo_tpu/ops/quant.py:205-329``
+# ---------------------------------------------------------------------------
+# Two output rows share a byte: row r in the low nibble, row r + F/2 in the
+# high nibble, each a sign-extended 15-level value in [-7, 7].
+
+INT4_GROUP = 128  # scale group along the input dim (clamped to D)
+
+
+def _pack_halves(q: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-7, 7] [..., F, D] → packed bytes [..., F/2, D].  The
+    nibbles are combined in int32 and the byte reinterpreted, which gives
+    the bits of the reference's wrapping int8 ``(low & 0xF) | (high << 4)``."""
+    f = q.shape[-2]
+    low = q[..., : f // 2, :].to(torch.int32) & 0x0F
+    high = q[..., f // 2:, :].to(torch.int32) & 0x0F
+    return (low | (high << 4)).to(torch.uint8).view(torch.int8)
+
+
+def quantize_matrix_int4(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """[..., F, D] → {"q4": int8 [..., F/2, D], "s": f32 [..., F]}: per
+    output row symmetric, the division in the weight's dtype as in
+    :func:`quantize_matrix`."""
+    f = w.shape[-2]
+    if f % 2:
+        raise ValueError(f"int4 weight packing needs an even out dim, got {f}")
+    s = (w.float().abs().amax(dim=-1) / 7.0).clamp_min(1e-12)
+    q = torch.round(w / s[..., None].to(w.dtype)).clamp(-7, 7).to(torch.int8)
+    return {"q4": _pack_halves(q), "s": s}
+
+
+def quantize_matrix_int4_group(w: torch.Tensor,
+                               group: int = INT4_GROUP) -> Dict[str, torch.Tensor]:
+    """[..., F, D] → {"q4": int8 [..., F/2, D], "gs": f32 [..., F, D/group]}:
+    one scale per ``group`` contiguous input columns of each output row;
+    ``group`` clamps to D and must then divide it."""
+    *lead, f, d = w.shape
+    group = min(group, d)
+    if f % 2 or d % group:
+        raise ValueError(f"int4 group packing needs an even out dim and a "
+                         f"group dividing the in dim: F={f}, D={d}, group={group}")
+    wg = w.reshape(*lead, f, d // group, group)
+    s = (wg.float().abs().amax(dim=-1) / 7.0).clamp_min(1e-12)
+    q = torch.round(wg / s[..., None].to(w.dtype)).clamp(-7, 7).to(torch.int8)
+    return {"q4": _pack_halves(q.reshape(*lead, f, d)), "gs": s}
+
+
+def unpack_int4_halves(q4: torch.Tensor):
+    """Packed bytes → (low, high) signed int8 nibble planes.  The low nibble
+    is sign-extended as ``((b & 0xF) ^ 8) - 8`` (no shift that could wrap),
+    the high one by the arithmetic right shift."""
+    low = ((q4 & 0x0F) ^ 0x08) - 0x08
+    return low, q4 >> 4
+
+
+def dequantize_matrix_int4(qw: Dict[str, torch.Tensor],
+                           dtype=torch.bfloat16) -> torch.Tensor:
+    low, high = unpack_int4_halves(qw["q4"])
+    w = torch.cat([low, high], dim=-2).float()
+    return (w * qw["s"][..., None]).to(dtype)
+
+
+def dequantize_matrix_int4_group(qw: Dict[str, torch.Tensor],
+                                 dtype=torch.bfloat16) -> torch.Tensor:
+    low, high = unpack_int4_halves(qw["q4"])
+    q = torch.cat([low, high], dim=-2).float()
+    *lead, f, d = q.shape
+    g = qw["gs"].shape[-1]
+    q = q.reshape(*lead, f, g, d // g) * qw["gs"][..., None]
+    return q.reshape(*lead, f, d).to(dtype)
+
+
+def quantized_matmul_int4(x: torch.Tensor, qw: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """y = x @ Wᵀ with per-row int4 W: one product per nibble plane against
+    its output half, each scaled in x's dtype (the reference's two-plane
+    form)."""
+    low, high = unpack_int4_halves(qw["q4"])
+    f2 = qw["q4"].shape[-2]
+    s = qw["s"].to(x.dtype)
+    return torch.cat([(x @ low.to(x.dtype).T) * s[..., :f2],
+                      (x @ high.to(x.dtype).T) * s[..., f2:]], dim=-1)
+
+
+def quantized_matmul_int4_group(x: torch.Tensor,
+                                qw: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """y = x @ Wᵀ with group-scaled int4 W, for the prefill (T > 1): one
+    layer's matrix dequantized to x's dtype, then one product.  The
+    reference's form scales fp32 per-group partial sums through a
+    [B, T, F, G] intermediate, too large at the serving prefill; the two
+    agree to fp32 rounding in fp32."""
+    return x @ dequantize_matrix_int4_group(qw, x.dtype).T
+
+
+_QUANT_FNS = {
+    "int8": quantize_matrix,
+    "int4": quantize_matrix_int4,
+    "int4g": quantize_matrix_int4_group,
+}
+
+
+def quant_mode(value) -> str:
+    """A ``quantize`` argument → "" (model dtype) | "int8" | "int4" |
+    "int4g"; True means int8.  int4n and w8a8 are not ported; anything
+    else is an error."""
+    if value is None or value is False:
+        return ""
+    if value is True:
+        return "int8"
+    mode = str(value).strip().lower()
+    if mode in ("", "none", "false", "bf16"):
+        return ""
+    if mode in ("int4n", "w8a8"):
+        raise NotImplementedError(
+            f"quantize: {mode} is queued in ROADMAP.md (the missing modules); "
+            "the port serves int8, int4, int4g or unquantized weights")
+    if mode not in _QUANT_FNS:
+        raise ValueError(f"unrecognized quantize value {value!r}: use int8, "
+                         "w8a8, int4, int4g, int4n, or unset/none/bf16")
+    return mode
+
+
+def quant_fn(mode):
+    """The per-matrix quantize function of ``mode`` (int8 | int4 | int4g)."""
+    return _QUANT_FNS[quant_mode(mode)]

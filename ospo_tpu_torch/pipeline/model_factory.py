@@ -10,8 +10,8 @@ Resolution (fail-fast, as in the JAX package):
 
 The model lives on ``config.device`` (default ``cuda``; ``cpu`` only when
 asked).  ``ckpt_path`` (a LoRA checkpoint of step 5, from either package)
-is merged into the trunk before ``quantize: int8`` makes it int8
-(``ospo_tpu/pipeline/model_factory.py:154-177``); ``drop_lm_head`` and
+is merged into the trunk before ``quantize`` (int8, int4 or int4g) quantizes
+it (``ospo_tpu/pipeline/model_factory.py:154-177``); ``drop_lm_head`` and
 ``drop_understanding`` are honoured by never building those parts (the port
 builds neither yet).  The processor's image processor comes from the
 checkpoint's ``preprocessor_config.json`` or the defaults at the model's
@@ -43,20 +43,10 @@ def has_weights(model_path: Optional[str]) -> bool:
 
 
 def _validate_quantize_mode(config) -> str:
-    """'' (model dtype) or 'int8'; other modes are not ported yet, and an
-    unknown spelling is an error before the (long) model build."""
-    qmode = str(config.get("quantize") or "").lower()
-    if qmode in ("", "none", "false", "bf16"):
-        return ""
-    if qmode == "int8":
-        return qmode
-    if qmode in ("w8a8", "int4", "int4g", "int4n"):
-        raise NotImplementedError(
-            f"quantize: {qmode} is queued in ROADMAP.md (slice 5, opt-in "
-            "modes); the port serves int8 or unquantized weights")
-    raise ValueError(
-        f"unrecognized quantize value {config.get('quantize')!r}: use int8, "
-        "w8a8, int4, int4g, int4n, or unset/none/bf16")
+    """'' (model dtype), 'int8', 'int4' or 'int4g'; w8a8 and int4n are not
+    ported yet, and an unknown spelling (``true`` included, as in the JAX
+    package) is an error before the (long) model build."""
+    return quant.quant_mode(str(config.get("quantize") or ""))
 
 
 def _reject_unported(config) -> None:
@@ -72,7 +62,7 @@ def _reject_unported(config) -> None:
         raise ValueError(f"mesh_scope must be local|global, got {scope!r}")
 
 
-def build_model(config, quantize: bool = False) -> janus_lib.JanusModel:
+def build_model(config, quantize: str = "") -> janus_lib.JanusModel:
     device = resolve_device(config.get("device"))
     model_path = config.get("model_path")
     if model_path:
@@ -120,17 +110,19 @@ def get_model(config) -> Tuple[janus_lib.JanusModel, object, Processor]:
 
         ckpt_path = resolve_checkpoint_dir(ckpt_path)  # fail before the build
     if qmode:
-        print("# Quantizing language-model weights to int8 (W8A16).")
-    # a random-init trunk is quantized as it is drawn, unless adapters are
-    # merged into it first
-    model = build_model(config, quantize=bool(qmode) and not ckpt_path)
+        print(f"# Quantizing language-model weights to {qmode} "
+              f"({'W8A16' if qmode == 'int8' else 'W4A16'}).")
+    # a random-init or loaded trunk is quantized layer by layer as it is
+    # built, unless adapters are merged into it first
+    model = build_model(config, quantize="" if ckpt_path else qmode)
     if ckpt_path:
         print(f"# Merging LoRA checkpoint {ckpt_path} into base weights.")
         merge_lora_checkpoint(model, ckpt_path)
         if qmode:
             layers = model.params["language_model"]["layers"]
+            qfn = quant.quant_fn(qmode)
             for name in quant.QUANTIZABLE:
-                layers[name] = quant.quantize_matrix(layers[name])
+                layers[name] = qfn(layers[name])
     model_path = config.get("model_path")
     tokenizer = load_tokenizer(model_path if has_weights(model_path) else None,
                                vocab_size=model.cfg.language.vocab_size)

@@ -1,8 +1,10 @@
 """Where the time goes in the port's step-3 decode, on one GPU.
 
     python3 scripts/profile_torch_step3.py [--preset 7b] [--items 24]
+        [--quantize int8|int4|int4g]
 
-Builds the step-3 serving model (random int8 weights, int8 shbd KV cache),
+Builds the step-3 serving model (random weights, int8 by default, or int4
+rows or int4 groups; int8 shbd KV cache),
 takes the first ``--items`` long prompts of the step-2 fixture as one CFG
 group and, after a short warm-up (kernel build, cuBLAS/cuDNN set-up), runs
 the engine's public serving call ``generate_images_device`` (sampling, VQ
@@ -14,7 +16,8 @@ engine's ``step_hook``:
 2. under ``torch.profiler`` for a window of decode steps: device time per
    step by kernel class (CUDA kernels only) and the device's busy share.
 
-The result goes to ``chiprun_out/profile_step3.json`` and stdout.
+The result goes to ``chiprun_out/profile_step3.json`` (int8) or
+``chiprun_out/profile_step3_<quantize>.json`` and stdout.
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ def classify(name: str) -> str:
         return "decode_attention kernel"
     if "flash_fwd" in n:
         return "flash_fwd kernel"
+    if "int4_decode_matmul" in n or "int4_combine" in n:
+        return "int4 decode-matmul kernel"
     if any(s in n for s in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90")):
         return "matmul (cuBLAS)"
     if "copy" in n:
@@ -86,6 +91,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", default="7b", choices=["7b", "1b"])
     ap.add_argument("--items", type=int, default=24)
+    ap.add_argument("--quantize", default="int8", choices=["int8", "int4", "int4g"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_step3: needs a CUDA device")
@@ -96,7 +102,8 @@ def main() -> None:
     build.build_all()
 
     cfg = {"7b": janus.JANUS_PRO_7B, "1b": janus.JANUS_PRO_1B}[args.preset]
-    model = janus.JanusModel.init(cfg, seed=42, quantize="int8", device="cuda")
+    model = janus.JanusModel.init(cfg, seed=42, quantize=args.quantize,
+                               device="cuda")
     torch.cuda.synchronize()
     proc = Processor(ByteTokenizer(cfg.language.vocab_size))
     data = read_json(os.path.join(ROOT, "tests", "fixtures", "examples",
@@ -151,7 +158,8 @@ def main() -> None:
     device_ms = sum(by_class.values()) / n_win
     mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
     result = {
-        "card": smi, "preset": args.preset, "pairs": len(prompts),
+        "card": smi, "preset": args.preset, "quantize": args.quantize,
+        "pairs": len(prompts),
         "image_tokens": n_img,
         "serving_loop_s": loop_s,
         "img_tok_per_s_serving_loop": len(prompts) * n_img / loop_s,
@@ -177,7 +185,9 @@ def main() -> None:
                                             key=lambda kv: -kv[1])[:12]},
     }
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "profile_step3.json"), "w") as f:
+    name = "profile_step3.json" if args.quantize == "int8" else \
+        f"profile_step3_{args.quantize}.json"
+    with open(os.path.join(ROOT, "chiprun_out", name), "w") as f:
         json.dump(result, f, indent=2)
     print(json.dumps(result, indent=2))
 

@@ -152,6 +152,72 @@ def test_decode_kernel_matches_plain(cuda, kind, cur_len):
                                    atol=1e-2, rtol=1e-2)
 
 
+def _int4_inputs(cuda, mode, m, f, d, dtype, seed):
+    from ospo_tpu_torch.ops import quant
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.randn((f, d), generator=g, device=cuda) * 0.05
+    w[:, :3] *= 8.0                      # outlier columns: row and group differ
+    qw = quant.quant_fn(mode)(w.to(dtype))
+    x = (torch.randn((m, 1, d), generator=g, device=cuda) * 0.5).to(dtype)
+    return x, qw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,f,d", [(1, 256, 256), (8, 512, 384), (40, 200, 256),
+                                   (2, 38, 112), (48, 4096, 1024),
+                                   (130, 96, 2048), (256, 130, 64)])
+@pytest.mark.parametrize("mode", ["int4", "int4g"])
+def test_int4_kernels_match_plain(cuda, mode, m, f, d, dtype):
+    """The row and group kernels against their plain version: small, ragged
+    (F/2 and M no multiple of the tiles, more than one M tile) and split-D
+    shapes.  The products are exact in fp32 on both sides, so the outputs
+    differ by the order of the fp32 sums: fp32 within 1e-5 (absolute and
+    relative to max |ref|); bf16 within one rounding step (2^-7 |ref|, and
+    one step more where the row scale rounds after), plus 1e-3 max |ref|."""
+    from ospo_tpu_torch.ops import int4_matmul as i4
+
+    x, qw = _int4_inputs(cuda, mode, m, f, d, dtype, 5)
+    n0 = i4.group_launches if mode == "int4g" else i4.row_launches
+    got = i4.int4_matmul_decode(x, qw)
+    ref = i4.int4_matmul_decode_plain(x, qw)
+    torch.cuda.synchronize()
+    assert (i4.group_launches if mode == "int4g" else i4.row_launches) == n0 + 1
+    assert got.dtype == dtype and got.shape == (m, 1, f)
+    scale = float(ref.float().abs().max())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=1e-5 * scale, rtol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-3 * scale,
+                                   rtol=2 ** -6 if mode == "int4" else 2 ** -7)
+
+
+def test_int4_projection_on_cuda_never_takes_the_plain_path(cuda, monkeypatch):
+    """A T == 1 int4 / int4g projection of the trunk (``llama.linear``) on
+    CUDA launches the kernel (the plain version is replaced by a trap) and
+    agrees with the plain version's output."""
+    from ospo_tpu_torch.models import llama
+    from ospo_tpu_torch.ops import int4_matmul as i4
+
+    for mode in ("int4", "int4g"):
+        x, qw = _int4_inputs(cuda, mode, 6, 256, 256, torch.bfloat16, 6)
+        ref = i4.int4_matmul_decode_plain(x, qw)
+        with monkeypatch.context() as mp:
+            mp.setattr(i4, "int4_matmul_decode_plain", _trap)
+            n0 = (i4.row_launches, i4.group_launches)
+            got = llama.linear(x, qw)
+            torch.cuda.synchronize()
+            moved = (i4.row_launches - n0[0], i4.group_launches - n0[1])
+        assert moved == ((0, 1) if mode == "int4g" else (1, 0))
+        scale = float(ref.float().abs().max())
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-3 * scale,
+                                   rtol=2 ** -6)
+
+
+def _trap(*args, **kwargs):
+    raise AssertionError("a CUDA tensor reached a plain version")
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     from ospo_tpu_torch.ops import decode_attention as da
     from ospo_tpu_torch.ops import flash_attention as fa
@@ -170,3 +236,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="mask"):
         da.decode_attention(qd, cache, cache, 0, 4,
                             torch.ones((2, 16), device=cuda))
+
+    from ospo_tpu_torch.ops import int4_matmul as i4
+
+    x, qw = _int4_inputs(cuda, "int4g", 4, 64, 256, torch.bfloat16, 7)
+    with pytest.raises(ValueError, match="M="):
+        i4.int4_matmul_decode(x[:1].expand(257, 1, 256).contiguous(), qw)
+    with pytest.raises(ValueError, match=r"x \[M, 1, D\]"):
+        i4.int4_matmul_decode(torch.cat([x, x], dim=1), qw)
+    with pytest.raises(ValueError, match="dtypes"):
+        i4.int4_matmul_decode(x.half(), qw)
+    x2, qw2 = _int4_inputs(cuda, "int4", 4, 64, 192, torch.bfloat16, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        i4.int4_matmul_decode(torch.cat([x2, x2], dim=-1)[..., ::2], qw2)
+    x3, qw3 = _int4_inputs(cuda, "int4", 4, 64, 72, torch.bfloat16, 9)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        i4.int4_matmul_decode(x3, qw3)

@@ -232,7 +232,7 @@ def test_random_init_quantizes_each_matrix():
     deq = w["q"].float() * w["s"][..., None]
     assert float(deq.std()) == pytest.approx(0.02, rel=0.1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tjanus.JanusModel.init(cfg, quantize="int4", device="cpu")
+        tjanus.JanusModel.init(cfg, quantize="int4n", device="cpu")
 
 
 def test_load_janus_matches_jax_loader(tmp_path):

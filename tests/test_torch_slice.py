@@ -289,7 +289,8 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
 @pytest.mark.parametrize("override,error", [
     ({"data_parallel": 2}, NotImplementedError),
     ({"tensor_parallel": 2}, NotImplementedError),
-    ({"quantize": "int4"}, NotImplementedError),
+    ({"quantize": "int4n"}, NotImplementedError),
+    ({"quantize": "w8a8"}, NotImplementedError),
     ({"quantize": "int_8"}, ValueError),
     ({"model_path": "/does/not/exist"}, FileNotFoundError),
     ({"model_preset": None}, ValueError),
