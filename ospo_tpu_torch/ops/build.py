@@ -5,9 +5,10 @@ library with a plain C interface and loaded with :mod:`ctypes` (no PyTorch
 headers, so a build takes seconds).  Libraries are cached under
 ``build/kernels/`` at the repository root, keyed by a hash of the source and
 the shared headers (``csrc/*.cuh``), so an edited source rebuilds and an
-unchanged one loads at once.  Nothing is built when a module is imported:
-the first launch builds what it needs, and :func:`build_all` builds every
-source in parallel up front.
+unchanged one loads at once; nvcc's output (the ptxas register and spill
+report) is kept beside each library as ``lib<name>-<hash>.log``.  Nothing is
+built when a module is imported: the first launch builds what it needs, and
+:func:`build_all` builds every source in parallel up front.
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ def _target(name: str) -> Path:
 def _start(name: str):
     """Start nvcc for one source; returns (target, process or None)."""
     target = _target(name)
-    if target.exists():
+    if target.exists() and target.with_suffix(".log").exists():
         return target, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".tmp{os.getpid()}.so")
@@ -73,19 +74,24 @@ def _start(name: str):
 
 
 def _finish(name: str, target: Path, job) -> str:
+    """Wait for nvcc; returns its output, or the kept output of a cached
+    library."""
+    log = target.with_suffix(".log")
     if job is None:
-        return ""
+        return log.read_text() if log.exists() else ""
     proc, tmp = job
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    log.write_text(out)
     os.replace(tmp, target)
     return out
 
 
 def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
     """Build the named kernels in parallel (one nvcc each); returns each
-    build's compiler output (ptxas register/spill report), empty if cached."""
+    build's compiler output (ptxas register/spill report), kept from the
+    build that made a cached library."""
     names = list(names)
     jobs = {n: _start(n) for n in names}
     logs = {n: _finish(n, *jobs[n]) for n in names}

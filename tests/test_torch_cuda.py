@@ -54,15 +54,33 @@ def _bwd_inputs(cuda, dtype, b, t, h, kvh, seed):
     return q, k, v, do, mask, fa
 
 
+def _assert_bwd_close(got, ref, dtype, name):
+    """fp32 (CUDA-core body): within 1e-4, the order of the fp32 sums.
+    bf16 (tensor-core body, which rounds p and ds to bf16 where the plain
+    version keeps them in fp32): within 2^-8 max|ref| + 2^-7 |ref| per
+    tensor, i.e. the final bf16 step plus what the rounding of p and ds
+    moves (a sum over a row's keys, so a share of the row's scale, not of
+    the element's own value, hence the max|ref| term; ~1.5e-3 max|ref| in a
+    CPU emulation of the kernel at T=704)."""
+    assert got.dtype == dtype and got.shape == ref.shape, name
+    if dtype == torch.float32:
+        atol, rtol = 1e-4, 1e-4
+    else:
+        atol, rtol = 2 ** -8 * float(ref.float().abs().max()), 2 ** -7
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol,
+                               msg=name)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,h,kvh,causal", [(128, 4, 4, True),
                                             (77, 4, 2, True),
-                                            (150, 6, 2, False)])
+                                            (150, 6, 2, False),
+                                            (704, 4, 4, True)])
 def test_flash_backward_kernels_match_plain(cuda, dtype, t, h, kvh, causal):
     """dQ and dK/dV kernels against their plain versions on the same
     inputs and forward statistics: T a tile multiple and ragged, GQA, a
-    masked key.  fp32 inside both; fp32 outputs within 1e-4 (summation
-    order), bf16 outputs within one bf16 step (1e-4 + 2^-7 |ref|)."""
+    masked key, and T=704 (eleven 64-key tiles, the diagonal of the last at
+    a non-tile row); tolerances as ``_assert_bwd_close``."""
     q, k, v, do, mask, fa = _bwd_inputs(cuda, dtype, 3, t, h, kvh, 3)
     out, l, m = fa.flash_attention(q, k, v, mask, causal=causal,
                                    return_stats=True)
@@ -74,12 +92,26 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, t, h, kvh, causal):
     assert (fa.dq_launches, fa.dkv_launches) == (n0[0] + 1, n0[1] + 1)
     ref_dq = fa.flash_dq_plain(q, k, v, mask, do, m, l, di, causal)
     ref_dk, ref_dv = fa.flash_dkv_plain(q, k, v, mask, do, m, l, di, causal)
-    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-4, 2 ** -7)
     for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
                            ("dv", dv, ref_dv)):
-        assert got.dtype == dtype and got.shape == ref.shape, name
-        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
-                                   rtol=rtol, msg=name)
+        _assert_bwd_close(got, ref, dtype, name)
+
+
+@pytest.mark.parametrize("t,h,kvh", [(77, 4, 2), (704, 4, 4)])
+def test_flash_backward_bf16_kernels_within_the_rounding_budget(cuda, t, h,
+                                                                 kvh):
+    """bf16: against a float64 backward from the same inputs (its own
+    float64 forward), the kernels' RMS error is at most ``BUDGET`` (2) times
+    the plain backward's (p and ds in fp32, the same fp32 statistics,
+    rounded to bf16 at the end); ``flash_bwd_reference`` has the rule and
+    its inputs (q scaled so that the attention is peaked)."""
+    import flash_bwd_reference as ref
+
+    q, k, v, do, mask, fa = _bwd_inputs(cuda, torch.bfloat16, 3, t, h, kvh, 5)
+    args = ref.budget_case(q, k, v, mask, do)
+    got = (fa.flash_dq(*args), *fa.flash_dkv(*args))
+    for name, err, err_plain in ref.budget(got, *args):
+        assert err <= ref.BUDGET * err_plain, (name, err, err_plain)
 
 
 def test_flash_autograd_on_cuda_never_takes_the_plain_path(cuda, monkeypatch):
@@ -106,6 +138,30 @@ def test_flash_autograd_on_cuda_never_takes_the_plain_path(cuda, monkeypatch):
         (n0[0] + 1, n0[1] + 1, n0[2] + 1)
     for got, want in zip(grads, ref):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_autograd_on_cuda_never_takes_the_plain_path_bf16(cuda,
+                                                               monkeypatch):
+    """The same in bf16, through the tensor-core bodies of the dQ and dK/dV
+    kernels; gradients within the bf16 tolerance of
+    ``_assert_bwd_close`` of the plain backward (the forward's O and
+    statistics differ from the plain forward's by their own rounding)."""
+    from ospo_tpu_torch.ops import attention as tattn
+
+    q, k, v, do, mask, fa = _bwd_inputs(cuda, torch.bfloat16, 2, 96, 4, 2, 4)
+    out, l, m = fa.flash_attention_plain(q, k, v, mask)
+    ref = fa.flash_attention_bwd_plain(q, k, v, mask, out, l, m, do)
+    for name in ("flash_attention_plain", "flash_dq_plain", "flash_dkv_plain"):
+        monkeypatch.setattr(fa, name, _trap)
+    n0 = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    o = tattn.attention(*leaves, mask=mask, impl="flash")
+    grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == \
+        (n0[0] + 1, n0[1] + 1, n0[2] + 1)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        _assert_bwd_close(got, want, torch.bfloat16, name)
 
 
 @pytest.mark.parametrize("kind", ["int8", "bf16"])

@@ -23,6 +23,8 @@ from ospo_tpu_torch.ops.decode_attention import decode_attention
 from ospo_tpu_torch.ops.flash_attention import flash_attention
 from ospo_tpu_torch.ops.sampling import sample_categorical
 
+import flash_bwd_reference as ref
+
 torch.set_num_threads(2)
 # torch's CPU exp (MKL's vector math) sets itself up on its first call; in
 # some processes the worker thread's share of that first parallel call came
@@ -186,6 +188,98 @@ def test_flash_backward_wrappers_take_the_plain_path_on_cpu():
                     fa.flash_dkv_plain(q, k, v, mask, g, m, l, di)):
         torch.testing.assert_close(a, b)
     assert (fa.dq_launches, fa.dkv_launches) == n0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_plain_fp32_rounds_nothing(causal):
+    """The plain backward keeps p and ds in fp32, as the TPU kernels do: it
+    equals the written-out formulas of ``flash_bwd_reference.backward`` bit
+    for bit, from fp32 inputs and from bf16 ones (rounded to bf16 at the
+    end)."""
+    q, k, v, g, mask = (_t(x) for x in _bwd_case(15))
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, g = (x.to(dtype) for x in (q, k, v, g))
+        out, l, m = flash_attention(q, k, v, mask, causal=causal,
+                                    return_stats=True)
+        di = fa.row_dot(out, g)
+        got = (fa.flash_dq_plain(q, k, v, mask, g, m, l, di, causal),
+               *fa.flash_dkv_plain(q, k, v, mask, g, m, l, di, causal))
+        want = ref.backward(q, k, v, mask, g, m, l, di, causal)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(a, b.to(dtype), atol=0, rtol=0,
+                                       msg=f"{name} {dtype}")
+
+
+def test_flash_backward_float64_reference_matches_plain():
+    """The float64 yardstick of the rounding budget,
+    ``flash_bwd_reference.exact_backward`` (its own forward), against the
+    plain backward on fp32 inputs: the same function, to 2e-5 of max|ref|."""
+    q, k, v, g, mask = (_t(x) for x in _bwd_case(18))
+    out, l, m = flash_attention(q, k, v, mask, return_stats=True)
+    plain = fa.flash_attention_bwd_plain(q, k, v, mask, out, l, m, g)
+    for name, a, b in zip(("dq", "dk", "dv"), plain,
+                          ref.exact_backward(q, k, v, mask, g)):
+        assert b.dtype == torch.float64, name
+        err = float((a.double() - b).abs().max())
+        assert err <= 2e-5 * float(b.abs().max()), (name, err)
+
+
+def test_flash_backward_plain_bf16_matches_jax_custom_vjp():
+    """bf16 inputs: the plain backward (p and ds in fp32) and the bf16
+    kernels' scheme (p and ds rounded to bf16, emulated by
+    ``flash_bwd_reference.backward``) against ``jax.vjp`` of the Pallas
+    flash attention in interpret mode (p and ds in fp32, each head's
+    gradient rounded before the GQA sum), within 2^-6 max|ref| per
+    tensor."""
+    q, k, v, g, mask = _bwd_case(16)
+    bf = lambda x: jnp.asarray(x).astype(jnp.bfloat16)  # noqa: E731
+    fn = lambda q_, k_, v_: jflash(q_, k_, v_, mask=jnp.asarray(mask),  # noqa: E731
+                                   causal=True, blk_q=128, blk_k=128,
+                                   interpret=True)
+    _, vjp = jax.vjp(fn, bf(q), bf(k), bf(v))
+    want = [np.asarray(x.astype(jnp.float32)) for x in vjp(bf(g))]
+    tq, tk, tv, tg = (_t(x).to(torch.bfloat16) for x in (q, k, v, g))
+    tm = _t(mask)
+    out, l, m = flash_attention(tq, tk, tv, tm, return_stats=True)
+    plain = fa.flash_attention_bwd_plain(tq, tk, tv, tm, out, l, m, tg)
+    scheme = ref.backward(tq, tk, tv, tm, tg, m, l, fa.row_dot(out, tg),
+                          round_p_ds=True)
+    for name, a, e, r in zip(("dq", "dk", "dv"), plain, scheme, want):
+        assert a.dtype == torch.bfloat16 and a.shape == r.shape, name
+        for what, x in (("plain", a), ("kernels' scheme", e)):
+            err = float(np.abs(x.to(torch.bfloat16).float().numpy() - r).max())
+            assert err <= 2 ** -6 * float(np.abs(r).max()), (name, what, err)
+
+
+def _scheme_budget(seed, round_s):
+    """``flash_bwd_reference.budget`` of the bf16 kernels' scheme (emulated,
+    rounded to bf16 at the end), at the ``_bwd_case`` shape with q scaled
+    as the budget's inputs are; ``round_s`` adds the control's rounding of
+    the scores."""
+    q, k, v, g, mask = (_t(x) for x in _bwd_case(seed))
+    args = ref.budget_case(*(x.to(torch.bfloat16) for x in (q, k, v)), mask,
+                           g.to(torch.bfloat16))
+    got = [x.to(torch.bfloat16) for x in ref.backward(
+        *args, round_p_ds=True, round_s=round_s)]
+    return ref.budget(got, *args)
+
+
+def test_flash_backward_bf16_rounding_budget():
+    """The bf16 kernels' scheme (p and ds rounded to bf16) errs against a
+    float64 backward at most ``BUDGET`` (2) times the RMS error of the plain
+    backward (p and ds in fp32), both from the same bf16 inputs and fp32
+    statistics and rounded to bf16 at the end.  The kernels on the card are
+    held to the same rule (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+    for name, err, err_plain in _scheme_budget(17, round_s=False):
+        assert err <= ref.BUDGET * err_plain, (name, err, err_plain)
+
+
+def test_flash_backward_rounding_budget_sees_rounded_scores():
+    """The budget's control: the same scheme with the scores ``q . k`` also
+    rounded to bf16 (precision a kernel must not lose) exceeds the budget in
+    every tensor."""
+    for name, err, err_plain in _scheme_budget(17, round_s=True):
+        assert err > ref.BUDGET * err_plain, (name, err, err_plain)
 
 
 def test_attention_impl_argument():
