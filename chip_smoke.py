@@ -7,11 +7,15 @@ fails):
 
 1. environment: the card's name and power limit; build every CUDA kernel
    from ``ospo_tpu_torch/ops/csrc`` (one nvcc per source, in parallel);
+   fail on a ptxas register spill in the flash and decode kernels;
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, with timings (kernel, plain version, one library call
    where one computes the same function, or for the int4 matmuls the
    cuBLAS bf16 product on the dequantized weight as a yardstick) and the
-   card's lower bound;
+   card's lower bound; the bf16 flash kernels also against a float64
+   forward and backward (RMS error at most twice the plain versions'), and
+   a control build of the forward that rounds the scores to bf16 must fail
+   that budget;
 3. a small model (head dim 128) on the GPU (kernels) and on the CPU (plain
    versions), same weights: the teacher-forced CFG probe with int8 and
    with int4g weights, and one SimPO training step (loss and LoRA
@@ -135,6 +139,10 @@ def merged(base: dict, over: dict) -> dict:
     return out
 
 
+# kernels whose ptxas report phase 1 reads: a register spill fails the run
+SPILL_CHECKED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "decode_attention")
+
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, int8 tensor cores,
 # HBM3 bandwidth
 PEAK_BF16 = 989e12
@@ -204,12 +212,11 @@ class Smoke:
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
                 if "spill" in line and "0 bytes spill stores, 0 bytes spill " \
-                        "loads" not in line and name.startswith("flash_bwd"):
+                        "loads" not in line and name in SPILL_CHECKED:
                     spills.append(f"{name}: {line.strip()}")
-        reports = [n for n in ("flash_bwd_dq", "flash_bwd_dkv")
-                   if "spill" in logs.get(n, "")]
-        self.check(len(reports) == 2 and not spills,
-                   f"flash backward kernels build without register spills "
+        reports = [n for n in SPILL_CHECKED if "spill" in logs.get(n, "")]
+        self.check(len(reports) == len(SPILL_CHECKED) and not spills,
+                   f"flash and decode kernels build without register spills "
                    f"(ptxas reports of {reports}): {spills}")
 
     # -- phase 2 ---------------------------------------------------------
@@ -361,6 +368,22 @@ class Smoke:
                 timing = (ms, plain_ms, bound_ms,
                           "bytes" if nbytes / PEAK_BYTES > ops / peak
                           else "operations")
+            else:
+                # yardstick: SDPA over a contiguous copy of the populated
+                # slice ([B, H, cur, dh]; the copy is not timed, and the
+                # fully masked row comes out NaN there): the port never
+                # calls it
+                kt, vt = (x[15, :cur].permute(2, 1, 0, 3).contiguous()
+                          for x in (kc, vc))
+                qt, allowed = q.transpose(1, 2), mask[:, None, None, :cur] > 0
+                sdpa_ms = cuda_ms(lambda: torch.nn.functional.
+                                  scaled_dot_product_attention(
+                                      qt, kt, vt, attn_mask=allowed), 50)
+                print(f"decode_attention bf16 yardstick: SDPA over a "
+                      f"contiguous copy of the cache slice, cur_len {cur}: "
+                      f"{sdpa_ms:.4f} ms")
+                bf16_timing = (ms, sdpa_ms)
+                del kt, vt
             del kc, vc, ks, vs
             torch.cuda.empty_cache()
         self.kernels["decode_attention"] = {
@@ -370,13 +393,20 @@ class Smoke:
             "launches": None, "max_abs_err": worst, "ms": timing[0],
             "plain_ms": timing[1], "bound_ms": timing[2],
             "bound_by": timing[3], "library_ms": None,
+            "library_note": f"no PyTorch call takes the int8 cache with its "
+                            f"scales; with a bf16 cache the kernel took "
+                            f"{bf16_timing[0]:.4f} ms and SDPA over a "
+                            f"contiguous copy of the slice (copy not timed) "
+                            f"{bf16_timing[1]:.4f} ms at cur_len 672",
         }
 
     def flash_backward_kernels(self):
         from ospo_tpu_torch.ops import flash_attention as fa
 
-        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        sys.path[:0] = [os.path.join(ROOT, "tests"), os.path.join(ROOT, "scripts")]
         import flash_bwd_reference as ref
+        import flash_fwd_reference as fref
+        from flash_bwd_budget_control import build_control, loaded
 
         dev = torch.device("cuda")
         worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
@@ -467,6 +497,36 @@ class Smoke:
             del got, args
             torch.cuda.empty_cache()
 
+        control = build_control(["flash_fwd"])
+
+        def fwd_budget(rows, T, H, KVH, seed, what):
+            """bf16, on inputs of ``flash_fwd_reference.budget_case`` (q
+            scaled so that the attention is peaked): the forward kernel's
+            RMS error in O against a float64 forward at most BUDGET times
+            the plain forward's (p in fp32, O rounded to bf16); the control
+            build, which also rounds the scores q . k to bf16, must exceed
+            it."""
+            g = torch.Generator(device=dev).manual_seed(seed)
+            q = torch.randn((rows, T, H, 128), generator=g, device=dev)
+            k, v = (torch.randn((rows, T, KVH, 128), generator=g, device=dev)
+                    for _ in range(2))
+            mask = torch.ones((rows, T), dtype=torch.int32, device=dev)
+            mask[-1, T // 3] = 0
+            args = fref.budget_case(*(x.to(torch.bfloat16) for x in (q, k, v)),
+                                    mask)
+            for label, libs in (("kernel", {}), ("control", control)):
+                with loaded(libs):
+                    err, err_plain = fref.budget(fa.flash_attention(*args), *args)
+                keeps = err <= fref.BUDGET * err_plain
+                self.check(keeps == (label == "kernel"),
+                           f"flash_fwd {what} against float64 ({label}"
+                           f"{', scores rounded to bf16: must exceed' if label == 'control' else ''}"
+                           f"): RMS error {err:.4g}, plain forward "
+                           f"{err_plain:.4g} (ratio {err / err_plain:.3f}, "
+                           f"tol {fref.BUDGET:g})")
+            del args
+            torch.cuda.empty_cache()
+
         def timed(args, iters):
             """(kernel ms, plain ms, SDPA forward ms, SDPA backward ms): the
             forward, dQ and dK/dV kernels; their plain versions; and one
@@ -504,6 +564,7 @@ class Smoke:
             ragged[dtype] = case(3, 200, 4, 2, dtype, True, 6, what)
             check(ragged[dtype], what)
         budget(3, 200, 4, 2, 8, "bf16 rows=3 T=200 H=4/KVH=2")
+        fwd_budget(3, 200, 4, 2, 8, "bf16 rows=3 T=200 H=4/KVH=2")
         ms, plain, fwd_ms, bwd_ms = timed(ragged[torch.bfloat16], 20)
         print(f"flash ragged case (bf16 rows=3 T=S=200 H=4/KVH=2, one masked "
               f"key): forward {ms['fwd']:.4f} ms (sdpa {fwd_ms:.4f}); dq "
@@ -535,6 +596,7 @@ class Smoke:
         # the float64 yardstick at 2 rows (all 32 heads: ~250 MB a score
         # tensor)
         budget(2, T, H, H, 9, f"bf16 rows=2 T=S={T} H={H}")
+        fwd_budget(2, T, H, H, 9, f"bf16 rows=2 T=S={T} H={H}")
         ms, plain, sdpa_fwd_ms, lib_bwd_ms = timed(args, 10)
         pairs = rows * H * T * (T + 1) / 2
         tensor = rows * T * H * D * 2                     # one bf16 [B,T,H,D]

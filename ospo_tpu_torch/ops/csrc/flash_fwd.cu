@@ -1,10 +1,11 @@
-// Flash-attention forward for Hopper (sm_90a), fp32 online softmax.
+// Flash-attention forward for Hopper (sm_90a): a bf16 body on the tensor
+// cores and an fp32 body on the CUDA cores.
 //
 // Replaces: ospo_tpu/ops/flash_attention.py::_fwd_kernel (:45-93, launched by
 // _fwd_call :96-129).  Same function: per (batch, head, query tile) an fp32
-// online softmax over key tiles, scale D^-0.5 applied to q, key-validity mask
-// [B, S] filled with -1e30, row-causal mask j <= i, normaliser clamped at
-// 1e-30; emits O, the row normaliser l and the row max m.
+// online softmax over key tiles, scale D^-0.5, key-validity mask [B, S]
+// filled with -1e30, row-causal mask j <= i, normaliser clamped at 1e-30;
+// emits O, the row normaliser l and the row max m.
 //
 // One deliberate difference from the TPU kernel, shared with the plain
 // version in flash_attention.py: keys outside the causal window or past S
@@ -13,51 +14,79 @@
 // allowed key is masked (a left-pad row) gets the mean of V over its causal
 // window, independent of the tile size.
 //
-// What bounds it on the card: at the prefill shapes (B=48, H=32, D=128,
+// What bounds it on the card: at the prefill shape (B=48, H=32, D=128,
 // T=S=384, causal, left-padded prompts) one call needs ~22 GFLOP against
-// ~0.61 GB of q/k/v/o traffic — 36 FLOP per byte, under the ~295 at which
-// bf16 tensor cores would be the limit — so its floor is bytes / 3.35 TB/s
-// (~0.18 ms).  This first version runs the products on the fp32 CUDA cores
-// (no wgmma/TMA), which makes it compute-bound well above that floor: the
-// point is the reference's fp32 semantics.  Its design keeps the T x S score
-// matrix out of
-// device memory (it lives in shared memory one 64 x 32 tile at a time),
-// skips key tiles above the diagonal, pads shared-memory rows to avoid bank
-// conflicts, and reads GQA key/value heads by index instead of copying them.
-// Moving the two products onto wgmma is later work.
+// ~0.61 GB of q/k/v/o traffic, 36 FLOP per byte, under the ~295 at which
+// the bf16 tensor cores would be the limit: its floor is bytes / 3.35 TB/s
+// (~0.18 ms).  At the training shape (32 rows, H=32, T=S=704) it needs
+// 130 GFLOP against 0.74 GB, again bounded by bytes (~0.22 ms).
+//
+// What held the first version back (kept as the fp32 body, dtype 0): both
+// products ran as scalar fmaf loops on the fp32 CUDA cores over padded fp32
+// shared tiles, and each 32-key tile was loaded synchronously: 6.2 ms at
+// the training shape, ~21 TFLOP/s, 17.7x SDPA's forward.
+//
+// The bf16 body (dtype 1) does about it:
+//  - both products on the tensor cores, mma.sync m16n8k16 bf16 with fp32
+//    accumulators (mma_bf16.cuh): S = Q . K^T takes q and k as they are
+//    (their products are exact in fp32) and the scale is applied after the
+//    product, (q . k) * D^-0.5, exactly as the backward kernels recompute
+//    the scores, so the m and l emitted here agree with their p;
+//  - the online softmax stays in fp32: p = exp2((s - m) * log2 e) with the
+//    difference taken first (a pad row's -1e30 - (-1e30) is exactly 0), l
+//    sums the fp32 p; p is rounded to bf16 only as the A operand of P . V,
+//    straight from the S accumulator registers (FlashAttention-2's scheme;
+//    the TPU kernel and the plain version keep p in fp32), and the O
+//    accumulator stays in fp32 registers;
+//  - a block owns 64 query rows (4 warps x 16 rows, 128 threads); the Q
+//    tile is loaded once and its A fragments stay in registers for the
+//    whole key loop; K and V stream in 64-key tiles through a cp.async
+//    double buffer (Q 16 KB + 2 x 32 KB = 80 KB, two blocks an SM), the
+//    ragged edge zero-filled by cp.async's src-size operand;
+//  - shared tiles are [64][128] bf16 with the 16-byte-chunk XOR swizzle of
+//    mma_bf16.cuh, read by ldmatrix (.trans for V) without bank conflicts;
+//  - key tiles above the diagonal are skipped, and the blocks of the
+//    longest causal rows (the high query tiles) start first.
+// ptxas (CUDA 12.8): 235 registers a thread, no spills; 82,432 bytes of
+// dynamic shared memory a block.  On an NVIDIA H100 80GB HBM3 at 700 W
+// (PERF.md) it took 0.474 ms at the prefill shape and 0.884 ms at the
+// training shape (~147 TFLOP/s, 2.5x SDPA's forward there): held by 8
+// warps an SM, the dependent softmax between the two products and the
+// mask/causal select on every score.  A 128-row variant (32 rows a warp)
+// spilled at 255 registers and was no faster.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <initializer_list>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
 constexpr int D = 128;         // head dim (the wrapper rejects others)
+constexpr float NEG_FILL = -1e30f;
+
+// ---------------------------------------------------------------------------
+// fp32 body (dtype 0): the CUDA-core kernel of the first version, unchanged
+// ---------------------------------------------------------------------------
+
 constexpr int BQ = 64;         // query rows per block
 constexpr int BK = 32;         // keys per tile
 constexpr int THREADS = 256;   // 16 x 16 threads
 constexpr int DP = D + 1;      // padded shared row stride (floats)
 constexpr int PP = BK + 1;     // padded probability row stride
-constexpr float NEG_FILL = -1e30f;
 constexpr size_t SMEM_BYTES =
     sizeof(float) * (BQ * DP + BK * DP + BK * D + BQ * PP);
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ mask,
-                 T* __restrict__ o, float* __restrict__ l_out,
-                 float* __restrict__ m_out, int t_len, int s_len, int n_heads,
-                 int n_kv_heads, int causal, float scale) {
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const int* __restrict__ mask,
+              float* __restrict__ o, float* __restrict__ l_out,
+              float* __restrict__ m_out, int t_len, int s_len, int n_heads,
+              int n_kv_heads, int causal, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;              // [BQ][DP], pre-scaled
   float* ks = qs + BQ * DP;      // [BK][DP]
@@ -75,7 +104,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int idx = tid; idx < BQ * D; idx += THREADS) {
     const int r = idx / D, d = idx % D, t = q0 + r;
     float val = 0.f;
-    if (t < t_len) val = to_f(q[(((size_t)b * t_len + t) * n_heads + h) * D + d]) * scale;
+    if (t < t_len) val = q[(((size_t)b * t_len + t) * n_heads + h) * D + d] * scale;
     qs[r * DP + d] = val;
   }
 
@@ -99,8 +128,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kval = 0.f, vval = 0.f;
       if (s < s_len) {
         const size_t off = (((size_t)b * s_len + s) * n_kv_heads + kvh) * D + d;
-        kval = to_f(k[off]);
-        vval = to_f(v[off]);
+        kval = k[off];
+        vval = v[off];
       }
       ks[r * DP + d] = kval;
       vs[r * D + d] = vval;
@@ -178,9 +207,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int t = q0 + ty * 4 + i;
     if (t >= t_len) continue;
     const float l_safe = fmaxf(l_i[i], 1e-30f);
-    T* orow = o + (((size_t)b * t_len + t) * n_heads + h) * D;
+    float* orow = o + (((size_t)b * t_len + t) * n_heads + h) * D;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) orow[tx + 16 * c] = from_f<T>(acc[i][c] / l_safe);
+    for (int c = 0; c < 8; ++c) orow[tx + 16 * c] = acc[i][c] / l_safe;
     if (tx == 0) {
       const size_t r = ((size_t)b * n_heads + h) * t_len + t;
       l_out[r] = l_i[i];
@@ -189,37 +218,257 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* mask,
-           void* o, float* l, float* m, int batch, int t_len, int s_len,
-           int n_heads, int n_kv_heads, int causal, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, const int* mask,
+               void* o, float* l, float* m, int batch, int t_len, int s_len,
+               int n_heads, int n_kv_heads, int causal, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((t_len + BQ - 1) / BQ, n_heads, batch);
-  flash_fwd_kernel<T><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(o), l, m, t_len, s_len,
-      n_heads, n_kv_heads, causal, (float)(1.0 / sqrt((double)D)));
+  flash_fwd_f32<<<grid, THREADS, SMEM_BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), mask, static_cast<float*>(o), l, m, t_len,
+      s_len, n_heads, n_kv_heads, causal, (float)(1.0 / sqrt((double)D)));
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 body (dtype 1): tensor cores, cp.async, swizzled shared tiles
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using namespace ospo_mma;
+
+constexpr int BQ = 64;                 // query rows per block, 16 per warp
+constexpr int BK = 64;                 // keys per tile
+constexpr int THREADS = 128;           // 4 warps
+constexpr int TILE = 64 * D;           // bf16 elements of one [64][128] tile
+// Q, then two stages of K, V; then two stages of the 64 mask words
+constexpr size_t SMEM_BYTES = sizeof(bf16) * 5 * TILE + sizeof(int) * 2 * BK;
+
+__global__ void __launch_bounds__(THREADS, 2)
+flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const int* __restrict__ mask,
+               bf16* __restrict__ o, float* __restrict__ l_out,
+               float* __restrict__ m_out, int batch, int t_len, int s_len,
+               int n_heads, int n_kv_heads, int causal, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  const uint32_t qs = smem_u32(smem_tc);
+  const uint32_t ks = qs + TILE * 2;           // stage st at ks + st * TILE * 2
+  const uint32_t vs = ks + 2 * TILE * 2;
+  int* mks = reinterpret_cast<int*>(smem_tc + 5 * TILE * 2);  // [2][BK]
+
+  // the longest causal rows (high query tiles) first
+  const int q_tiles = (t_len + BQ - 1) / BQ;
+  const int bh = batch * n_heads;
+  const int order = blockIdx.x / bh, rest = blockIdx.x % bh;
+  const int qt = causal ? q_tiles - 1 - order : order;
+  const int h = rest % n_heads, b = rest / n_heads;
+  const int kvh = h / (n_heads / n_kv_heads);
+  const int q0 = qt * BQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+
+  const size_t q_ld = (size_t)n_heads * D, k_ld = (size_t)n_kv_heads * D;
+  const size_t q_off = ((size_t)b * t_len + q0) * q_ld + (size_t)h * D;
+  load_tile64<THREADS>(qs, q + q_off, q_ld, t_len - q0, tid);
+  cp_async_commit();
+
+  const int s_tiles = (s_len + BK - 1) / BK;
+  const int n_tiles = causal ? min(s_tiles, (q0 + BQ + BK - 1) / BK) : s_tiles;
+  const int* mask_row = mask + (size_t)b * s_len;
+  auto load_kv = [&](int kt, int st) {
+    const int k0 = kt * BK;
+    const size_t off = ((size_t)b * s_len + k0) * k_ld + (size_t)kvh * D;
+    load_tile64<THREADS>(ks + st * TILE * 2, k + off, k_ld, s_len - k0, tid);
+    load_tile64<THREADS>(vs + st * TILE * 2, v + off, k_ld, s_len - k0, tid);
+    if (tid < BK) {
+      const bool ok = k0 + tid < s_len;
+      cp_async4(smem_u32(mks + st * BK + tid), ok ? mask_row + k0 + tid : mask_row,
+                ok ? 4 : 0);
+    }
+  };
+  if (n_tiles > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  // the warp's 16 Q rows as A fragments, kept in registers for the key loop
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) ldsm_x4(a_addr(qs, warp * 16, kd * 16, lane), qa[kd]);
+
+  // this thread's two query rows: g and g + 8 of the warp's 16; l is this
+  // thread's share of the row sum (its 2 of every 8 keys), summed over the
+  // quad at the end
+  int t_r[2];
+  float m_r[2], l_r[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    t_r[j] = q0 + warp * 16 + g + 8 * j;
+    m_r[j] = NEG_FILL;
+    l_r[j] = 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < n_tiles) {
+      load_kv(kt + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t kst = ks + st * TILE * 2, vst = vs + st * TILE * 2;
+    const int* mst = mks + st * BK;
+    const int k0 = kt * BK;
+
+    // S = Q . K^T, 16 rows x 64 keys a warp: two 16 x 32 halves
+    float sc[2][4][4];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[hf][nb][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd)
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        uint32_t bk[4];
+        ldsm_x4(b_addr(kst, np * 16, kd * 16, lane), bk);
+        mma(sc[np >> 1][(np & 1) * 2], qa[kd], bk[0], bk[1]);
+        mma(sc[np >> 1][(np & 1) * 2 + 1], qa[kd], bk[2], bk[3]);
+      }
+
+    // scale, mask, row max over the quad
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = hf * 32 + nb * 8 + tig * 2 + (e & 1), s = k0 + c;
+          const int j = e >> 1;
+          float& x = sc[hf][nb][e];
+          if (s >= s_len || (causal && s > t_r[j])) x = -INFINITY;
+          else x = mst[c] != 0 ? x * scale : NEG_FILL;
+          mx[j] = fmaxf(mx[j], x);
+        }
+    float alpha[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+      const float m_new = fmaxf(m_r[j], mx[j]);
+      alpha[j] = exp2f((m_r[j] - m_new) * LOG2E);
+      m_r[j] = m_new;
+      l_r[j] *= alpha[j];
+    }
+    // p = exp(s - m) in fp32, into sc; l takes the fp32 p
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = e >> 1;
+          const float p = exp2f((sc[hf][nb][e] - m_r[j]) * LOG2E);
+          sc[hf][nb][e] = p;
+          l_r[j] += p;
+        }
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nb][e] *= alpha[e >> 1];
+
+    // O += P . V, p rounded to bf16 as the A operand
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      a_frag(sc[kk >> 1], kk & 1, a);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t bv[4];
+        ldsm_x4_t(bt_addr(vst, kk * 16, np * 16, lane), bv);
+        mma(acc[2 * np], a, bv[0], bv[1]);
+        mma(acc[2 * np + 1], a, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it refills
+  }
+  cp_async_wait<0>();
+
+  float l_row[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    l_row[j] = l_r[j] + __shfl_xor_sync(0xffffffffu, l_r[j], 1);
+    l_row[j] += __shfl_xor_sync(0xffffffffu, l_row[j], 2);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (t_r[j] >= t_len) continue;
+    const float l_safe = fmaxf(l_row[j], 1e-30f);
+    bf16* row = o + ((size_t)b * t_len + t_r[j]) * q_ld + (size_t)h * D;
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb)
+      *reinterpret_cast<uint32_t*>(row + nb * 8 + tig * 2) =
+          pack_bf16(acc[nb][2 * j] / l_safe, acc[nb][2 * j + 1] / l_safe);
+    if (tig == 0) {
+      const size_t r = ((size_t)b * n_heads + h) * t_len + t_r[j];
+      l_out[r] = l_row[j];
+      m_out[r] = m_r[j];
+    }
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, const int* mask,
+           void* o, float* l, float* m, int batch, int t_len, int s_len,
+           int n_heads, int n_kv_heads, int causal, cudaStream_t stream) {
+  // 16-byte copies and 4-byte stores need aligned rows
+  for (const void* p : {q, k, v, (const void*)o})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorMisalignedAddress;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (t_len + BQ - 1) / BQ * n_heads * batch;
+  flash_fwd_bf16<<<blocks, THREADS, SMEM_BYTES, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), mask, static_cast<bf16*>(o), l, m, batch,
+      t_len, s_len, n_heads, n_kv_heads, causal, (float)(1.0 / sqrt((double)D)));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = success).
+// q, o [B, T, H, D]; k, v [B, S, KVH, D]; mask [B, S] int32; l, m [B, H, T]
+// fp32.  dtype: 0 = float32 (CUDA-core body), 1 = bfloat16 (tensor-core
+// body).  Returns a cudaError_t (0 = success).
 extern "C" int ospo_flash_fwd(const void* q, const void* k, const void* v,
                               const int* mask, void* o, float* l, float* m,
                               int batch, int t_len, int s_len, int n_heads,
                               int n_kv_heads, int head_dim, int causal,
                               int dtype, void* stream) {
-  if (head_dim != D) return (int)cudaErrorInvalidValue;
+  if (head_dim != D || n_kv_heads <= 0 || n_heads % n_kv_heads)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, mask, o, l, m, batch, t_len, s_len, n_heads,
-                         n_kv_heads, causal, st);
+    return launch_f32(q, k, v, mask, o, l, m, batch, t_len, s_len, n_heads,
+                      n_kv_heads, causal, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, mask, o, l, m, batch, t_len, s_len,
-                                 n_heads, n_kv_heads, causal, st);
+    return tc::launch(q, k, v, mask, o, l, m, batch, t_len, s_len, n_heads,
+                      n_kv_heads, causal, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -25,7 +25,8 @@ import torch
 
 NEG_FILL = -1e30
 HEAD_DIM = 128
-CHUNK = 64  # positions per warp in the kernel's first pass
+CHUNK = 256  # most positions one block of the kernel's first pass takes
+WARPS = 8    # warps of such a block, each a contiguous slice of its chunk
 
 launches = 0  # kernel launches since the last reset (main-path accounting)
 
@@ -54,6 +55,16 @@ def decode_attention_plain(q, k_cache, v_cache, layer_idx, cur_len, mask,
         p = p * v_scale[layer_idx, :cur_len].permute(2, 1, 0)
     out = torch.einsum("bhc,chbd->bhd", p, v)
     return out.to(q.dtype)[:, None]
+
+
+def split(cur_len):
+    """(n_split, chunk) of the kernel's first pass: ``n_split`` blocks per
+    (head, row group), each over ``chunk`` positions (a multiple of
+    ``WARPS``, at most ``CHUNK``), as even as the warps allow; the last
+    block takes what is left of ``[0, cur_len)``."""
+    n_split = max(1, -(-cur_len // CHUNK))
+    chunk = -(-cur_len // (n_split * WARPS)) * WARPS
+    return n_split, max(chunk, WARPS)
 
 
 def decode_attention(q, k_cache, v_cache, layer_idx, cur_len, mask,
@@ -100,7 +111,7 @@ def decode_attention(q, k_cache, v_cache, layer_idx, cur_len, mask,
     if not (0 <= layer_idx < L and 0 <= cur_len <= S):
         raise ValueError(f"decode_attention: layer {layer_idx} of {L}, "
                          f"cur_len {cur_len} of {S}")
-    n_split = max(1, -(-cur_len // CHUNK))
+    n_split, chunk = split(cur_len)
     out = torch.empty_like(q)
     part_ml = torch.empty((n_split, H * B, 2), dtype=torch.float32,
                           device=q.device)
@@ -112,7 +123,7 @@ def decode_attention(q, k_cache, v_cache, layer_idx, cur_len, mask,
     fn = build.load("decode_attention").ospo_decode_attention
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ks, vs,
              mask.data_ptr(), out.data_ptr(), part_ml.data_ptr(),
-             part_acc.data_ptr(), S, H, B, dh, layer_idx, cur_len, CHUNK,
+             part_acc.data_ptr(), S, H, B, dh, layer_idx, cur_len, chunk,
              n_split, _Q_DTYPES[q.dtype], _KV_DTYPES[k_cache.dtype], stream)
     build.check(err, "decode_attention")
     launches += 1

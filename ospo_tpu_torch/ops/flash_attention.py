@@ -27,13 +27,17 @@ GQA gradients are summed over each key/value head's query heads in fp32 and
 rounded once (the TPU wrapper rounds each head's gradient, then sums).
 :func:`flash_attention_train` is the differentiable entry point.
 
-The plain backward keeps p and ds in fp32, as the TPU kernels do.  The bf16
-bodies of the dQ and dK/dV kernels take FlashAttention-2's scheme on the
+The plain forward and backward keep p (and ds) in fp32, as the TPU kernels
+do.  The bf16 bodies of the kernels take FlashAttention-2's scheme on the
 tensor cores instead: they scale the scores after the product,
-``(q . k) * D^-0.5``, and round ``p`` (for dV) and ``ds`` (for dQ and dK)
-to bf16 before the second products.  They are held to the plain backward
-within ``2^-8 max|ref| + 2^-7 |ref|``, and against a float64 backward to at
-most twice its RMS error (``tests/flash_bwd_reference.py``).
+``(q . k) * D^-0.5``; the forward rounds ``p`` to bf16 before ``P . V``
+(its m and l take the fp32 p), the backward rounds ``p`` (for dV) and
+``ds`` (for dQ and dK) before the second products.  The forward is held to
+the plain forward within ``1e-2 + 1e-2 |O|`` (l within 1e-5 relative, m
+within 1e-4), the backward to the plain backward within
+``2^-8 max|ref| + 2^-7 |ref|``, and each against a float64 reference to at
+most twice the plain version's RMS error (``tests/flash_fwd_reference.py``,
+``tests/flash_bwd_reference.py``).
 """
 
 from __future__ import annotations

@@ -41,6 +41,75 @@ def test_flash_kernel_matches_plain(cuda, dtype, causal, kvh):
     torch.testing.assert_close(m, m_ref, atol=1e-4, rtol=0)
 
 
+def _fwd_inputs(cuda, b, t, h, kvh, seed, left_pad=False):
+    """bf16 q, k, v and an int32 mask: one masked key in the last row, or
+    left-padded rows of random length (row 0 unpadded), as a prefill's."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((b, t, h, 128), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((b, t, kvh, 128), generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    if left_pad:
+        lens = torch.randint(t // 6, t + 1, (b,), generator=g, device=cuda)
+        lens[0] = t
+        mask = (torch.arange(t, device=cuda)[None, :] >= (t - lens)[:, None]
+                ).to(torch.int32).contiguous()
+    else:
+        mask = torch.ones((b, t), dtype=torch.int32, device=cuda)
+        mask[-1, t // 3] = 0
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("b,t,h,left_pad", [(2, 704, 32, False),
+                                            (6, 384, 8, True)])
+def test_flash_forward_bf16_kernel_matches_plain(cuda, b, t, h, left_pad):
+    """The tensor-core body (p rounded to bf16 before P . V; the plain
+    version keeps it in fp32) at T=704 (2 rows of the training shape, all
+    32 heads) and on a left-padded prefill, at the tolerances of
+    ``test_flash_kernel_matches_plain``: O within 1e-2 + 1e-2 |O|, l within
+    1e-5 relative, m within 1e-4."""
+    from ospo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, mask = _fwd_inputs(cuda, b, t, h, h, 12, left_pad)
+    out, l, m = fa.flash_attention(q, k, v, mask, return_stats=True)
+    ref, l_ref, m_ref = fa.flash_attention_plain(q, k, v, mask)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(l, l_ref, atol=0, rtol=1e-5)
+    torch.testing.assert_close(m, m_ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("b,t,h,kvh", [(3, 200, 4, 2), (2, 704, 32, 32)])
+def test_flash_forward_bf16_kernel_within_the_rounding_budget(cuda, b, t, h,
+                                                              kvh):
+    """bf16: against a float64 forward from the same inputs, the kernel's
+    RMS error in O is at most ``BUDGET`` (2) times the plain forward's (p in
+    fp32, O rounded to bf16 at the end); ``flash_fwd_reference`` has the
+    rule and its inputs (q scaled so that the attention is peaked)."""
+    import flash_fwd_reference as fref
+    from ospo_tpu_torch.ops import flash_attention as fa
+
+    args = fref.budget_case(*_fwd_inputs(cuda, b, t, h, kvh, 13))
+    err, err_plain = fref.budget(fa.flash_attention(*args), *args)
+    assert err <= fref.BUDGET * err_plain, (err, err_plain)
+
+
+@pytest.mark.parametrize("t,h,kvh", [(77, 4, 2), (704, 4, 4)])
+def test_flash_forward_bf16_stats_feed_the_backward_kernels(cuda, t, h, kvh):
+    """The bf16 forward kernel's O, m and l drive the dQ and dK/dV kernels;
+    their gradients stay within the bf16 tolerance of ``_assert_bwd_close``
+    of the plain backward driven by the plain forward's O, m and l (the
+    kernels scale the scores after the product, as the forward now does)."""
+    q, k, v, do, mask, fa = _bwd_inputs(cuda, torch.bfloat16, 3, t, h, kvh, 14)
+    out, l, m = fa.flash_attention(q, k, v, mask, return_stats=True)
+    di = fa.row_dot(out, do)
+    got = (fa.flash_dq(q, k, v, mask, do, m, l, di),
+           *fa.flash_dkv(q, k, v, mask, do, m, l, di))
+    ref_out, ref_l, ref_m = fa.flash_attention_plain(q, k, v, mask)
+    want = fa.flash_attention_bwd_plain(q, k, v, mask, ref_out, ref_l, ref_m,
+                                        do)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _assert_bwd_close(a, b, torch.bfloat16, name)
+
+
 def _bwd_inputs(cuda, dtype, b, t, h, kvh, seed):
     from ospo_tpu_torch.ops import flash_attention as fa
 
@@ -206,6 +275,65 @@ def test_decode_kernel_matches_plain(cuda, kind, cur_len):
         valid = ref[mask[:, last] > 0].float()
         torch.testing.assert_close(valid, torch.full_like(valid, expect),
                                    atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("cur_len", [1, 63, 64, 65, 385, 449, 672, 960])
+@pytest.mark.parametrize("B", [1, 3, 6, 48])
+def test_decode_kernel_rows_and_lengths(cuda, B, cur_len, kind, q_dtype):
+    """The row-grouped kernel (4 rows a warp, 8 lanes a row, split-K over
+    blocks of up to 256 positions) against its plain version: B not a
+    multiple of the row group (1, 3, 6) and the serving batch (48); cur_len
+    at 1, around the 64-position and 256-position edges, with one-position
+    tails, and at the serving point; int8 and bf16 caches, fp32 and bf16 q;
+    a left-padded row and a row whose every key is masked.  Tolerance as
+    ``test_decode_kernel_matches_plain``: 1e-4 + 2^-7 |ref|."""
+    from ospo_tpu_torch.ops import decode_attention as da
+
+    g = torch.Generator(device=cuda).manual_seed(B * 1000 + cur_len)
+    L, S, H = 2, 960, 4
+    q = torch.randn((B, 1, H, 128), generator=g, device=cuda).to(q_dtype)
+    if kind == "int8":
+        kc, vc = (torch.randint(-127, 128, (L, S, H, B, 128), generator=g,
+                                device=cuda, dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((L, S, H, B), generator=g, device=cuda) * 0.02
+                  for _ in range(2))
+    else:
+        kc, vc = (torch.randn((L, S, H, B, 128), generator=g, device=cuda)
+                  .bfloat16() for _ in range(2))
+        ks = vs = None
+    mask = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    mask[0, :cur_len // 3] = 0           # left padding
+    mask[B // 2] = 0                     # every key masked
+    n0 = da.launches
+    out = da.decode_attention(q, kc, vc, 1, cur_len, mask, ks, vs)
+    ref = da.decode_attention_plain(q, kc, vc, 1, cur_len, mask, ks, vs)
+    torch.cuda.synchronize()
+    assert da.launches == n0 + 1 and out.dtype == q_dtype
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-4,
+                               rtol=2 ** -7)
+
+
+def test_bf16_kernels_refuse_misaligned_pointers(cuda):
+    """The tensor-core flash forward and the decode kernel read 16 bytes a
+    lane: a tensor whose data does not start on a 16-byte boundary is
+    refused, not read."""
+    from ospo_tpu_torch.ops import decode_attention as da
+    from ospo_tpu_torch.ops import flash_attention as fa
+
+    n = 2 * 64 * 2 * 128
+    q = torch.zeros(n + 1, dtype=torch.bfloat16, device=cuda)[1:].view(
+        2, 64, 2, 128)
+    k = torch.zeros((2, 64, 2, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        fa.flash_attention(q, k, k)
+    qd = torch.zeros((2, 1, 2, 128), device=cuda)
+    cache = torch.zeros(1 * 16 * 2 * 2 * 128 + 4, dtype=torch.bfloat16,
+                        device=cuda)[4:].view(1, 16, 2, 2, 128)  # 8 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        da.decode_attention(qd, cache, cache, 0, 4,
+                            torch.ones((2, 16), dtype=torch.int32, device=cuda))
 
 
 def _int4_inputs(cuda, mode, m, f, d, dtype, seed):

@@ -17,6 +17,7 @@ from ospo_tpu.ops import quant as jquant
 from ospo_tpu.ops.decode_attention import decode_attention as jdecode
 from ospo_tpu.ops.flash_attention import flash_attention as jflash
 from ospo_tpu_torch.ops import attention as tattn
+from ospo_tpu_torch.ops import decode_attention as da
 from ospo_tpu_torch.ops import flash_attention as fa
 from ospo_tpu_torch.ops import quant as tquant
 from ospo_tpu_torch.ops.decode_attention import decode_attention
@@ -24,6 +25,7 @@ from ospo_tpu_torch.ops.flash_attention import flash_attention
 from ospo_tpu_torch.ops.sampling import sample_categorical
 
 import flash_bwd_reference as ref
+import flash_fwd_reference as fref
 
 torch.set_num_threads(2)
 # torch's CPU exp (MKL's vector math) sets itself up on its first call; in
@@ -78,6 +80,103 @@ def test_flash_plain_pad_rows_average_their_window():
         torch.testing.assert_close(out[0, i], v[0, : i + 1].mean(0))
         assert float(l[0, 0, i]) == i + 1
         assert float(m[0, 0, i]) == float(torch.tensor(-1e30))
+
+
+def _fwd_budget_case(seed, b, t, h, kvh):
+    """bf16 draws at one shape, one masked key in the last row, q scaled as
+    the budget's inputs are."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (_t(rng.standard_normal((b, t, n, 128), np.float32))
+               .to(torch.bfloat16) for n in (h, kvh, kvh))
+    mask = torch.ones((b, t), dtype=torch.int32)
+    mask[-1, t // 3] = 0
+    return fref.budget_case(q, k, v, mask)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_reference_unrounded_is_plain(causal):
+    """``flash_fwd_reference.forward`` without rounding is the plain
+    forward's function (scores scaled after the product, as the kernel's
+    bf16 body takes them: O within 2e-6, l and m within 1e-5 relative and
+    absolute, fp32 rounding), and ``exact_forward`` agrees with
+    it to 2e-5 of max|ref| on fp32 inputs, pad rows included."""
+    rng = np.random.default_rng(21)
+    q, k, v = (_t(rng.standard_normal((2, 70, n, 128), np.float32))
+               for n in (4, 2, 2))
+    mask = torch.ones((2, 70), dtype=torch.int32)
+    mask[1, :6] = 0
+    out, l, m = flash_attention(q, k, v, mask, causal=causal,
+                                return_stats=True)
+    o2, l2, m2 = fref.forward(q, k, v, mask, causal)
+    torch.testing.assert_close(o2, out, atol=2e-6, rtol=2e-6)
+    torch.testing.assert_close(l2, l, atol=0, rtol=1e-5)
+    torch.testing.assert_close(m2, m, atol=1e-5, rtol=0)
+    exact = fref.exact_forward(q, k, v, mask, causal)
+    assert float((out.double() - exact).abs().max()) <= \
+        2e-5 * float(exact.abs().max())
+
+
+@pytest.mark.parametrize("shape", [(2, 70, 4, 2), (3, 200, 4, 2),
+                                   (1, 704, 4, 4)])
+def test_flash_forward_bf16_rounding_budget(shape):
+    """The bf16 kernel's scheme (p rounded to bf16 before P . V, emulated;
+    O rounded to bf16) errs against a float64 forward at most ``BUDGET`` (2)
+    times the RMS error of the plain forward (p in fp32), from the same bf16
+    inputs with q scaled by ``Q_SCALE``.  The kernel on the card is held to
+    the same rule (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+    args = _fwd_budget_case(22, *shape)
+    got = fref.forward(*args, round_p=True)[0].to(torch.bfloat16)
+    err, err_plain = fref.budget(got, *args)
+    assert err <= fref.BUDGET * err_plain, (err, err_plain)
+
+
+@pytest.mark.parametrize("shape", [(2, 70, 4, 2), (3, 200, 4, 2),
+                                   (1, 704, 4, 4)])
+def test_flash_forward_rounding_budget_sees_rounded_scores(shape):
+    """The budget's control: the same scheme with the scores ``q . k`` also
+    rounded to bf16 (precision a kernel must not lose) exceeds it."""
+    args = _fwd_budget_case(22, *shape)
+    got = fref.forward(*args, round_p=True, round_s=True)[0].to(torch.bfloat16)
+    err, err_plain = fref.budget(got, *args)
+    assert err > fref.BUDGET * err_plain, (err, err_plain)
+
+
+def test_budget_control_patches_each_score_read_once():
+    """``scripts/flash_bwd_budget_control.py`` builds its control from the
+    sources with each tensor-core kernel's score read rounded to bf16: every
+    read it patches stands exactly once in its file, so the control cannot
+    silently build the unpatched kernel."""
+    import importlib.util
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "budget_control", root / "scripts" / "flash_bwd_budget_control.py")
+    control = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(control)
+    assert set(control.SCORES) == set(control.KERNELS)
+    for name, (fname, score, rounded) in control.SCORES.items():
+        text = (root / "ospo_tpu_torch" / "ops" / "csrc" / fname).read_text()
+        assert text.count(score) == 1 and rounded not in text, name
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_bf16_scheme_matches_pallas(causal):
+    """bf16 inputs: the plain forward and the bf16 kernel's scheme (p
+    rounded before P . V, emulated) against the Pallas forward in interpret
+    mode (p in fp32), within 2^-6 max|ref|; GQA 4/2, a masked key, T=70 (no
+    pad row, so every row is defined alike)."""
+    q, k, v, _, mask = _bwd_case(23)
+    bf = lambda x: jnp.asarray(x).astype(jnp.bfloat16)  # noqa: E731
+    want = np.asarray(jflash(bf(q), bf(k), bf(v), mask=jnp.asarray(mask),
+                             causal=causal, blk_q=128, blk_k=128,
+                             interpret=True).astype(jnp.float32))
+    tq, tk, tv = (_t(x).to(torch.bfloat16) for x in (q, k, v))
+    plain = flash_attention(tq, tk, tv, _t(mask), causal=causal)
+    scheme = fref.forward(tq, tk, tv, _t(mask), causal, round_p=True)[0]
+    for what, x in (("plain", plain), ("kernel's scheme", scheme)):
+        err = float(np.abs(x.to(torch.bfloat16).float().numpy() - want).max())
+        assert err <= 2 ** -6 * float(np.abs(want).max()), (what, err)
 
 
 @pytest.mark.parametrize("q_offset,t", [(0, 12), (5, 3)])
@@ -365,6 +464,85 @@ def test_decode_plain_ignores_tail():
     kc[:, 100:], vc[:, 100:] = 99.0, -99.0
     out2 = decode_attention(_t(q), _t(kc), _t(vc), 1, 100, _t(mask))
     torch.testing.assert_close(out1, out2, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("cur_len", [0, 1, 7, 8, 63, 64, 65, 255, 256, 257,
+                                     385, 449, 672, 960, 2048])
+def test_decode_split_covers_the_populated_prefix(cur_len):
+    """The kernel's first pass takes ``n_split`` blocks of ``chunk``
+    positions: a multiple of its 8 warps, at most ``CHUNK``, covering
+    ``[0, cur_len)`` with no block past it (one block when cur_len is 0)."""
+    n_split, chunk = da.split(cur_len)
+    assert chunk % da.WARPS == 0 and da.WARPS <= chunk <= da.CHUNK
+    assert n_split * chunk >= cur_len
+    assert n_split == 1 or (n_split - 1) * chunk < cur_len
+    assert n_split == max(1, -(-cur_len // da.CHUNK))
+
+
+def _decode_split_merge(q, kc, vc, li, cur_len, mask, ks, vs):
+    """The kernel's partition and merge, written out in fp32: each warp's
+    slice of each block's chunk runs the online softmax (m from -1e30, -inf
+    for an empty slice), a block merges its warps in order, skipping empty
+    ones, and the second pass merges the blocks and normalises."""
+    dh = q.shape[-1]
+    n_split, chunk = da.split(cur_len)
+    per_warp = chunk // da.WARPS
+    qf = q[:, 0].float() * dh ** -0.5                          # [B, H, dh]
+
+    def merge(parts):
+        parts = [p for p in parts if p[0] is not None]
+        if not parts:
+            return None, 0.0, 0.0
+        mt = torch.stack([p[0] for p in parts]).amax(dim=0)
+        w = [torch.exp(p[0] - mt) for p in parts]
+        return (mt, sum(wi * p[1] for wi, p in zip(w, parts)),
+                sum(wi[..., None] * p[2] for wi, p in zip(w, parts)))
+
+    blocks = []
+    for c in range(n_split):
+        warps = []
+        for w in range(da.WARPS):
+            lo = c * chunk + w * per_warp
+            hi = min(cur_len, lo + per_warp, (c + 1) * chunk)
+            if lo >= hi:
+                warps.append((None, 0.0, 0.0))
+                continue
+            k = kc[li, lo:hi].float()                           # [n, H, B, dh]
+            s = torch.einsum("bhd,nhbd->bhn", qf, k)
+            if ks is not None:
+                s = s * ks[li, lo:hi].permute(2, 1, 0)
+            s = torch.where(mask[:, None, lo:hi] > 0, s, torch.full_like(s, -1e30))
+            m = torch.maximum(s.amax(dim=-1), torch.tensor(-1e30))
+            p = torch.exp(s - m[..., None])
+            l = p.sum(dim=-1)
+            if vs is not None:
+                p = p * vs[li, lo:hi].permute(2, 1, 0)
+            warps.append((m, l, torch.einsum("bhn,nhbd->bhd", p, vc[li, lo:hi].float())))
+        blocks.append(merge(warps))
+    m, l, acc = merge(blocks)
+    if m is None:
+        return torch.zeros_like(q)
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)[:, None]
+
+
+@pytest.mark.parametrize("cur_len", [0, 1, 63, 65, 200, 257, 449])
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_decode_split_merge_matches_plain(kind, cur_len):
+    """The kernel's partition of ``[0, cur_len)`` and its merge rule give
+    the plain version's function (2e-5, fp32 summation order), with a
+    left-padded row and a row whose every key is masked (the mean of scaled
+    V over the whole prefix, across blocks and warps)."""
+    q, kc, vc, ks, vs, mask = _decode_case(kind, seed=24, S=512, B=3)
+    mask[2] = 0
+    args = [_t(x) if x is not None else None for x in (q, kc, vc)]
+    if kind == "bf16":
+        args[1], args[2] = args[1].to(torch.bfloat16), args[2].to(torch.bfloat16)
+    scales = [None if x is None else _t(x) for x in (ks, vs)]
+    want = decode_attention(args[0], args[1], args[2], 1, cur_len, _t(mask),
+                            *scales)
+    got = _decode_split_merge(args[0], args[1], args[2], 1, cur_len, _t(mask),
+                              *scales)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
 # ---------------------------------------------------------------------------
