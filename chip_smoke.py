@@ -7,12 +7,13 @@ fails):
 
 1. environment: the card's name and power limit; build every CUDA kernel
    from ``ospo_tpu_torch/ops/csrc`` (one nvcc per source, in parallel);
-   fail on a ptxas register spill in the flash and decode kernels;
+   fail on a ptxas register spill in any of them;
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, with timings (kernel, plain version, one library call
    where one computes the same function, or for the int4 matmuls the
-   cuBLAS bf16 product on the dequantized weight as a yardstick) and the
-   card's lower bound; the bf16 flash kernels also against a float64
+   cuBLAS bf16 product on the dequantized weight as a yardstick, both as
+   device times from CUDA-graph replay with the weights cold in L2 and hot)
+   and the card's lower bound; the bf16 flash kernels also against a float64
    forward and backward (RMS error at most twice the plain versions'), and
    a control build of the forward that rounds the scores to bf16 must fail
    that budget;
@@ -141,7 +142,7 @@ def merged(base: dict, over: dict) -> dict:
 
 # kernels whose ptxas report phase 1 reads: a register spill fails the run
 SPILL_CHECKED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                 "decode_attention")
+                 "decode_attention", "int4_matmul_row", "int4_matmul_group")
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, int8 tensor cores,
 # HBM3 bandwidth
@@ -163,6 +164,38 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_graph(fns, iters: int, replays: int = 5) -> float:
+    """Mean device time of one call: ``iters`` calls cycling through ``fns``
+    captured in one CUDA graph and replayed, so the host's cost of a launch
+    (tens of microseconds of Python for a wrapper) stays out of the time.
+    ``fns`` holding the same call on distinct copies of its data, together
+    larger than the 50 MB L2, makes every call read its data from device
+    memory, as a decode step does."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:          # first launches (set-up) outside the capture
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    return ms
 
 
 def max_err(a, b) -> float:
@@ -216,7 +249,7 @@ class Smoke:
                     spills.append(f"{name}: {line.strip()}")
         reports = [n for n in SPILL_CHECKED if "spill" in logs.get(n, "")]
         self.check(len(reports) == len(SPILL_CHECKED) and not spills,
-                   f"flash and decode kernels build without register spills "
+                   f"kernels build without register spills "
                    f"(ptxas reports of {reports}): {spills}")
 
     # -- phase 2 ---------------------------------------------------------
@@ -684,32 +717,52 @@ class Smoke:
                 ref = i4.int4_matmul_decode_plain(x, qw)
                 ok, err = close(got, ref, mode, torch.bfloat16)
                 worst = max(worst, err)
-                self.check(ok, f"{kname} bf16 M={M} F={F} D={D}: max|d|={err:.3g}"
-                               f" (tol {'2^-6' if mode == 'int4' else '2^-7'}"
-                               f"|ref| + 1e-3 max|ref|)")
-                ms = cuda_ms(lambda: i4.int4_matmul_decode(x, qw), 50)
+                same = torch.equal(got, i4.int4_matmul_decode(x, qw))
+                self.check(ok and same,
+                           f"{kname} bf16 M={M} F={F} D={D}: max|d|={err:.3g}"
+                           f" (tol {'2^-6' if mode == 'int4' else '2^-7'}"
+                           f"|ref| + 1e-3 max|ref|); a second call bit-identical:"
+                           f" {same}")
                 plain_ms = cuda_ms(lambda: i4.int4_matmul_decode_plain(x, qw), 3, 1)
                 wb = dequant[mode](qw, torch.bfloat16)
                 x2 = x[:, 0]
-                lib_ms = cuda_ms(lambda: x2 @ wb.T, 50)
-                del wb
                 scale_bytes = sum(t.numel() * 4 for k, t in qw.items() if k != "q4")
+                # hot: one weight, read from L2 after the first call; cold:
+                # copies of the weight that together exceed the L2
+                ms = cuda_ms_graph([lambda: i4.int4_matmul_decode(x, qw)], 50)
+                lib_ms = cuda_ms_graph([lambda: x2 @ wb.T], 50)
+                copies = -(-120_000_000 // (F // 2 * D + scale_bytes))
+                qws = [{k: t.clone() for k, t in qw.items()}
+                       for _ in range(copies)]
+                cold_ms = cuda_ms_graph([lambda q=q: i4.int4_matmul_decode(x, q)
+                                         for q in qws], 10 * copies)
+                del qws
+                wbs = [wb.clone() for _ in range(-(-120_000_000 // wb.nbytes))]
+                lib_cold_ms = cuda_ms_graph([lambda w=w: x2 @ w.T for w in wbs],
+                                            10 * len(wbs))
+                del wb, wbs
                 nbytes = F // 2 * D + scale_bytes + M * D * 2 + M * F * 2
                 flops = 2.0 * M * F * D
                 bound_ms = max(nbytes / PEAK_BYTES, flops / PEAK_BF16) * 1e3
                 by = "bytes" if nbytes / PEAK_BYTES > flops / PEAK_BF16 else "operations"
-                step_ms += 30 * per_layer[label] * ms
+                step_ms += 30 * per_layer[label] * cold_ms
                 print(f"{kname} {label} (M={M} F={F} D={D} bf16): kernel "
-                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cuBLAS bf16 on "
-                      f"the dequantized weight (reads 4x the weight bytes) "
-                      f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({by}; "
+                      f"{cold_ms:.4f} ms with the weight cold in L2 "
+                      f"({100 * bound_ms / cold_ms:.1f}% of bound), "
+                      f"{ms:.4f} ms on one weight hot in L2; plain "
+                      f"{plain_ms:.4f} ms; cuBLAS bf16 on the dequantized "
+                      f"weight (reads 4x the weight bytes) {lib_cold_ms:.4f} "
+                      f"ms cold, {lib_ms:.4f} ms hot (device times from "
+                      f"CUDA-graph replay); bound {bound_ms:.5f} ms ({by}; "
                       f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP; "
-                      f"{nbytes / ms / 1e6:.1f} GB/s)")
+                      f"{nbytes / cold_ms / 1e6:.1f} GB/s cold)")
+                print(f"{kname} {label}: kernel / cuBLAS yardstick "
+                      f"{cold_ms / lib_cold_ms:.3f} cold, {ms / lib_ms:.3f} hot")
                 if label == "w_gate/w_up":
-                    timing = (ms, plain_ms, bound_ms, by, lib_ms)
+                    timing = (cold_ms, plain_ms, bound_ms, by, lib_cold_ms)
                 del qw, x, got, ref
             print(f"{kname}: the 7 projections x 30 layers of one 7B decode "
-                  f"step at these times: {step_ms:.3f} ms")
+                  f"step at these (cold) times: {step_ms:.3f} ms")
             # ragged: F/2 no multiple of the 64-row tile, M = 2 and 40; fp32 x
             for m, F, D, dtype in ((2, 200, 4096, torch.bfloat16),
                                    (40, 1000, 4096, torch.bfloat16),
@@ -736,7 +789,9 @@ class Smoke:
                                 "pre-dequantized to bf16, at the w_gate shape "
                                 "(M=48 F=11008 D=4096): a yardstick that reads "
                                 "4x the weight bytes; no PyTorch call takes "
-                                "this packing",
+                                "this packing; ms and library_ms are device "
+                                "times from CUDA-graph replay over copies of "
+                                "the weight larger than the L2",
             }
 
     # -- phase 3 ---------------------------------------------------------

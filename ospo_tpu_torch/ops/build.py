@@ -39,6 +39,13 @@ SIGNATURES = {
     "int4_matmul_group": ("ospo_int4_matmul_group", [P] * 5 + [I] * 7 + [P]),
 }
 
+# further exported functions of a library: symbol → argument types (each
+# returns an int)
+EXTRA = {
+    "int4_matmul_row": {"ospo_int4_matmul_row_clusters": [I, I]},
+    "int4_matmul_group": {"ospo_int4_matmul_group_clusters": [I, I]},
+}
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -110,9 +117,10 @@ def load(name: str) -> ctypes.CDLL:
                 _finish(name, *_start(name))
             lib = ctypes.CDLL(str(target))
             symbol, argtypes = SIGNATURES[name]
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for sym, types in {symbol: argtypes, **EXTRA.get(name, {})}.items():
+                fn = getattr(lib, sym)
+                fn.argtypes = types
+                fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
 

@@ -1,5 +1,7 @@
-// Tensor-core building blocks for the bf16 flash-attention backward kernels
-// (flash_bwd_dq.cu, flash_bwd_dkv.cu), sm_80+ PTX written by hand:
+// Tensor-core building blocks for the bf16 flash-attention kernels
+// (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu) and the int4 decode
+// matmuls (int4_matmul.cuh: mma and the cp.async steps), sm_80+ PTX written
+// by hand:
 //  - cp.async 16-byte (and 4-byte) copies global -> shared, with the
 //    src-size operand zero-filling what lies past the ragged edge;
 //  - [rows][128] bf16 tiles in shared memory with an XOR swizzle: the 16-byte

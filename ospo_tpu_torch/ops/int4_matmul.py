@@ -14,6 +14,10 @@ kernels and :func:`int4_matmul_decode_plain`, is the TPU kernels' own:
   dtype as w = r(nib · r(gs[row, d // group])) and y = r(Σ x · w), the sum in
   fp32 (``r`` rounds to x's dtype).
 
+bf16 x runs on the tensor cores (nibbles decoded to bf16 in registers,
+``mma.sync``, split-K summed inside a thread-block cluster); fp32 x runs on
+the CUDA cores with a second pass over fp32 partials (``csrc/int4_matmul.cuh``).
+
 The reference's XLA forms (``quant.quantized_matmul_int4[_group]``) differ
 from the group variant by about 2^-9 relative in bf16; in fp32 all agree to
 fp32 rounding.
@@ -21,7 +25,7 @@ fp32 rounding.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
 
@@ -29,10 +33,12 @@ from ospo_tpu_torch.ops.quant import unpack_int4_halves
 
 MAX_ROWS = 256       # M the kernels take
 ALIGN = 16           # D must be a multiple of this (16-byte weight loads)
-TILE_ROWS = 64       # packed rows (128 output columns) per block
-TILE_M = 64          # rows of x per block
-K_STEP = 32          # columns per shared-memory stage; a split is a multiple
-TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
+TILE_ROWS = 64       # packed rows (128 output columns) per block, both bodies
+TILE_M = 64          # rows of x per block, both bodies
+K_STEP = 32          # fp32 body: columns per stage; a split is a multiple
+CHUNK = 128          # bf16 body: columns per stage; a split is whole chunks
+MAX_CLUSTER = 8      # bf16 body: blocks of a cluster (the portable limit)
+TARGET_BLOCKS = 264  # fp32 body: two blocks for each of the H100's 132 SMs
 
 row_launches = 0     # kernel launches since the last reset (main-path accounting)
 group_launches = 0
@@ -40,19 +46,28 @@ group_launches = 0
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def group_weights(nib: torch.Tensor, gs: torch.Tensor, dtype: torch.dtype
+                  ) -> torch.Tensor:
+    """One plane's weights in ``dtype``: w = r(nib · r(gs)) for nib
+    ``[R, D]`` and its rows' group scales ``gs`` ``[R, G]``."""
+    r, d = nib.shape
+    g = gs.shape[-1]
+    w = nib.to(dtype).reshape(r, g, d // g) * gs.to(dtype)[:, :, None]
+    return w.reshape(r, d)
+
+
 def int4_matmul_decode_plain(x: torch.Tensor, qw: Dict[str, torch.Tensor]
                              ) -> torch.Tensor:
     """Plain PyTorch version → [M, 1, F] in x's dtype."""
     x2 = x[:, 0, :].float()
     low, high = unpack_int4_halves(qw["q4"])
-    f2, d = qw["q4"].shape
+    f2 = qw["q4"].shape[0]
     if "gs" in qw:
-        g = qw["gs"].shape[-1]
-        gs = qw["gs"].to(x.dtype)
+        gs = qw["gs"]
 
         def plane(nib, scale):
-            w = nib.to(x.dtype).reshape(f2, g, d // g) * scale[:, :, None]
-            return (x2 @ w.reshape(f2, d).float().T).to(x.dtype)
+            w = group_weights(nib, scale, x.dtype)
+            return (x2 @ w.float().T).to(x.dtype)
 
         y = torch.cat([plane(low, gs[:f2]), plane(high, gs[f2:])], dim=-1)
     else:
@@ -63,13 +78,48 @@ def int4_matmul_decode_plain(x: torch.Tensor, qw: Dict[str, torch.Tensor]
 
 
 def _splits(m: int, f2: int, d: int):
-    """Split of D across blocks so that the grid holds about TARGET_BLOCKS
-    blocks: → (columns per split, a multiple of K_STEP; number of splits)."""
+    """Split of D across blocks of the fp32 body so that the grid holds
+    about TARGET_BLOCKS blocks: → (columns per split, a multiple of K_STEP;
+    number of splits)."""
     tiles = -(-f2 // TILE_ROWS) * -(-m // TILE_M)
     want = max(1, min(-(-d // K_STEP), -(-TARGET_BLOCKS // tiles)))
     per = -(-d // want)
     per = -(-per // K_STEP) * K_STEP
     return per, -(-d // per)
+
+
+def _clusters(m: int, f2: int, d: int, capacity: Callable[[int], int]) -> int:
+    """Split of D for the bf16 body: the blocks of one output tile form a
+    cluster of this many blocks, 1 to MAX_CLUSTER and no more than D has
+    CHUNK-column chunks.  ``capacity(n)`` is how many clusters of n blocks the
+    card holds at once; the split is the largest whose grid runs in one wave
+    (1 when even single blocks need more than one)."""
+    tiles = -(-f2 // TILE_ROWS) * -(-m // TILE_M)
+    chunks = -(-d // CHUNK)
+    best = 1
+    for n in range(2, min(MAX_CLUSTER, chunks) + 1):
+        if tiles <= capacity(n):
+            best = n
+    return best
+
+
+def _card_capacity(name: str, lib, m: int, device) -> Callable[[int], int]:
+    """``capacity`` for :func:`_clusters` from the card's occupancy of the
+    bf16 body for M = m (``cudaOccupancyMaxActiveClusters``)."""
+    query = getattr(lib, f"ospo_{name}_clusters")
+
+    def capacity(n: int) -> int:
+        with torch.cuda.device(device):
+            got = query(m, n)
+        if got < 0:
+            raise RuntimeError(f"{name}: occupancy query failed with "
+                               f"cudaError {-got}")
+        return got
+
+    return capacity
+
+
+_plans: Dict[tuple, int] = {}   # (device, kernel, M, F/2, D) → split of D
 
 
 def int4_matmul_decode(x: torch.Tensor, qw: Dict[str, torch.Tensor]
@@ -120,12 +170,20 @@ def int4_matmul_decode(x: torch.Tensor, qw: Dict[str, torch.Tensor]
         if not t.is_contiguous() or t.data_ptr() % ALIGN:
             raise ValueError(f"{name}: {what} must be contiguous and "
                              f"{ALIGN}-byte aligned")
-    per, n_split = _splits(m, f2, d)
     y = torch.empty((m, 1, 2 * f2), dtype=x.dtype, device=x.device)
-    part = (torch.empty((n_split, m, 2 * f2), dtype=torch.float32,
-                        device=x.device) if n_split > 1 else y)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = build.load(name)
+    if x.dtype == torch.float32:    # CUDA cores, partials through `part`
+        per, n_split = _splits(m, f2, d)
+        part = (torch.empty((n_split, m, 2 * f2), dtype=torch.float32,
+                            device=x.device) if n_split > 1 else y)
+    else:                           # tensor cores, split-K inside a cluster
+        key = (x.device.index, name, m, f2, d)
+        n_split = _plans.get(key)
+        if n_split is None:
+            n_split = _plans[key] = _clusters(
+                m, f2, d, _card_capacity(name, lib, m, x.device))
+        per, part = 0, y
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     if group:
         err = lib.ospo_int4_matmul_group(
             x.data_ptr(), q4.data_ptr(), scale.data_ptr(), y.data_ptr(),

@@ -50,7 +50,7 @@ def classify(name: str) -> str:
         return "decode_attention kernel"
     if "flash_fwd" in n:
         return "flash_fwd kernel"
-    if "int4_decode_matmul" in n or "int4_combine" in n:
+    if "int4_decode_m" in n or "int4_combine" in n:   # _matmul (fp32), _mma (bf16)
         return "int4 decode-matmul kernel"
     if any(s in n for s in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90")):
         return "matmul (cuBLAS)"

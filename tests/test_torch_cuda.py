@@ -336,13 +336,14 @@ def test_bf16_kernels_refuse_misaligned_pointers(cuda):
                             torch.ones((2, 16), dtype=torch.int32, device=cuda))
 
 
-def _int4_inputs(cuda, mode, m, f, d, dtype, seed):
+def _int4_inputs(cuda, mode, m, f, d, dtype, seed, group=128):
     from ospo_tpu_torch.ops import quant
 
     g = torch.Generator(device=cuda).manual_seed(seed)
     w = torch.randn((f, d), generator=g, device=cuda) * 0.05
     w[:, :3] *= 8.0                      # outlier columns: row and group differ
-    qw = quant.quant_fn(mode)(w.to(dtype))
+    qw = (quant.quantize_matrix_int4_group(w.to(dtype), group) if mode == "int4g"
+          else quant.quantize_matrix_int4(w.to(dtype)))
     x = (torch.randn((m, 1, d), generator=g, device=cuda) * 0.5).to(dtype)
     return x, qw
 
@@ -374,6 +375,102 @@ def test_int4_kernels_match_plain(cuda, mode, m, f, d, dtype):
     else:
         torch.testing.assert_close(got.float(), ref.float(), atol=1e-3 * scale,
                                    rtol=2 ** -6 if mode == "int4" else 2 ** -7)
+
+
+def _assert_int4_close(got, ref, mode, dtype):
+    """The tolerances of ``test_int4_kernels_match_plain``: fp32 within 1e-5
+    (absolute, of max |ref|, and relative); bf16 within one rounding step
+    (2^-7 |ref|, 2^-6 for the row form) plus 1e-3 max |ref|."""
+    assert got.dtype == dtype and got.shape == ref.shape
+    scale = float(ref.float().abs().max())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=1e-5 * scale, rtol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-3 * scale,
+                                   rtol=2 ** -6 if mode == "int4" else 2 ** -7)
+
+
+@pytest.mark.parametrize("f,d", [(4096, 4096), (11008, 4096), (4096, 11008)])
+@pytest.mark.parametrize("mode", ["int4", "int4g"])
+def test_int4_kernels_at_the_7b_shapes(cuda, mode, f, d):
+    """The 7B projections at the serving point (M = 48, bf16; the clusters of
+    8, 4 and 8 blocks) against the plain version."""
+    from ospo_tpu_torch.ops import int4_matmul as i4
+
+    x, qw = _int4_inputs(cuda, mode, 48, f, d, torch.bfloat16, 10)
+    _assert_int4_close(i4.int4_matmul_decode(x, qw),
+                       i4.int4_matmul_decode_plain(x, qw), mode, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 8, 47, 49, 64, 65, 256])
+@pytest.mark.parametrize("mode", ["int4", "int4g"])
+def test_int4_kernels_rows_of_x(cuda, mode, m, dtype):
+    """Every edge of the n8 tiles and of the 64-row x tiles, F/2 = 200 (no
+    multiple of the 64-row block), D = 1040 (16 columns past 16 chunks;
+    groups of 80 columns)."""
+    from ospo_tpu_torch.ops import int4_matmul as i4
+
+    x, qw = _int4_inputs(cuda, mode, m, 400, 1040, dtype, 11 + m, group=80)
+    _assert_int4_close(i4.int4_matmul_decode(x, qw),
+                       i4.int4_matmul_decode_plain(x, qw), mode, dtype)
+
+
+@pytest.mark.parametrize("f2,d", [(1, 16), (37, 80), (65, 4112), (127, 11008)])
+@pytest.mark.parametrize("mode", ["int4", "int4g"])
+def test_int4_kernels_ragged_rows(cuda, mode, f2, d):
+    """Ragged F/2 (one row; 37, 65 and 127 packed rows) with ragged or long
+    D (groups of 16 columns where 128 does not divide D), bf16 at M = 48."""
+    from ospo_tpu_torch.ops import int4_matmul as i4
+
+    x, qw = _int4_inputs(cuda, mode, 48, 2 * f2, d, torch.bfloat16, 12,
+                         group=128 if d % 128 == 0 else 16)
+    _assert_int4_close(i4.int4_matmul_decode(x, qw),
+                       i4.int4_matmul_decode_plain(x, qw), mode, torch.bfloat16)
+
+
+@pytest.mark.parametrize("mode", ["int4", "int4g"])
+def test_int4_kernels_extreme_nibbles(cuda, mode):
+    """Every nibble at -8 or +7 (both planes), |x| up to ~400, D = 11008,
+    scales spread over four decades: the decode's extremes and long fp32
+    sums, bf16 at M = 48."""
+    from ospo_tpu_torch.ops import int4_matmul as i4
+
+    g = torch.Generator(device=cuda).manual_seed(13)
+    f2, d = 256, 11008
+    lo = torch.where(torch.rand((f2, d), generator=g, device=cuda) < 0.5, -8, 7)
+    hi = torch.where(torch.rand((f2, d), generator=g, device=cuda) < 0.5, -8, 7)
+    q4 = ((lo & 0xF) | (hi << 4)).to(torch.uint8).view(torch.int8).contiguous()
+    from ospo_tpu_torch.ops import quant
+
+    for plane in quant.unpack_int4_halves(q4):
+        assert set(plane.unique().tolist()) == {-8, 7}
+    spread = 10.0 ** torch.randint(-4, 0, (2 * f2,), generator=g, device=cuda)
+    if mode == "int4g":
+        gs = torch.rand((2 * f2, d // 128), generator=g, device=cuda) \
+            * spread[:, None]
+        qw = {"q4": q4, "gs": gs.contiguous()}
+    else:
+        qw = {"q4": q4, "s": (torch.rand((2 * f2,), generator=g, device=cuda)
+                              * spread).contiguous()}
+    x = (torch.randn((48, 1, d), generator=g, device=cuda) * 100.0
+         ).to(torch.bfloat16)
+    _assert_int4_close(i4.int4_matmul_decode(x, qw),
+                       i4.int4_matmul_decode_plain(x, qw), mode, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["int4", "int4g"])
+def test_int4_kernels_are_deterministic(cuda, mode, dtype):
+    """Two calls on the same input give bit-identical output (w_down at the
+    serving point: the bf16 body's cluster of 8 blocks, the fp32 body's
+    second pass)."""
+    from ospo_tpu_torch.ops import int4_matmul as i4
+
+    x, qw = _int4_inputs(cuda, mode, 48, 4096, 11008, dtype, 14)
+    a = i4.int4_matmul_decode(x, qw)
+    b = i4.int4_matmul_decode(x, qw)
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
 def test_int4_projection_on_cuda_never_takes_the_plain_path(cuda, monkeypatch):

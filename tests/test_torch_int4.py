@@ -20,6 +20,7 @@ from ospo_tpu_torch.models import llama as tllama
 from ospo_tpu_torch.models.weights import from_jax_params
 from ospo_tpu_torch.ops import int4_matmul as tint4
 from ospo_tpu_torch.ops import quant as tquant
+import int4_mma_reference
 from test_torch_models import np_janus_params
 
 torch.set_num_threads(2)
@@ -182,17 +183,132 @@ def test_wrapper_on_cpu_is_the_plain_version():
         assert (tint4.row_launches, tint4.group_launches) == n0
 
 
+SPLIT_SHAPES = ((48, 2048, 4096), (48, 5504, 4096), (48, 2048, 11008),
+                (2, 37, 80), (256, 8, 16), (40, 1000, 4096), (1, 1, 16),
+                (130, 48, 1040), (48, 40000, 4096))
+
+
 def test_splits_cover_d_and_fill_the_card():
-    """The wrapper's split of D: multiples of the kernel's stage, every split
-    non-empty, together exactly D; at the 7B shapes at least two blocks per
-    SM."""
-    for m, f2, d in ((48, 2048, 4096), (48, 5504, 4096), (48, 2048, 11008),
-                     (2, 37, 80), (256, 8, 16), (40, 1000, 4096)):
+    """The wrapper's split of D for the fp32 body: multiples of the kernel's
+    stage, every split non-empty, together exactly D; at the 7B shapes at
+    least two blocks per SM."""
+    for m, f2, d in SPLIT_SHAPES:
         per, n = tint4._splits(m, f2, d)
         assert per % tint4.K_STEP == 0 and (n - 1) * per < d <= n * per
-        blocks = -(-f2 // tint4.TILE_ROWS) * -(-m // tint4.TILE_M) * n
+        tiles = -(-f2 // tint4.TILE_ROWS) * -(-m // tint4.TILE_M)
         if f2 >= 2048:
-            assert blocks >= tint4.TARGET_BLOCKS
+            assert tiles * n >= tint4.TARGET_BLOCKS
+
+
+def test_cluster_plan_covers_d_in_one_wave():
+    """The split of D for the bf16 body, on cards holding 264 // n or (as
+    the H100 measured) fewer clusters of n blocks: clusters of 1 to 8
+    blocks whose chunk ranges are non-empty and cover D's 128-column chunks
+    exactly, in rank order; the largest split whose clusters all fit at
+    once; the tiles cover F/2 and M; at the 7B shapes at least one block per
+    SM (132)."""
+    measured = {1: 264, 2: 132, 4: 62, 8: 30}    # cudaOccupancyMaxActiveClusters
+    cards = (lambda n: 264 // n, lambda n: measured.get(n, 264 // n - 2))
+    for m, f2, d in SPLIT_SHAPES:
+        tiles = -(-f2 // tint4.TILE_ROWS) * -(-m // tint4.TILE_M)
+        assert tiles * tint4.TILE_ROWS >= f2 and -(-m // tint4.TILE_M) * \
+            tint4.TILE_M >= m
+        for capacity in cards:
+            n = tint4._clusters(m, f2, d, capacity)
+            chunks = -(-d // tint4.CHUNK)
+            assert 1 <= n <= min(8, chunks)
+            ranges = [list(int4_mma_reference.cluster_chunks(d, n, r))
+                      for r in range(n)]
+            assert all(ranges) and sum(ranges, []) == list(range(chunks))
+            fits = [k for k in range(1, min(8, chunks) + 1) if tiles <= capacity(k)]
+            assert n == (max(fits) if fits else 1)
+            if 2048 <= f2 <= 5504:
+                assert tiles * n >= 132
+
+
+def test_mma_decode_is_unpack_over_every_byte():
+    """The bf16 body's decode (byte permute, lop3 into 128.0's mantissa, less
+    136) over all 256 byte values, in every position of a word: both planes
+    bit for bit the values of ``unpack_int4_halves``."""
+    b = np.arange(-128, 128, dtype=np.int8)
+    q4 = torch.from_numpy(np.stack([np.roll(b, i) for i in range(4)]))
+    low, high = int4_mma_reference.decode_planes(q4)
+    ref_low, ref_high = tquant.unpack_int4_halves(q4)
+    assert low.dtype == high.dtype == torch.bfloat16
+    torch.testing.assert_close(low, ref_low.to(torch.bfloat16), atol=0, rtol=0)
+    torch.testing.assert_close(high, ref_high.to(torch.bfloat16), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("d,groups", [(384, 3), (256, 16), (112, 1)])
+def test_mma_group_weights_bit_for_bit(d, groups):
+    """w = r(nib · r(gs)) from the kernel's decode and one bf16 multiply: bit
+    for bit the plain version's weights, for both planes, with scales from
+    tiny to large."""
+    rng = np.random.default_rng(7)
+    q4 = torch.from_numpy(rng.integers(-128, 128, (96, d), dtype=np.int8))
+    gs = torch.from_numpy((rng.standard_normal((192, groups)) * 10.0 **
+                           rng.integers(-6, 3, (192, groups))).astype(np.float32))
+    low, high = int4_mma_reference.decode_planes(q4)
+    ref_low, ref_high = tquant.unpack_int4_halves(q4)
+    for got_nib, ref_nib, rows in ((low, ref_low, gs[:96]),
+                                   (high, ref_high, gs[96:])):
+        got = int4_mma_reference.plane_weights(got_nib, rows)
+        ref = tint4.group_weights(ref_nib, rows, torch.bfloat16)
+        assert got.dtype == ref.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                      ref.view(torch.int16).numpy())
+
+
+def test_mma_k_order_is_each_lanes_own_bytes():
+    """The permuted k of a 128-column chunk takes every column once; in half
+    h, lane tig reads only columns 64 h + 16 tig .. 64 h + 16 tig + 15 (its
+    16 contiguous bytes of q4 and 32 of each x row), step s only 4s .. 4s + 3
+    of them, in order within each register pair."""
+    order = int4_mma_reference.k_order()
+    assert sorted(order.ravel().tolist()) == list(range(128))
+    for h in range(2):
+        for s in range(4):
+            for tig in range(4):
+                slots = [2 * tig, 2 * tig + 1, 2 * tig + 8, 2 * tig + 9]
+                assert order[h, s, slots].tolist() == [
+                    64 * h + 16 * tig + 4 * s + e for e in range(4)]
+
+
+@pytest.mark.parametrize("m", [1, 48, 130])
+@pytest.mark.parametrize("mode", ["int4", "int4g"])
+def test_mma_sum_order_matches_plain_and_pallas(mode, m):
+    """The bf16 body's function in its own order of fp32 sums (permuted k,
+    k16 steps, chunks, the two halves of the chunks' columns, a cluster's
+    blocks in rank order; D = 1152 is nine
+    chunks, split 1, 2, 3, 5 and 8 ways) against the plain version and the
+    Pallas kernel (interpret mode): within one bf16 step (2^-7 |ref|, 2^-6
+    for the row form, rounded before and after its scale) + 1e-3 max|ref|;
+    the fp32 sums within 1e-5 of the plain version's."""
+    w, x = _weights(8, 256, 1152, m)
+    jqw = QUANT[mode][0](jnp.asarray(w, jnp.bfloat16))
+    jx, tx = _jt(x, "bf16")
+    qw = _torch_qw(jqw)
+    plain = tint4.int4_matmul_decode_plain(tx, qw)
+    pallas = torch.from_numpy(_np(jint4.int4_matmul_decode(jx, jqw,
+                                                           interpret=True)))
+    rtol = 2 ** -6 if mode == "int4" else 2 ** -7
+    for nsplit in (None, 1, 2, 3, 5, 8):
+        got, acc = int4_mma_reference.mma_decode_matmul(tx, qw, nsplit,
+                                                        return_acc=True)
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == (m, 1, 256)
+        for ref in (plain.float(), pallas):
+            top = float(ref.abs().max())
+            torch.testing.assert_close(got.float(), ref, atol=1e-3 * top,
+                                       rtol=rtol)
+        low, high = tquant.unpack_int4_halves(qw["q4"])
+        if mode == "int4g":
+            wf = torch.cat([tint4.group_weights(low, qw["gs"][:128], torch.bfloat16),
+                            tint4.group_weights(high, qw["gs"][128:], torch.bfloat16)])
+        else:
+            wf = torch.cat([low, high])
+        ref_acc = tx[:, 0].float() @ wf.float().T
+        top = float(ref_acc.abs().max())
+        torch.testing.assert_close(acc, ref_acc, atol=1e-5 * top, rtol=1e-5)
 
 
 def _prompt_mask(b, t, pad):
