@@ -35,7 +35,26 @@ fails):
 6. step 3 as in phase 4 with ``quantize: int4g`` over one group of 24 CFG
    pairs (the first prompt of the first 24 items): the group kernel must
    launch 7 x 30 x 575 times, and the tree must hold 24 real images;
-7. the same with ``quantize: int4`` and the row kernel.
+7. the same with ``quantize: int4`` and the row kernel;
+8. the text main path: steps 1, 2 and 4a (``ospo_tpu_torch.pipeline.step1``,
+   ``step2``, ``step4``, each ``main``) on their configs at the 7B width,
+   one random int8 model shared by the three (``drop_vision``, ``lm_head``
+   built): step 1 for one category (64 samples of one prompt, 256 new
+   tokens), then ``combine_prompt`` over the fixture element files; step 2
+   (2a and 2b, seeds 0, 1, 2) over the fixture's template-pure group of 10
+   complex base prompts, ``max_new_tokens`` cut to ``STEP2_NEW_TOKENS``;
+   step 4a over the 40 fixture long prompts.  Per stage it prints tokens
+   per second, batch, prefix and tail buckets, the mid-decode step time,
+   peak memory and the flash and decode launches; every shared-prefix call
+   must launch the flash forward 30 times (its B = 1 prefix prefill), and
+   the JSON files must hold the reference's records.
+
+Phase 2 also holds the flash forward at the step-2 prefix prefill (B = 1,
+H = 32, T = S = the prefix bucket, left-padded) and the decode kernel at
+the text plain-path shape (int8 cache, B = 64, the step-1 prompt bucket +
+256 rows); phase 3 also runs a small model's text decode on the GPU and the
+CPU (greedy ids of the shared-prefix and plain programs identical, first
+logits within 1e-2 max|ref|).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -117,6 +136,52 @@ STEP5_CONFIG = {
     "algo": {"beta": 10, "gamma_beta_ratio": 0.5, "sft_weight": 0.0,
              "label_smoothing": 0.0, "loss_type": "sigmoid"},
 }
+
+
+# configs/step1.yaml, step2.yaml and step4.yaml as dicts (a CPU test holds
+# them equal)
+STEP1_CONFIG = {
+    "seed": 42, "world_size": 1, "batch_size": 64, "num_workers": None,
+    "save_path": "./outputs/step1", "ckpt_path": None,
+    "model_path": "./checkpoints/Janus-Pro-7B", "model_preset": None,
+    "cache_dir": "./checkpoints/hf_cache", "max_len": None, "category": None,
+    "category_num": {"attribute1_color": 666, "attribute1_shape": 667,
+                     "attribute1_texture": 667, "attribute2": 2000,
+                     "layout1": 2000, "layout2": 1000, "layout3": 1000,
+                     "non-spatial": 4000, "complex": 4000},
+    "quantize": "int8", "kv_quant": "int8", "shared_prefix": True,
+    "generation_config": {"do_sample": True, "temperature": 1.3,
+                          "max_new_tokens": 256},
+    "drop_vision": True,
+}
+STEP2_CONFIG = {
+    "seed_list": [0, 1, 2], "world_size": None, "batch_size": 32,
+    "num_workers": None, "data_path": None, "save_path": "./outputs/step2",
+    "ckpt_path": None, "model_path": "./checkpoints/Janus-Pro-7B",
+    "model_preset": None, "cache_dir": "./checkpoints/hf_cache",
+    "quantize": "int8", "kv_quant": "int8", "shared_prefix": True,
+    "generation_config": {"do_sample": True, "num_beams": 1,
+                          "temperature": 1.2, "top_p": 0.5,
+                          "max_new_tokens": 512},
+    "drop_vision": True,
+}
+STEP4_CONFIG = {
+    "seed": 42, "world_size": None, "batch_size": 64, "num_workers": None,
+    "data_path": None, "image_path": "./outputs/step3",
+    "save_path": "./outputs/step4", "ckpt_path": None,
+    "model_path": "./checkpoints/Janus-Pro-7B", "model_preset": None,
+    "cache_dir": "./checkpoints/hf_cache", "quantize": "int8",
+    "score_rows": 16, "score_kv_quant": True, "score_failure_gate": True,
+    "kv_quant": "int8", "shared_prefix": True,
+    "generation_config": {"do_sample": True, "num_beams": 1,
+                          "temperature": 0.8, "top_p": 0.9,
+                          "max_new_tokens": 256},
+}
+# phase 8's cut of step 2's new tokens (512 in configs/step2.yaml), so that
+# its six calls fit the phase's time (PERF.md §4)
+STEP2_NEW_TOKENS = 128
+BASE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "examples", "step1",
+                            "base_prompt.json")
 
 
 def step5_overrides(data_path: str, image_root: str, save_path: str) -> dict:
@@ -794,6 +859,95 @@ class Smoke:
                                 "the weight larger than the L2",
             }
 
+    def text_kernels(self):
+        """The flash forward at the step-2 prefix prefill and the decode
+        kernel at the text plain-path shape (module docstring)."""
+        from ospo_tpu_torch.ops import decode_attention as da
+        from ospo_tpu_torch.ops import flash_attention as fa
+
+        sys.path[:0] = [os.path.join(ROOT, "tests")]
+        import flash_fwd_reference as fref
+
+        dev = torch.device("cuda")
+        g = torch.Generator(device=dev).manual_seed(21)
+        common, T = step2_prefix()
+        H, D = 32, 128
+        q, k, v = (torch.randn((1, T, H, D), generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        mask = torch.zeros((1, T), dtype=torch.int32, device=dev)
+        mask[0, T - common:] = 1
+        valid = mask[0] > 0
+        out, l, m = fa.flash_attention(q, k, v, mask, return_stats=True)
+        ref, l_ref, m_ref = fa.flash_attention_plain(q, k, v, mask)
+        torch.cuda.synchronize()
+        # valid query rows only (a left-pad row reads no valid key)
+        errs = [max_err(out[:, valid], ref[:, valid]),
+                max_err(l[..., valid], l_ref[..., valid])
+                / float(l_ref[..., valid].abs().max()),
+                max_err(m[..., valid], m_ref[..., valid])]
+        ok = (torch.allclose(out[:, valid].float(), ref[:, valid].float(),
+                             atol=1e-2, rtol=1e-2)
+              and errs[1] < 1e-5 and errs[2] < 1e-4)
+        what = (f"B=1 T=S={T} H={H} bf16 causal, {T - common} left-pad rows "
+                f"(step-2 prefix prefill)")
+        self.check(ok, f"flash_fwd {what}: max|dO|={errs[0]:.3g} (tol "
+                       f"1e-2+1e-2|O|), max|dl|/|l|={errs[1]:.3g} (tol 1e-5), "
+                       f"max|dm|={errs[2]:.3g} (tol 1e-4), valid rows")
+        entry = self.kernels.get("flash_fwd")
+        if entry:
+            entry["max_abs_err"] = max(entry["max_abs_err"], errs[0])
+        args = fref.budget_case(q, k, v, mask)
+        got = fa.flash_attention(*args)[:, valid]
+        exact = fref.exact_forward(*args)[:, valid]
+        plain = fa.flash_attention_plain(*args)[0][:, valid]
+        err, err_plain = fref._rms(got, exact), fref._rms(plain, exact)
+        self.check(err <= fref.BUDGET * err_plain,
+                   f"flash_fwd {what} against float64: RMS error {err:.4g}, "
+                   f"plain forward {err_plain:.4g} (ratio "
+                   f"{err / err_plain:.3f}, tol {fref.BUDGET:g})")
+        del args, got, exact, plain
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, mask), 10)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, mask), 2, 1)
+        print(f"flash_fwd {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
+
+        # decode: the step-1 prompt on the plain program, int8 cache
+        L, B, dh = 30, 64, 128
+        n_prompt, t_prompt = step1_prompt_bucket()
+        S, cur = t_prompt + 256, t_prompt + 128
+        q = torch.randn((B, 1, H, dh), generator=g, device=dev).to(torch.bfloat16)
+        kc, vc = (torch.randint(-127, 128, (L, S, H, B, dh), generator=g,
+                                device=dev, dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((L, S, H, B), generator=g, device=dev) * 0.02
+                  for _ in range(2))
+        mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+        mask[:, :t_prompt - n_prompt] = 0     # the left-padded prompt window
+        worst = 0.0
+        for layer, c in ((0, t_prompt + 1), (17, cur), (29, S)):
+            out = da.decode_attention(q, kc, vc, layer, c, mask, ks, vs)
+            ref = da.decode_attention_plain(q, kc, vc, layer, c, mask, ks, vs)
+            err = max_err(out, ref)
+            worst = max(worst, err)
+            self.check(torch.allclose(out.float(), ref.float(), atol=1e-4,
+                                      rtol=2 ** -7),
+                       f"decode int8 cache L={L} S={S} H={H} B={B} layer "
+                       f"{layer} cur_len {c} (text plain path): max|d|="
+                       f"{err:.3g} (tol 1e-4+2^-7|ref|)")
+        entry = self.kernels.get("decode_attention")
+        if entry:
+            entry["max_abs_err"] = max(entry["max_abs_err"], worst)
+        ms = cuda_ms(lambda: da.decode_attention(q, kc, vc, 17, cur, mask, ks, vs), 50)
+        plain_ms = cuda_ms(lambda: da.decode_attention_plain(
+            q, kc, vc, 17, cur, mask, ks, vs), 3, 1)
+        nbytes = 2 * cur * H * B * dh + 2 * cur * H * B * 4 + 2 * B * H * dh * 2 \
+            + B * cur * 4
+        print(f"decode_attention int8 B={B} cur_len {cur} (text plain path): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{nbytes / PEAK_BYTES * 1e3:.5f} ms ({nbytes / 1e6:.1f} MB)")
+        del kc, vc, ks, vs
+        torch.cuda.empty_cache()
+
     # -- phase 3 ---------------------------------------------------------
     def small_model(self):
         import dataclasses
@@ -849,6 +1003,74 @@ class Smoke:
         err = max_err(px_cpu, px_gpu)
         self.check(err < 1e-4, f"VQ decode GPU (fp32, TF32 off) vs CPU: "
                                f"max|d|={err:.3g} (tol 1e-4)")
+
+    def small_text(self):
+        """The small model (head dim 128, fp32) decoding text greedily on
+        the GPU (flash forward, decode kernel, int8 KV) and on the CPU (the
+        plain versions), same weights: the shared-prefix and the plain
+        programs' ids must be identical, the first step's logits within
+        1e-2 max|ref|."""
+        import dataclasses
+
+        from ospo_tpu_torch.engine.text_engine import TextGenEngine
+        from ospo_tpu_torch.models import janus, llama
+        from ospo_tpu_torch.ops import decode_attention as da
+        from ospo_tpu_torch.ops import flash_attention as fa
+        from ospo_tpu_torch.processing import Processor
+        from ospo_tpu_torch.tokenizer import ByteTokenizer
+
+        cfg = dataclasses.replace(
+            janus.tiny_janus_config(),
+            language=llama.tiny_config(hidden_size=256, intermediate_size=512,
+                                       num_heads=2))
+        cpu_model = janus.JanusModel.init(cfg, seed=3, device="cpu", vision=False)
+        gpu_model = janus.JanusModel(cfg, _tree_map(cpu_model.params,
+                                                    lambda t: t.to("cuda")),
+                                     torch.device("cuda"))
+        proc = Processor(ByteTokenizer(cfg.language.vocab_size))
+        head = "You are given an object and must list its attributes, as in " \
+               "these examples: "
+        prompts = [head + "a red apple", head + "two dogs in the park",
+                   head + "an umbrella"]
+        first = []
+        lm_logits = janus.lm_logits
+
+        def capture(params, hidden):
+            """Keeps each engine run's first logits (a None marks a run)."""
+            out = lm_logits(params, hidden)
+            if first and first[-1] is None:
+                first[-1] = out.float().cpu()
+            return out
+
+        janus.lm_logits = capture
+        try:
+            for shared in (True, False):
+                ids, first[:], steps = [], [], []
+                n0 = (fa.launches, da.launches)
+                for model in (cpu_model, gpu_model):
+                    eng = TextGenEngine(model, proc, max_new_tokens=24,
+                                        do_sample=False, kv_quant="int8",
+                                        shared_prefix=shared)
+                    eng.step_hook = steps.append
+                    first.append(None)
+                    ids.append(eng.generate_ids(prompts))
+                moved = (fa.launches - n0[0], da.launches - n0[1])
+                # 2 layers: the prompt (or prefix) prefill, and the plain
+                # program's cached steps on the GPU
+                n_gpu = len(steps) // 2
+                want = (2, 0) if shared else (2, 2 * (n_gpu - 1))
+                err = max_err(first[1], first[0])
+                scale = float(first[0].abs().max())
+                self.check(bool((ids[0] == ids[1]).all()) and err <= 1e-2 * scale
+                           and moved == want,
+                           f"small text decode GPU vs CPU ({'shared-prefix' if shared else 'plain'} "
+                           f"program, greedy, fp32, int8 KV): ids identical "
+                           f"{bool((ids[0] == ids[1]).all())}; first logits "
+                           f"max|d|={err:.3g}, max|ref|={scale:.3g} (tol 1e-2 "
+                           f"max|ref|); flash/decode launches {moved} "
+                           f"(expected {want})")
+        finally:
+            janus.lm_logits = lm_logits
 
     def _small_train_setup(self, dtype):
         """The small model (2 layers, width 256, head dim 128) in ``dtype``
@@ -1227,6 +1449,213 @@ class Smoke:
                    f"step 3 {mode} output tree: {n_png} PNGs (384x384x3 uint8, "
                    f"non-constant) + metadata.json; bad: {bad[:3]}")
 
+    # -- phase 8 ---------------------------------------------------------
+    def text_path(self):
+        """Steps 1, 2 and 4a at the 7B width (module docstring, phase 8)."""
+        import gc
+
+        from ospo_tpu_torch.config import Config
+        from ospo_tpu_torch.io import read_json
+        from ospo_tpu_torch.ops import decode_attention as da
+        from ospo_tpu_torch.ops import flash_attention as fa
+        from ospo_tpu_torch.pipeline import model_factory, step1, step2, step4
+
+        gc.collect()  # the previous phase's model goes first
+        torch.cuda.empty_cache()
+        root = os.path.join(self.workdir, "text")
+        model7b = {"model_path": None, "model_preset": "7b"}
+        c1 = Config.from_nested({**STEP1_CONFIG, **model7b, "category": "object",
+                                 "max_len": 1,
+                                 "save_path": os.path.join(root, "step1")})
+        t0 = time.time()
+        shared = model_factory.get_model(c1)
+        torch.cuda.synchronize()
+        print(f"text path: 7B int8 model (drop_vision, lm_head) built in "
+              f"{time.time() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f}"
+              f" GB allocated")
+        group = [r for r in read_json(BASE_FIXTURE) if r["sub_category"] == "complex"]
+        os.makedirs(root, exist_ok=True)
+        with open(os.path.join(root, "base_complex.json"), "w") as f:
+            json.dump(group, f)
+        gen2 = {**STEP2_CONFIG["generation_config"], "max_new_tokens": STEP2_NEW_TOKENS}
+        stages = (
+            ("step 1", step1, c1),
+            ("step 2", step2, Config.from_nested({
+                **STEP2_CONFIG, **model7b, "generation_config": gen2,
+                "data_path": os.path.join(root, "base_complex.json"),
+                "save_path": os.path.join(root, "step2")})),
+            ("step 4a", step4, Config.from_nested({
+                **STEP4_CONFIG, **model7b, "image_path": None,
+                "data_path": FIXTURE, "save_path": os.path.join(root, "step4")})),
+        )
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True).stdout.strip()
+        totals = {"flash_fwd": 0, "decode_attention": 0}
+        for name, module, config in stages:
+            module.get_model, saved = (lambda _c: shared), module.get_model
+            torch.cuda.reset_peak_memory_stats()
+            fa.launches = da.launches = 0
+            try:
+                with _TextRecorder() as rec:
+                    module.main(config)
+            finally:
+                module.get_model = saved
+            counts = {"flash_fwd": fa.launches, "decode_attention": da.launches}
+            for k, n in counts.items():
+                totals[k] += n
+            st = rec.summary()
+            print(f"text {name}: {st['calls']} generate call(s), batch "
+                  f"{st['batch']} (bucket {st['bucket']}), prefix bucket C "
+                  f"{st['prefix']}, tail bucket {st['tail']}, "
+                  f"{st['tokens']} tokens in {st['seconds']:.2f} s "
+                  f"({st['tok_per_s']:.1f} tok/s), mid-decode step "
+                  f"{st['mid_step_ms']:.2f} ms (device timeline) / "
+                  f"{st['mid_host_ms']:.2f} ms (host), peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
+                  f"{counts}; card {smi}")
+            want = {"flash_fwd": 30 * st["calls"],
+                    "decode_attention": 30 * st["plain_steps"]}
+            self.check(counts == want and st["tokens"] > 0,
+                       f"text {name} launches {counts} == {want} (30 layers x "
+                       f"one prefill a call; decode kernel on the plain "
+                       f"program's cached steps)")
+        for k, n in totals.items():
+            self.launches[k] = self.launches.get(k, 0) + n
+        self.check(totals["flash_fwd"] > 0,
+                   f"text path launched flash_fwd {totals['flash_fwd']} times")
+
+        s1 = os.path.join(root, "step1")
+        elements = read_json(os.path.join(s1, "object_element.json"))
+        fix = os.path.join(s1, "fixture")
+        os.makedirs(fix)
+        for name in os.listdir(os.path.dirname(BASE_FIXTURE)):
+            if name.endswith("_element.json"):
+                shutil.copy(os.path.join(os.path.dirname(BASE_FIXTURE), name), fix)
+        quotas = {}
+        for r in read_json(BASE_FIXTURE):
+            quotas[r["sub_category"]] = quotas.get(r["sub_category"], 0) + 1
+        step1.combine_prompt(Config.from_nested({"save_path": fix,
+                                                 "category_num": quotas}))
+        base = read_json(os.path.join(fix, "base_prompt.json"))
+        self.check(isinstance(elements, list) and len(base) == 40 and all(
+            set(r) == {"prompt", "category", "sub_category", "item_id"}
+            for r in base), f"step 1: object_element.json a list of "
+            f"{len(elements)}; combine_prompt over the fixture elements: "
+            f"{len(base)} base prompts (expected 40)")
+        neg = read_json(os.path.join(root, "step2", "negative_prompt.json"))
+        dense = read_json(os.path.join(root, "step2", "long_prompt.json"))
+        self.check([r["item_id"] for r in dense] == [r["item_id"] for r in group]
+                   and len(neg) == len(group) and all(
+                       len(r["negative_prompt"]) == len(r["long_prompt"])
+                       == len(r["negative_long_prompt"]) == 3 for r in dense),
+                   f"step 2: negative_prompt.json and long_prompt.json hold the "
+                   f"{len(group)} complex items with 3 prompts each")
+        vqa = read_json(os.path.join(root, "step4", "vqa_prompt.json"))
+        self.check(len(vqa) == 40 and all(
+            r["question"][-1] == step4.GLOBAL_QUESTION.format(r["prompt"].rstrip("."))
+            for r in vqa), f"step 4a: vqa_prompt.json holds {len(vqa)} items "
+            f"(expected 40), each ending with the global question")
+        del shared
+
+
+class _TextRecorder:
+    """Watches every ``TextGenEngine.generate_ids`` call while active: the
+    batch, the prefix and tail buckets, the steps run, the call's seconds
+    (it returns host arrays, so it has synchronised), and a CUDA event and
+    a host time at each decode step (the engine's ``step_hook``)."""
+
+    def __enter__(self):
+        from ospo_tpu_torch.engine.text_engine import TextGenEngine
+
+        self.cls, self.orig, self.calls = TextGenEngine, TextGenEngine.generate_ids, []
+        orig, calls = self.orig, self.calls
+
+        def generate_ids(eng, prompts, seed=None, generator=None):
+            split = eng._shared_split(prompts)
+            events, host = [], []
+
+            def hook(step):
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+                host.append(time.perf_counter())
+
+            eng.step_hook = hook
+            t0 = time.perf_counter()
+            out = orig(eng, prompts, seed=seed, generator=generator)
+            seconds = time.perf_counter() - t0
+            eng.step_hook = None
+            n = len(events)
+            mid = range(max(1, n // 2 - 8), min(n - 1, n // 2 + 8))
+            calls.append({
+                "rows": len(prompts), "bucket": eng._batch_bucket(len(prompts)),
+                "prefix": None if split is None else split[0].shape[1],
+                "tail": None if split is None else split[2].shape[1],
+                "steps": n, "seconds": seconds,
+                "step_ms": [events[i].elapsed_time(events[i + 1]) for i in mid],
+                "host_ms": [(host[i + 1] - host[i]) * 1e3 for i in mid]})
+            return out
+
+        TextGenEngine.generate_ids = generate_ids
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.generate_ids = self.orig
+
+    def summary(self) -> dict:
+        calls = self.calls
+        mean = lambda xs: sum(xs) / max(1, len(xs))  # noqa: E731
+        tokens = sum(c["rows"] * c["steps"] for c in calls)
+        seconds = sum(c["seconds"] for c in calls)
+        return {
+            "calls": len(calls),
+            "batch": sorted({c["rows"] for c in calls}),
+            "bucket": sorted({c["bucket"] for c in calls}),
+            "prefix": sorted({c["prefix"] for c in calls}, key=str),
+            "tail": sorted({c["tail"] for c in calls}, key=str),
+            "tokens": tokens, "seconds": seconds,
+            "tok_per_s": tokens / seconds if seconds else 0.0,
+            "mid_step_ms": mean([x for c in calls for x in c["step_ms"]]),
+            "mid_host_ms": mean([x for c in calls for x in c["host_ms"]]),
+            "plain_steps": sum(c["steps"] - 1 for c in calls
+                               if c["prefix"] is None),
+        }
+
+
+def step2_prefix():
+    """(common tokens, prefix bucket) of phase 8's step-2 batch, 2a's first
+    perturbation: the B = 1 prefill the flash forward runs there."""
+    import types
+
+    from ospo_tpu_torch.engine.text_engine import TextGenEngine
+    from ospo_tpu_torch.io import read_json
+    from ospo_tpu_torch.pipeline.step2 import build_negative_prompts
+    from ospo_tpu_torch.processing import Processor
+    from ospo_tpu_torch.tokenizer import load_tokenizer
+
+    group = [r for r in read_json(BASE_FIXTURE) if r["sub_category"] == "complex"]
+    for r in group:
+        r["perturbed_method"] = ["replace", "swap", "drop"]
+    prompts = [p for p in build_negative_prompts(group, 0, 0)[0] if p]
+    eng = TextGenEngine(types.SimpleNamespace(device=None),
+                        Processor(load_tokenizer(None, vocab_size=102400)))
+    prefix_mask = eng._shared_split(prompts)[1]
+    return int(prefix_mask.sum()), prefix_mask.shape[1]
+
+
+def step1_prompt_bucket():
+    """(tokens, bucket) of phase 8's step-1 prompt (category object) on the
+    plain program."""
+    from ospo_tpu_torch import chat
+    from ospo_tpu_torch.engine.text_engine import _bucket_tail
+    from ospo_tpu_torch.pipeline.templates import get_element_conversation
+    from ospo_tpu_torch.tokenizer import load_tokenizer
+
+    system, conv = get_element_conversation("object")
+    prompt = chat.apply_sft_template(conv, system_prompt=system)
+    n = len(load_tokenizer(None, vocab_size=102400).encode(prompt))
+    return n, _bucket_tail(n)
+
 
 def train_records():
     """The records of the step-4 fixture whose images phase 4 writes."""
@@ -1300,7 +1729,10 @@ def main() -> int:
         smoke.phase("decode_attention kernel vs plain", smoke.decode_kernel)
         smoke.phase("int4 row and group decode-matmul kernels vs plain",
                     smoke.int4_kernels)
+        smoke.phase("flash_fwd and decode_attention at the text shapes",
+                    smoke.text_kernels)
         smoke.phase("small model GPU vs CPU", smoke.small_model)
+        smoke.phase("small model text decode GPU vs CPU", smoke.small_text)
         smoke.phase("small model training step GPU vs CPU",
                     smoke.small_train_step)
         smoke.phase("small model bf16 training step, backward kernels vs "
@@ -1312,6 +1744,8 @@ def main() -> int:
                         lambda: smoke.int4_path("int4g"))
             smoke.phase("main path: step 3 at 7B width, quantize int4",
                         lambda: smoke.int4_path("int4"))
+            smoke.phase("main path: steps 1, 2 and 4a at 7B width",
+                        smoke.text_path)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if smoke.failures or args.skip_main:

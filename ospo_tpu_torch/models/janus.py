@@ -1,11 +1,14 @@
-"""Janus-Pro generation path in PyTorch — counterpart of the generation side
-of ``ospo_tpu/models/janus.py``:
+"""Janus-Pro in PyTorch — counterpart of the generation and text sides of
+``ospo_tpu/models/janus.py``:
 
   gen_embed ([16384, 8] table) → gen_aligner → language_model (Llama trunk)
-  → gen_head (vision_head: hidden → 16384 logits) … gen_vision_model (VQ)
+  → gen_head (vision_head: hidden → 16384 logits) … gen_vision_model (VQ);
+  text: embed → language_model → lm_head (hidden → vocab logits).
 
-The understanding tower (SigLIP + aligner) and the text lm_head are not
-built: step 3 never runs them (``drop_understanding`` / ``drop_lm_head``).
+The understanding tower (SigLIP + aligner) is not built yet (ROADMAP.md,
+the understanding slice); ``lm_head`` and the generation side are built
+unless the caller drops them (``drop_lm_head`` in step 3, ``drop_vision`` in
+the text steps).
 """
 
 from __future__ import annotations
@@ -84,6 +87,11 @@ def prepare_gen_img_embeds(params: Params, cfg: JanusConfig,
 def gen_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     """LM hidden states → image-token logits (fp32)."""
     return projector.vision_head(params["gen_head"], hidden)
+
+
+def lm_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
+    """LM hidden states → text logits (fp32)."""
+    return llama.logits_from_hidden(params["language_model"], hidden)
 
 
 def language_forward(params: Params, cfg: JanusConfig, *args, **kwargs):
@@ -236,17 +244,27 @@ class JanusModel:
 
     @classmethod
     def init(cls, cfg: JanusConfig, seed: int = 0, quantize=False,
-             device: Optional[torch.device] = None) -> "JanusModel":
+             device: Optional[torch.device] = None, lm_head: bool = True,
+             vision: bool = True) -> "JanusModel":
         """Random init on ``device``; ``quantize`` (True = "int8", "int4",
         "int4g") quantizes each trunk matrix as it is drawn, so the
         model-dtype trunk never exists whole.  The draws are the same in
-        every mode."""
+        every mode.  ``lm_head=False`` leaves the text head out,
+        ``vision=False`` the VQ model and the generation heads; the head
+        comes from a generator of its own, so neither changes the other
+        weights of a seed."""
         mode = quant.quant_mode(quantize)
         device = torch.device(device or "cuda")
         ini = _Init(seed, device)
         e, dt = cfg.n_embed, cfg.dtype
-        params = {
-            "language_model": _init_language(ini, cfg.language, mode),
+        params = {"language_model": _init_language(ini, cfg.language, mode)}
+        if lm_head:
+            head = _Init(llama.fold_seed(seed, 1), device)
+            params["language_model"]["lm_head"] = head.normal(
+                (cfg.language.vocab_size, e), 0.02, dt)
+        if not vision:
+            return cls(cfg, params, device)
+        params.update({
             "gen_vision_model": _init_vq_decoder(ini, cfg.vq),
             "gen_aligner": {"layers": [ini.linear(cfg.gen_embed_dim, e, dt)] + [
                 ini.linear(e, e, dt) for _ in range(cfg.gen_aligner_depth - 1)]},
@@ -254,7 +272,7 @@ class JanusModel:
                          "head": ini.linear(e, cfg.image_token_size, dt)},
             "gen_embed": ini.normal((cfg.image_token_size, cfg.gen_embed_dim),
                                     0.02, dt),
-        }
+        })
         # drawn last, so the step-3 weights of a seed are those drawn before
         # the encoder existed
         params["gen_vision_model"].update(_init_vq_encoder(ini, cfg.vq))

@@ -12,7 +12,9 @@ The KV cache is preallocated in the batch-minor ``shbd`` layout
 JAX package threads a new cache through its scan instead).  Prefill
 (``self_attn=True``) writes the prompt rows and attends over them with the
 flash kernel; a cached T=1 step writes its row and reads the cache with the
-decode-attention kernel.  Numerics follow the reference: weights in the
+decode-attention kernel.  With a batch-shared prefix segment (``prefix_kv``,
+the text engine's shared-prefix decode) both take the plain prefix forms of
+``ops/attention.py`` instead.  Numerics follow the reference: weights in the
 model dtype, RMSNorm / RoPE / softmax / SiLU in fp32.
 
 Without a cache the trunk is the training forward: LoRA adapters with
@@ -30,7 +32,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from ospo_tpu_torch.ops.attention import attention
+from ospo_tpu_torch.ops.attention import attention, prefix_decode_attention
 from ospo_tpu_torch.ops.decode_attention import decode_attention
 from ospo_tpu_torch.ops.int4_matmul import int4_matmul_decode
 from ospo_tpu_torch.ops.quant import (quantized_matmul, quantized_matmul_int4,
@@ -277,6 +279,7 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
             lora_dropout_seed: Optional[int] = None,
             remat: bool = False,
             attn_impl: str = "auto",
+            prefix_kv: Optional[Dict[str, torch.Tensor]] = None,
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Run the decoder trunk; returns (final-norm hidden states, cache).
 
@@ -295,11 +298,21 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``);
     ``attn_impl`` is passed to :func:`attention` (``"flash"`` runs the
     backward kernels).
+
+    ``prefix_kv`` ``{"k": [L, C, KVH, Dh], "v": [L, C, KVH, Dh], "mask":
+    [C] | [1, C] | [B, C]}`` (cached path only) adds a batch-shared,
+    read-only key/value segment before every cache row
+    (``ospo_tpu/models/llama.py:373-382``): the prefill's queries attend
+    prefix + own chunk, a cached step's prefix + cache, each through the
+    plain forms of ``ops/attention.py``.  The caller owns the rotary
+    positions, which continue after the prefix.
     """
     x = inputs_embeds.to(cfg.dtype)
     B, T = x.shape[:2]
     cos, sin = rope_frequencies(cfg, positions)
     if kv_cache is None:
+        if prefix_kv is not None:
+            raise ValueError("prefix_kv needs a KV cache (the serving path)")
         for li in range(cfg.num_layers):
             lp = _layer(params["layers"], li)
             llora = None if lora is None else {
@@ -332,8 +345,12 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     if self_attn and cache_len != 0:
         raise ValueError("self_attn prefill needs an empty cache")
 
+    pm = None if prefix_kv is None else prefix_kv["mask"]
     for li in range(cfg.num_layers):
         lp = _layer(params["layers"], li)
+        pk = pv = None
+        if prefix_kv is not None:
+            pk, pv = prefix_kv["k"][li], prefix_kv["v"][li]
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         q = linear(h, lp["wq"]).view(B, T, cfg.num_heads, cfg.dim_head)
         k = linear(h, lp["wk"]).view(B, T, cfg.kv_heads, cfg.dim_head)
@@ -341,7 +358,13 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         _write_kv(kv_cache, li, cache_len, k, v)
         if self_attn:
-            attn = attention(q, k, v, mask=attention_mask)
+            attn = attention(q, k, v, mask=attention_mask, prefix_k=pk,
+                             prefix_v=pv, prefix_mask=pm)
+        elif pk is not None:
+            attn = prefix_decode_attention(
+                q, kv_cache["k"], kv_cache["v"], li, cache_len + 1,
+                attention_mask, pk, pv, pm, k_scale=kv_cache.get("k_s"),
+                v_scale=kv_cache.get("v_s"))
         else:
             attn = decode_attention(q, kv_cache["k"], kv_cache["v"], li,
                                     cache_len + 1, attention_mask,
@@ -356,6 +379,12 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
 
     kv_cache["length"] = cache_len + T
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), kv_cache
+
+
+def logits_from_hidden(params: Params, hidden: torch.Tensor) -> torch.Tensor:
+    """Hidden states [B, T, D] → text logits [B, T, V]: the product in the
+    model dtype, cast to fp32 (``ospo_tpu/models/llama.py:779-780``)."""
+    return (hidden @ params["lm_head"].T).float()
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:

@@ -8,8 +8,9 @@
   safetensors checkpoint, by the key map of ``ospo_tpu/models/weights.py``
   (``port_llama`` :170, ``port_vqgan`` :307, ``port_mlp_projector`` :378,
   ``port_vision_head`` :392, ``config_from_checkpoint`` :410), the VQ
-  model's encoder and decoder included.  The understanding tower is not
-  read (not built in the port yet), nor is ``lm_head`` when it is dropped.
+  model's encoder and decoder included, and ``lm_head`` on request.  The
+  understanding tower is not read (not built in the port yet); with
+  ``vision=False`` neither is the generation side (the text steps).
 """
 
 from __future__ import annotations
@@ -50,7 +51,8 @@ def _map_tree(tree, fn, path=()):
 
 def from_jax_params(tree: Params, device=None) -> Params:
     """JAX Janus param tree (numpy leaves) → port params on ``device``.
-    Only the generation-side subtrees are taken."""
+    The language model (``lm_head`` included) and the generation-side
+    subtrees are taken."""
     device = torch.device(device or "cpu")
 
     def leaf(path, x):
@@ -239,19 +241,22 @@ def _port_vision_head(ck: _Checkpoint, prefix: str, dtype) -> Params:
 def load_janus(model_path: str, device=None,
                cfg: Optional[janus_lib.JanusConfig] = None,
                quantize=False,
-               lm_head: bool = False) -> janus_lib.JanusModel:
-    """Load the generation side of an HF-keyed Janus-Pro checkpoint onto
-    ``device`` (default ``cuda``); ``quantize`` (True = "int8", "int4",
-    "int4g") quantizes the trunk layer by layer."""
+               lm_head: bool = False,
+               vision: bool = True) -> janus_lib.JanusModel:
+    """Load the language model of an HF-keyed Janus-Pro checkpoint onto
+    ``device`` (default ``cuda``), with ``lm_head`` on request and the
+    generation side unless ``vision`` is False; ``quantize`` (True =
+    "int8", "int4", "int4g") quantizes the trunk layer by layer."""
     device = torch.device(device or "cuda")
     cfg = cfg or config_from_checkpoint(model_path)
     ck = _Checkpoint(model_path, device)
-    params = {
-        "language_model": _port_llama(ck, cfg.language, quantize, lm_head),
-        "gen_vision_model": _port_vq(ck, cfg.vq),
-        "gen_aligner": _port_mlp_projector(ck, "gen_aligner.",
-                                           cfg.gen_aligner_depth, cfg.dtype),
-        "gen_head": _port_vision_head(ck, "gen_head.", cfg.dtype),
-        "gen_embed": ck.get("gen_embed.weight", cfg.dtype),
-    }
+    params = {"language_model": _port_llama(ck, cfg.language, quantize, lm_head)}
+    if vision:
+        params.update({
+            "gen_vision_model": _port_vq(ck, cfg.vq),
+            "gen_aligner": _port_mlp_projector(ck, "gen_aligner.",
+                                               cfg.gen_aligner_depth, cfg.dtype),
+            "gen_head": _port_vision_head(ck, "gen_head.", cfg.dtype),
+            "gen_embed": ck.get("gen_embed.weight", cfg.dtype),
+        })
     return janus_lib.JanusModel(cfg, params, device)

@@ -1,9 +1,11 @@
-"""Pipeline dataset helpers used by steps 3 and 5 (copy of
-``load_base_dataset``, ``batched`` and ``PreferenceDataset`` from
-``ospo_tpu/pipeline/datasets.py``; PNGs are decoded by ``utils/png``)."""
+"""Pipeline dataset helpers used by steps 2 to 5 (copy of
+``load_base_dataset``, ``batched``, ``batched_grouped`` and
+``PreferenceDataset`` from ``ospo_tpu/pipeline/datasets.py``; PNGs are
+decoded by ``utils/png``)."""
 
 from __future__ import annotations
 
+import itertools
 import os
 import random
 from typing import Dict, List, Optional, Sequence
@@ -43,6 +45,15 @@ def load_base_dataset(fpath: str, s_idx: Optional[int] = None,
 def batched(items: Sequence, batch_size: int):
     for i in range(0, len(items), batch_size):
         yield items[i : i + batch_size]
+
+
+def batched_grouped(items: Sequence, batch_size: int, key):
+    """Batches within runs of equal ``key`` (``items`` sorted by it), so
+    every batch shares one few-shot template and the text engine's
+    shared-prefix program stores that template once per batch; each
+    group's last batch may be short."""
+    for _, grp in itertools.groupby(items, key=key):
+        yield from batched(list(grp), batch_size)
 
 
 class PreferenceDataset:

@@ -11,9 +11,10 @@ Resolution (fail-fast, as in the JAX package):
 The model lives on ``config.device`` (default ``cuda``; ``cpu`` only when
 asked).  ``ckpt_path`` (a LoRA checkpoint of step 5, from either package)
 is merged into the trunk before ``quantize`` (int8, int4 or int4g) quantizes
-it (``ospo_tpu/pipeline/model_factory.py:154-177``); ``drop_lm_head`` and
+it (``ospo_tpu/pipeline/model_factory.py:154-177``); ``drop_lm_head``,
+``drop_vision`` (the VQ model and the generation heads, :197-214) and
 ``drop_understanding`` are honoured by never building those parts (the port
-builds neither yet).  The processor's image processor comes from the
+does not build the understanding tower yet).  The processor's image processor comes from the
 checkpoint's ``preprocessor_config.json`` or the defaults at the model's
 image size.
 """
@@ -64,6 +65,8 @@ def _reject_unported(config) -> None:
 
 def build_model(config, quantize: str = "") -> janus_lib.JanusModel:
     device = resolve_device(config.get("device"))
+    parts = {"lm_head": not config.get("drop_lm_head"),
+             "vision": not config.get("drop_vision")}
     model_path = config.get("model_path")
     if model_path:
         if not has_weights(model_path):
@@ -75,7 +78,8 @@ def build_model(config, quantize: str = "") -> janus_lib.JanusModel:
         from ospo_tpu_torch.models import weights
 
         print(f"# Loading Janus-Pro weights from {model_path}")
-        return weights.load_janus(model_path, device=device, quantize=quantize)
+        return weights.load_janus(model_path, device=device, quantize=quantize,
+                                  **parts)
 
     preset = config.get("model_preset")
     if not preset:
@@ -96,7 +100,7 @@ def build_model(config, quantize: str = "") -> janus_lib.JanusModel:
                          f"(expected tiny | {' | '.join(PRESETS)})")
     print(f"# Random-init preset '{preset}' on {device} (explicit model_preset).")
     return janus_lib.JanusModel.init(cfg, seed=seed, quantize=quantize,
-                                     device=device)
+                                     device=device, **parts)
 
 
 def get_model(config) -> Tuple[janus_lib.JanusModel, object, Processor]:

@@ -533,3 +533,75 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x3, qw3 = _int4_inputs(cuda, "int4", 4, 64, 72, torch.bfloat16, 9)
     with pytest.raises(ValueError, match="multiple of 16"):
         i4.int4_matmul_decode(x3, qw3)
+
+
+def test_flash_forward_bf16_at_a_left_padded_prefix(cuda):
+    """The text engine's B = 1 prefix prefill: one row, H = 32, T = S = 1152,
+    left-padded by 137 rows; valid rows within the forward's tolerances."""
+    from ospo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(31)
+    q, k, v = (torch.randn((1, 1152, 32, 128), generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    mask = torch.ones((1, 1152), dtype=torch.int32, device=cuda)
+    mask[0, :137] = 0
+    out, l, m = fa.flash_attention(q, k, v, mask, return_stats=True)
+    ref, l_ref, m_ref = fa.flash_attention_plain(q, k, v, mask)
+    valid = mask[0] > 0
+    torch.testing.assert_close(out[:, valid].float(), ref[:, valid].float(),
+                               atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(l[..., valid], l_ref[..., valid], atol=0, rtol=1e-5)
+    torch.testing.assert_close(m[..., valid], m_ref[..., valid], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("cur_len", [769, 896, 1024])
+def test_decode_kernel_at_the_text_shape(cuda, cur_len):
+    """The plain text program's cached steps: int8 cache, B = 64, the
+    step-1 prompt bucket (768) + 256 rows."""
+    from ospo_tpu_torch.ops import decode_attention as da
+
+    L, S, H, B, dh = 2, 1024, 32, 64, 128
+    g = torch.Generator(device=cuda).manual_seed(32)
+    q = torch.randn((B, 1, H, dh), generator=g, device=cuda).bfloat16()
+    kc, vc = (torch.randint(-127, 128, (L, S, H, B, dh), generator=g,
+                            device=cuda, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((L, S, H, B), generator=g, device=cuda) * 0.02
+              for _ in range(2))
+    mask = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    mask[:, :193] = 0
+    out = da.decode_attention(q, kc, vc, 1, cur_len, mask, ks, vs)
+    ref = da.decode_attention_plain(q, kc, vc, 1, cur_len, mask, ks, vs)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-4, rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_text_engine_greedy_on_the_card_matches_the_cpu(cuda, shared):
+    """A small model (head dim 128, fp32, int8 KV) decoding greedily on the
+    card (flash forward, decode kernel) and on the CPU (plain versions):
+    identical ids for the shared-prefix and the plain programs."""
+    import dataclasses
+
+    from ospo_tpu_torch.engine.text_engine import TextGenEngine
+    from ospo_tpu_torch.models import janus, llama
+    from ospo_tpu_torch.processing import Processor
+    from ospo_tpu_torch.tokenizer import ByteTokenizer
+
+    cfg = dataclasses.replace(
+        janus.tiny_janus_config(),
+        language=llama.tiny_config(hidden_size=256, intermediate_size=512,
+                                   num_heads=2))
+    cpu = janus.JanusModel.init(cfg, seed=4, device="cpu", vision=False)
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.to(cuda)
+
+    gpu = janus.JanusModel(cfg, to_card(cpu.params), cuda)
+    proc = Processor(ByteTokenizer(cfg.language.vocab_size))
+    head = "Answer with a comma-separated list of things, as in the examples: "
+    prompts = [head + "fruit", head + "animals in a park", head + "tools"]
+    ids = [TextGenEngine(m, proc, max_new_tokens=12, do_sample=False,
+                         kv_quant="int8", shared_prefix=shared).generate_ids(prompts)
+           for m in (cpu, gpu)]
+    assert (ids[0] == ids[1]).all()

@@ -217,7 +217,8 @@ def test_generation_heads_match_jax():
 
 def test_random_init_quantizes_each_matrix():
     """The port's random init: int8 trunk dicts of the right shapes, the
-    gen side in the model dtype, no lm_head, seeded reproducibly."""
+    gen side in the model dtype, lm_head unless left out (and then every
+    other weight the same), seeded reproducibly."""
     cfg = tjanus.tiny_janus_config()
     a = tjanus.JanusModel.init(cfg, seed=0, quantize="int8", device="cpu")
     b = tjanus.JanusModel.init(cfg, seed=0, quantize="int8", device="cpu")
@@ -225,7 +226,13 @@ def test_random_init_quantizes_each_matrix():
     assert layers["w_gate"]["q"].shape == (2, 128, 64)
     assert layers["w_gate"]["q"].dtype == torch.int8
     assert layers["w_gate"]["s"].shape == (2, 128)
-    assert "lm_head" not in a.params["language_model"]
+    assert a.params["language_model"]["lm_head"].shape == (512, 64)
+    c = tjanus.JanusModel.init(cfg, seed=0, quantize="int8", device="cpu",
+                               lm_head=False, vision=False)
+    assert "lm_head" not in c.params["language_model"]
+    assert set(c.params) == {"language_model"}
+    torch.testing.assert_close(c.params["language_model"]["embed"],
+                               a.params["language_model"]["embed"])
     torch.testing.assert_close(layers["wq"]["q"],
                                b.params["language_model"]["layers"]["wq"]["q"])
     w = layers["wo"]
