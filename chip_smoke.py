@@ -47,14 +47,30 @@ fails):
    per second, batch, prefix and tail buckets, the mid-decode step time,
    peak memory and the flash and decode launches; every shared-prefix call
    must launch the flash forward 30 times (its B = 1 prefix prefill), and
-   the JSON files must hold the reference's records.
+   the JSON files must hold the reference's records;
+9. the understanding path: step 4b (``ospo_tpu_torch.pipeline.step4.main``
+   on ``configs/step4.yaml``, ``model_preset: 7b``: random int8 weights
+   with SigLIP-L, the int8 prefix cache, 16 images a chunk) over phase 4's
+   PNG tree, the fixture's questions of those 24 items
+   (``tests/fixtures/examples/step4/vqa_prompt.json``, 144 images).  Every
+   image must be scored with no out-of-memory retry, no unshared fallback
+   and no per-image retry, the flash forward must launch 30 times per
+   shared-program slice (its B = 1 pre-image prefill), and ``train.json``
+   must hold the JAX package's record schema.  It prints images scored per
+   second over the scoring loop (model set-up excluded), the slices and
+   their (p_b, t_b, pre) buckets, the ViT, prefill and suffix device time
+   per slice (CUDA events), and peak memory.
 
 Phase 2 also holds the flash forward at the step-2 prefix prefill (B = 1,
 H = 32, T = S = the prefix bucket, left-padded) and the decode kernel at
 the text plain-path shape (int8 cache, B = 64, the step-1 prompt bucket +
-256 rows); phase 3 also runs a small model's text decode on the GPU and the
-CPU (greedy ids of the shared-prefix and plain programs identical, first
-logits within 1e-2 max|ref|).
+256 rows), and the flash forward at step 4b's prefills (the B = 1
+pre-image segment; the single-segment program's B = 8 slice, at its bucket
+and at the 640-row remainder bucket); phase 3 also runs a small model's
+text decode on the GPU and the CPU (greedy ids of the shared-prefix and
+plain programs identical, first logits within 1e-2 max|ref|) and its step-4b
+scoring (p_yes and p_no within 1e-3 relative, both programs, int8 and fp32
+caches).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -177,6 +193,13 @@ STEP4_CONFIG = {
                           "temperature": 0.8, "top_p": 0.9,
                           "max_new_tokens": 256},
 }
+VQA_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "examples", "step4",
+                           "vqa_prompt.json")
+# the keys of a train.json record and of its metadata (the JAX package's
+# step4.run_scoring)
+TRAIN_KEYS = {"item_id", "category", "sub_category", "question", "prompt",
+              "chosen", "rejected", "metadata"}
+TRAIN_META_KEYS = {"score_metadata", "base_meatadata", "negative_metadata"}
 # phase 8's cut of step 2's new tokens (512 in configs/step2.yaml), so that
 # its six calls fit the phase's time (PERF.md §4)
 STEP2_NEW_TOKENS = 128
@@ -948,6 +971,64 @@ class Smoke:
         del kc, vc, ks, vs
         torch.cuda.empty_cache()
 
+    def scoring_kernels(self):
+        """The flash forward at step 4b's prefills (module docstring): the
+        B = 1 pre-image segment, and the single-segment program's B = 8
+        slice (its byte-tokenizer bucket, and 640, the per-image remainder's
+        bucket), left-padded, bf16."""
+        from ospo_tpu_torch.ops import flash_attention as fa
+
+        dev = torch.device("cuda")
+        g = torch.Generator(device=dev).manual_seed(23)
+        H, D = 32, 128
+        pre = score_buckets(True)[0]
+        single = score_buckets(False)[0]
+        cases = (("pre-image prefill", 1, pre["pre_c"], pre["pre_n"]),
+                 ("single-segment prefill", 8, single["p_b"], single["rest"]),
+                 ("single-segment prefill at the remainder bucket", 8,
+                  pre["p_b"], pre["rest"]))
+        entry = self.kernels.get("flash_fwd")
+        for what, B, T, n in cases:
+            q, k, v = (torch.randn((B, T, H, D), generator=g, device=dev)
+                       .to(torch.bfloat16) for _ in range(3))
+            mask = torch.zeros((B, T), dtype=torch.int32, device=dev)
+            mask[:, T - n:] = 1
+            out, l, m = fa.flash_attention(q, k, v, mask, return_stats=True)
+            ref, l_ref, m_ref = fa.flash_attention_plain(q, k, v, mask)
+            torch.cuda.synchronize()
+            valid = mask[0] > 0
+            errs = [max_err(out[:, valid], ref[:, valid]),
+                    max_err(l[..., valid], l_ref[..., valid])
+                    / float(l_ref[..., valid].abs().max()),
+                    max_err(m[..., valid], m_ref[..., valid])]
+            ok = (torch.allclose(out[:, valid].float(), ref[:, valid].float(),
+                                 atol=1e-2, rtol=1e-2)
+                  and errs[1] < 1e-5 and errs[2] < 1e-4)
+            shape = (f"B={B} T=S={T} H={H} bf16 causal, {T - n} left-pad "
+                     f"rows ({what}, step 4b)")
+            self.check(ok, f"flash_fwd {shape}: max|dO|={errs[0]:.3g} (tol "
+                           f"1e-2+1e-2|O|), max|dl|/|l|={errs[1]:.3g} (tol "
+                           f"1e-5), max|dm|={errs[2]:.3g} (tol 1e-4), valid rows")
+            if entry:
+                entry["max_abs_err"] = max(entry["max_abs_err"], errs[0])
+            ms = cuda_ms(lambda: fa.flash_attention(q, k, v, mask), 20)
+            plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, mask), 3, 1)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            allowed = (mask[:, None, None, :] > 0) & torch.ones(
+                (T, T), dtype=torch.bool, device=dev).tril()[None, None]
+            lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=allowed), 20)
+            flops = 4.0 * H * D * B * n * (n + 1) / 2
+            nbytes = 4 * B * T * H * D * 2 + B * T * 4 + 2 * B * H * T * 4
+            bound_ms = max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+            print(f"flash_fwd {shape}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                  f"{bound_ms:.5f} ms ({flops / 1e9:.2f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB, bound by "
+                  f"{'operations' if flops / PEAK_BF16 > nbytes / PEAK_BYTES else 'bytes'})")
+            del q, k, v, out, ref, qt, kt, vt, allowed
+        torch.cuda.empty_cache()
+
     # -- phase 3 ---------------------------------------------------------
     def small_model(self):
         import dataclasses
@@ -1071,6 +1152,70 @@ class Smoke:
                            f"(expected {want})")
         finally:
             janus.lm_logits = lm_logits
+
+    def small_scoring(self):
+        """The small model (head dim 128, fp32, int8 weights, the tiny
+        SigLIP at head dim 16) scoring 3 images on the GPU (the flash
+        forward in every trunk prefill, the plain ViT and suffix forms) and
+        on the CPU, same weights: p_yes and p_no per (image, question)
+        within 1e-3 of the CPU's value, relative, for the pre-image and the
+        single-segment programs, each with the int8 and the fp32 cache."""
+        import dataclasses
+
+        import numpy as np
+
+        from ospo_tpu_torch.engine.scoring import ScoringEngine
+        from ospo_tpu_torch.image_processing import ImageProcessor
+        from ospo_tpu_torch.models import janus, llama
+        from ospo_tpu_torch.ops import flash_attention as fa
+        from ospo_tpu_torch.processing import Processor
+        from ospo_tpu_torch.tokenizer import ByteTokenizer
+
+        cfg = dataclasses.replace(
+            janus.tiny_janus_config(),
+            language=llama.tiny_config(hidden_size=256, intermediate_size=512,
+                                       num_heads=2))
+        cpu_model = janus.JanusModel.init(cfg, seed=5, quantize="int8",
+                                          device="cpu")
+        gpu_model = janus.JanusModel(cfg, _tree_map(cpu_model.params,
+                                                    lambda t: t.to("cuda")),
+                                     torch.device("cuda"))
+        proc = Processor(ByteTokenizer(cfg.language.vocab_size),
+                         ImageProcessor(image_size=cfg.image_size),
+                         num_image_tokens=cfg.num_image_tokens)
+        rng = np.random.default_rng(5)
+        images = [rng.integers(0, 256, shape).astype(np.uint8)
+                  for shape in ((32, 32, 3), (40, 24, 3), (20, 50, 3))]
+        questions = [["Is there a dog?", "Is it red?", "Does it match?"],
+                     ["Is the sky blue?", "Does it match the prompt?"],
+                     ["Is there a cat?", "Is it big?", "Is it outdoors?",
+                      "Does it match?"]]
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False   # the patch conv in fp32
+        try:
+            for pre in (True, False):
+                for kv in ("int8", False):
+                    outs = []
+                    n0 = fa.launches
+                    for model in (cpu_model, gpu_model):
+                        eng = ScoringEngine(model, proc, kv_quant=kv,
+                                            pre_image_prefix=pre)
+                        outs.append(eng.score_images_multi(images, questions))
+                    moved = fa.launches - n0
+                    ps = [(m[k], n[k]) for a, b in zip(*outs) for m, n in zip(
+                        a["answer_metadata"], b["answer_metadata"])
+                        for k in ("p_yes", "p_no")]
+                    worst = max(abs(g - c) / abs(c) for c, g in ps)
+                    self.check(worst <= 1e-3 and moved == cfg.language.num_layers
+                               and len(ps) == 2 * 9,
+                               f"small scoring GPU vs CPU ({'pre-image' if pre else 'single-segment'} "
+                               f"program, {kv or 'fp32'} cache, int8 weights): "
+                               f"max |dp|/|p| = {worst:.3g} over {len(ps)} "
+                               f"p's (tol 1e-3); flash launches {moved} "
+                               f"(expected {cfg.language.num_layers}: one "
+                               f"trunk prefill from position 0)")
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
 
     def _small_train_setup(self, dtype):
         """The small model (2 layers, width 256, head dim 128) in ``dtype``
@@ -1559,6 +1704,162 @@ class Smoke:
         del shared
 
 
+    # -- phase 9 ---------------------------------------------------------
+    def score_path(self):
+        """Step 4b at the 7B width over phase 4's PNG tree (module
+        docstring, phase 9)."""
+        import gc
+
+        from ospo_tpu_torch.config import Config
+        from ospo_tpu_torch.io import read_json
+        from ospo_tpu_torch.ops import flash_attention as fa
+        from ospo_tpu_torch.pipeline import step4
+
+        gc.collect()  # the previous phase's model goes first
+        torch.cuda.empty_cache()
+        items = score_items()
+        image_root = os.path.join(self.workdir, "step3")
+        save = os.path.join(self.workdir, "step4b")
+        os.makedirs(save)
+        with open(os.path.join(save, "vqa_prompt.json"), "w") as f:
+            json.dump(items, f)
+        config = Config.from_nested({
+            **STEP4_CONFIG, "model_path": None, "model_preset": "7b",
+            "image_path": image_root, "save_path": save})
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True).stdout.strip()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = 0
+        t0 = time.time()
+        with _ScoreRecorder(step4) as rec:
+            step4.main(config)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = fa.launches
+        self.launches["flash_fwd"] = self.launches.get("flash_fwd", 0) + launches
+        st = rec.summary()
+        summary = read_json(os.path.join(save, "score_summary.json"))
+        train = read_json(os.path.join(save, "train.json"))
+        n_images = sum(c["images"] for c in summary.values())
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"step 4b: {n_images} images in {st['loop_s']:.2f} s of the "
+              f"scoring loop ({n_images / st['loop_s']:.2f} images/s, model "
+              f"set-up excluded); step4.main {wall:.1f} s with the 7B init; "
+              f"{st['slices']} slices of {st['rows']} images, buckets "
+              f"(p_b, t_b, pre) {st['buckets']}; per slice on the device: ViT "
+              f"{st['vit_ms']:.2f} ms, pre-image prefill {st['pre_ms']:.2f} ms, "
+              f"image prefill {st['prefill_ms']:.2f} ms, suffixes "
+              f"{st['suffix_ms']:.2f} ms (sum {st['device_ms']:.2f} ms of "
+              f"{st['slice_ms']:.2f} ms a slice on the host's clock); peak "
+              f"memory {peak_gb:.2f} GB; flash launches {launches}; engine "
+              f"counts {st['counts']}; {len(train)} pairs; card {smi}")
+        print(f"step 4b per-category summary: {summary}")
+        self.check(n_images == 6 * N_ITEMS and all(
+            c["scored"] == c["images"] for c in summary.values()),
+            f"step 4b scored every image: {n_images} images (expected "
+            f"{6 * N_ITEMS}), scored == images in every category")
+        self.check(st["counts"] == {"oom_retries": 0, "unshared_calls": 0,
+                                    "per_image_retries": 0},
+                   f"step 4b took no OOM retry, no unshared fallback and no "
+                   f"per-image retry: {st['counts']}")
+        self.check(st["slices"] > 0 and launches == 30 * st["slices"],
+                   f"step 4b flash_fwd launches {launches} == 30 x "
+                   f"{st['slices']} shared-program slices (the B = 1 "
+                   f"pre-image prefill)")
+        self.check(all(set(r) == TRAIN_KEYS and set(r["metadata"]) == TRAIN_META_KEYS
+                       and set(r["metadata"]["score_metadata"]) == {
+                           "local_gap", "global_gap", "preference_strength"}
+                       for r in train) and sum(
+                           c["pairs"] for c in summary.values()) == len(train),
+                   f"train.json: {len(train)} records with the JAX package's "
+                   f"schema, as many as the summary's pairs")
+
+
+class _ScoreRecorder:
+    """Watches step 4b while active: the scoring loop's seconds
+    (``step4.run_scoring``), the engine's counts, and per shared-program
+    slice its buckets and CUDA-event times of the ViT, the pre-image
+    prefill, the image prefill and the suffixes."""
+
+    PARTS = {"_encode_images": "vit", "_prefill_pre": "pre",
+             "_prefill_images": "prefill", "_suffix_probs": "suffix"}
+
+    def __init__(self, step4):
+        self.step4 = step4
+
+    def __enter__(self):
+        from ospo_tpu_torch.engine.scoring import ScoringEngine
+
+        self.cls, self.saved = ScoringEngine, {}
+        self.slices, self.loop, self.engines = [], [], []
+        rec = self
+
+        def timed(name, orig):
+            def call(eng, *args, **kw):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = orig(eng, *args, **kw)
+                ev[1].record()
+                if rec.slices:
+                    rec.slices[-1]["events"].setdefault(name, []).append(ev)
+                return out
+            return call
+
+        def slice_call(eng, operands, pre, q_counts):
+            t = time.perf_counter()
+            rec.slices.append({"rows": operands[0].shape[0], "events": {},
+                               "bucket": (operands[0].shape[1],
+                                          operands[5].shape[2],
+                                          None if pre is None else pre[0].shape[1])})
+            out = rec.saved["_execute_shared_slice"](eng, operands, pre, q_counts)
+            rec.slices[-1]["host_s"] = time.perf_counter() - t
+            return out
+
+        for name, part in self.PARTS.items():
+            self.saved[name] = getattr(ScoringEngine, name)
+            setattr(ScoringEngine, name, timed(part, self.saved[name]))
+        self.saved["_execute_shared_slice"] = ScoringEngine._execute_shared_slice
+        ScoringEngine._execute_shared_slice = slice_call
+        self.run_scoring = self.step4.run_scoring
+
+        def run_scoring(config, engine, data):
+            rec.engines.append(engine)
+            t = time.perf_counter()
+            out = rec.run_scoring(config, engine, data)
+            torch.cuda.synchronize()
+            rec.loop.append(time.perf_counter() - t)
+            return out
+
+        self.step4.run_scoring = run_scoring
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+        self.step4.run_scoring = self.run_scoring
+
+    def summary(self) -> dict:
+        n = max(1, len(self.slices))
+
+        def per_slice(part):
+            return sum(a.elapsed_time(b) for s in self.slices
+                       for a, b in s["events"].get(part, [])) / n
+
+        out = {p: per_slice(p) for p in ("vit", "pre", "prefill", "suffix")}
+        return {
+            "slices": len(self.slices),
+            "rows": sorted({s["rows"] for s in self.slices}),
+            "buckets": sorted({s["bucket"] for s in self.slices}, key=str),
+            "vit_ms": out["vit"], "pre_ms": out["pre"],
+            "prefill_ms": out["prefill"], "suffix_ms": out["suffix"],
+            "device_ms": sum(out.values()),
+            "slice_ms": 1e3 * sum(s["host_s"] for s in self.slices) / n,
+            "loop_s": sum(self.loop),
+            "counts": self.engines[0].counts if self.engines else None,
+        }
+
+
 class _TextRecorder:
     """Watches every ``TextGenEngine.generate_ids`` call while active: the
     batch, the prefix and tail buckets, the steps run, the call's seconds
@@ -1657,6 +1958,48 @@ def step1_prompt_bucket():
     return n, _bucket_tail(n)
 
 
+def score_items():
+    """The step-4 fixture's question records of the items phase 4 draws."""
+    from ospo_tpu_torch.io import read_json
+
+    items = {(d["category"], d["item_id"]) for d in read_json(FIXTURE)[:N_ITEMS]}
+    return [r for r in read_json(VQA_FIXTURE)
+            if (r["category"], r["item_id"]) in items]
+
+
+def score_buckets(pre_image_prefix: bool) -> list:
+    """Per step-4b chunk of phase 9 (16 images, Q-sorted, byte tokenizer,
+    384 px): the prefix bucket ``p_b`` and its token count ``rest``, the
+    suffix bucket ``t_b``, and the pre-image bucket ``pre_c`` with its
+    token count ``pre_n`` (None without the split)."""
+    import types
+
+    import numpy as np
+
+    from ospo_tpu_torch.engine.scoring import ScoringEngine
+    from ospo_tpu_torch.image_processing import ImageProcessor
+    from ospo_tpu_torch.processing import Processor
+    from ospo_tpu_torch.tokenizer import load_tokenizer
+
+    proc = Processor(load_tokenizer(None, vocab_size=102400),
+                     ImageProcessor(image_size=384), num_image_tokens=576)
+    eng = ScoringEngine(types.SimpleNamespace(device=None), proc,
+                        pre_image_prefix=pre_image_prefix)
+    qs = sorted((r["question"] for r in score_items() for _ in range(6)), key=len)
+    rows = STEP4_CONFIG["score_rows"]
+    img = np.zeros((384, 384, 3), np.uint8)
+    out = []
+    for c0 in range(0, len(qs), rows):
+        chunk = qs[c0:c0 + rows]
+        prep = eng.prepare_shared_multi([img] * len(chunk), chunk)
+        out.append({"p_b": prep.operands[0].shape[1],
+                    "rest": int(prep.operands[1][0].sum()),
+                    "t_b": prep.operands[5].shape[2],
+                    "pre_c": None if prep.pre is None else prep.pre[0].shape[1],
+                    "pre_n": None if prep.pre is None else int(prep.pre[1].sum())})
+    return out
+
+
 def train_records():
     """The records of the step-4 fixture whose images phase 4 writes."""
     from ospo_tpu_torch.io import read_json
@@ -1731,8 +2074,11 @@ def main() -> int:
                     smoke.int4_kernels)
         smoke.phase("flash_fwd and decode_attention at the text shapes",
                     smoke.text_kernels)
+        smoke.phase("flash_fwd at the step-4b scoring shapes",
+                    smoke.scoring_kernels)
         smoke.phase("small model GPU vs CPU", smoke.small_model)
         smoke.phase("small model text decode GPU vs CPU", smoke.small_text)
+        smoke.phase("small model scoring GPU vs CPU", smoke.small_scoring)
         smoke.phase("small model training step GPU vs CPU",
                     smoke.small_train_step)
         smoke.phase("small model bf16 training step, backward kernels vs "
@@ -1746,6 +2092,7 @@ def main() -> int:
                         lambda: smoke.int4_path("int4"))
             smoke.phase("main path: steps 1, 2 and 4a at 7B width",
                         smoke.text_path)
+            smoke.phase("main path: step 4b at 7B width", smoke.score_path)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if smoke.failures or args.skip_main:

@@ -14,6 +14,14 @@ from typing import Dict, List, Sequence, Tuple
 
 from ospo_tpu_torch.constants import EOS_TAG
 
+# the system prompt of the understanding conversations
+# (``processing_vlm.py``'s default, ``ospo_tpu/chat.py:21-25``)
+DEFAULT_SYSTEM_PROMPT = (
+    "You are a helpful language and vision assistant. "
+    "You are able to understand the visual content that the user provides, "
+    "and assist the user with a variety of tasks using natural language."
+)
+
 SEP = "\n\n"
 SEP2 = EOS_TAG
 

@@ -1,14 +1,14 @@
-"""Janus-Pro in PyTorch — counterpart of the generation and text sides of
-``ospo_tpu/models/janus.py``:
+"""Janus-Pro in PyTorch — counterpart of ``ospo_tpu/models/janus.py``:
 
-  gen_embed ([16384, 8] table) → gen_aligner → language_model (Llama trunk)
-  → gen_head (vision_head: hidden → 16384 logits) … gen_vision_model (VQ);
-  text: embed → language_model → lm_head (hidden → vocab logits).
+  vision_model (SigLIP) → aligner (mlp_gelu) ─┐ understanding path
+  gen_embed ([16384, 8] table) → gen_aligner ─┤ generation path
+  gen_head (vision_head: hidden → 16384 logits) … gen_vision_model (VQ)
+  language_model (Llama trunk) + lm_head ─────┘ shared trunk, text logits
 
-The understanding tower (SigLIP + aligner) is not built yet (ROADMAP.md,
-the understanding slice); ``lm_head`` and the generation side are built
-unless the caller drops them (``drop_lm_head`` in step 3, ``drop_vision`` in
-the text steps).
+Every part is built unless the caller drops it: ``lm_head`` (``drop_lm_head``
+in step 3), the understanding tower (``drop_understanding``), and with
+``drop_vision`` (the text steps) the VQ model, the generation heads and the
+understanding tower.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ospo_tpu_torch.models import llama, projector, vqgan
+from ospo_tpu_torch.models import llama, projector, vit, vqgan
 from ospo_tpu_torch.ops import quant
 
 Params = Dict[str, Any]
@@ -28,17 +28,29 @@ Params = Dict[str, Any]
 class JanusConfig:
     language: llama.LlamaConfig = dataclasses.field(
         default_factory=lambda: llama.LLAMA_7B)
+    vision: vit.ViTConfig = dataclasses.field(
+        default_factory=lambda: vit.SIGLIP_LARGE_384)
     vq: vqgan.VQConfig = dataclasses.field(default_factory=lambda: vqgan.VQ_16)
     gen_embed_dim: int = 8           # width of the gen_embed table rows
+    aligner_depth: int = 2
     gen_aligner_depth: int = 2
     image_token_size: int = 16384    # VQ codebook size = image vocab
     gen_image_size: int = 384        # generated-image resolution
-    image_size: int = 384            # image-processor size (the vision tower's)
     dtype: Any = torch.bfloat16
 
     @property
     def n_embed(self) -> int:
         return self.language.hidden_size
+
+    @property
+    def image_size(self) -> int:
+        """The image processor's size: the understanding tower's."""
+        return self.vision.image_size
+
+    @property
+    def num_image_tokens(self) -> int:
+        """Tokens per image on the understanding path (ViT patches)."""
+        return self.vision.num_patches
 
     @property
     def vq_latent_side(self) -> int:
@@ -55,26 +67,71 @@ JANUS_PRO_1B = JanusConfig(language=llama.LLAMA_1B)
 
 
 def tiny_janus_config(vocab_size: int = 512, dtype=torch.float32) -> JanusConfig:
-    """The JAX package's tiny Janus (2 layers, width 64, 16px images →
-    8×8 = 64 image tokens; its processor size is the tiny ViT's 32px)."""
+    """The JAX package's tiny Janus (2 layers, width 64; generation at 16px
+    → 8×8 = 64 image tokens; the tiny ViT at 32px, patch 16, width 32, 2
+    heads → 4 understanding tokens)."""
     return JanusConfig(
         language=llama.tiny_config(vocab_size=vocab_size, dtype=dtype),
+        vision=vit.tiny_vit_config(dtype=dtype),
         vq=vqgan.tiny_vq_config(),
         gen_embed_dim=8,
         image_token_size=64,
         gen_image_size=16,
-        image_size=32,
         dtype=dtype,
     )
 
 
 # ---------------------------------------------------------------------------
-# generation-path functions
+# embeddings: text, the understanding path's image rows, generation ids
 # ---------------------------------------------------------------------------
 
 
 def embed_text(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
     return llama.embed_tokens(params["language_model"], input_ids)
+
+
+def encode_images(params: Params, cfg: JanusConfig,
+                  pixel_values: torch.Tensor) -> torch.Tensor:
+    """Understanding path: pixels [N, H, W, 3] → aligned embeds [N, T2, D]."""
+    feats = vit.forward(params["vision_model"], cfg.vision, pixel_values)
+    return projector.mlp_projector(params["aligner"], feats)
+
+
+def prepare_inputs_embeds(params: Params, cfg: JanusConfig,
+                          input_ids: torch.Tensor,
+                          pixel_values: Optional[torch.Tensor],
+                          images_seq_mask: torch.Tensor,
+                          images_emb_mask: torch.Tensor,
+                          img_embeds: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Splice the aligned image embeddings into the text embeddings
+    (``janus.py:120-167``): in each row, the k-th image slot of
+    ``images_seq_mask`` [B, T] takes the k-th valid embedding of
+    ``images_emb_mask`` [B, n, T2] in row order; a slot past the row's valid
+    count takes zeros, as the JAX scatter/gather leaves it.
+    ``img_embeds`` [B·n, T2, D] precomputed, or encoded from
+    ``pixel_values`` [B, n, H, W, 3]."""
+    b = input_ids.shape[0]
+    n_img = images_emb_mask.shape[1]
+    t2 = cfg.num_image_tokens
+    if img_embeds is None:
+        img_embeds = encode_images(params, cfg, pixel_values.reshape(
+            b * n_img, *pixel_values.shape[2:]))
+    flat = img_embeds.reshape(b, n_img * t2, -1)
+    emb_mask = images_emb_mask.reshape(b, n_img * t2)
+    # valid embeddings first, in order (a stable sort on "invalid")
+    order = torch.sort(~emb_mask, dim=-1, stable=True).indices
+    dense = torch.gather(flat, 1, order[..., None].expand(-1, -1, flat.shape[-1]))
+    n_valid = emb_mask.sum(dim=-1, keepdim=True)
+    slots = torch.arange(n_img * t2, device=flat.device)[None, :]
+    dense = torch.where((slots < n_valid)[..., None], dense,
+                        torch.zeros_like(dense))
+    seq_rank = (torch.cumsum(images_seq_mask.to(torch.int32), dim=-1) - 1
+                ).clamp(0, n_img * t2 - 1)
+    gathered = torch.gather(
+        dense, 1, seq_rank.long()[..., None].expand(-1, -1, dense.shape[-1]))
+    text = embed_text(params, input_ids.clamp_min(0))
+    return torch.where(images_seq_mask[..., None], gathered.to(text.dtype), text)
 
 
 def prepare_gen_img_embeds(params: Params, cfg: JanusConfig,
@@ -234,6 +291,31 @@ def _init_vq_encoder(ini: _Init, cfg: vqgan.VQConfig) -> Params:
             "quant_conv": ini.conv(1, cfg.z_channels, cfg.codebook_dim)}
 
 
+def _init_understanding(ini: _Init, cfg: JanusConfig) -> Params:
+    """The SigLIP tower and the aligner (``vit.init_params``,
+    ``projector.init_mlp_projector``); the patch kernel OIHW."""
+    vc, dt, e = cfg.vision, cfg.vision.dtype, cfg.n_embed
+    d, hid, n, p = vc.width, vc.mlp_hidden, vc.depth, vc.patch_size
+    zeros = lambda *shape: torch.zeros(shape, dtype=dt, device=ini.device)  # noqa: E731
+    ones = lambda *shape: torch.ones(shape, dtype=dt, device=ini.device)  # noqa: E731
+    tower = {
+        "patch_embed": {"w": ini.normal((d, 3, p, p), 0.02, dt), "b": zeros(d)},
+        "pos_embed": ini.normal((1, vc.num_patches, d), 0.02, dt),
+        "blocks": {
+            "norm1_scale": ones(n, d), "norm1_bias": zeros(n, d),
+            "wqkv": ini.normal((n, 3 * d, d), 0.02, dt), "bqkv": zeros(n, 3 * d),
+            "wo": ini.normal((n, d, d), 0.02, dt), "bo": zeros(n, d),
+            "norm2_scale": ones(n, d), "norm2_bias": zeros(n, d),
+            "w1": ini.normal((n, hid, d), 0.02, dt), "b1": zeros(n, hid),
+            "w2": ini.normal((n, d, hid), 0.02, dt), "b2": zeros(n, d),
+        },
+        "final_norm": {"scale": ones(d), "bias": zeros(d)},
+    }
+    aligner = {"layers": [ini.linear(d, e, cfg.dtype)] + [
+        ini.linear(e, e, cfg.dtype) for _ in range(cfg.aligner_depth - 1)]}
+    return {"vision_model": tower, "aligner": aligner}
+
+
 @dataclasses.dataclass
 class JanusModel:
     """Config + params (+ the device they live on)."""
@@ -245,14 +327,16 @@ class JanusModel:
     @classmethod
     def init(cls, cfg: JanusConfig, seed: int = 0, quantize=False,
              device: Optional[torch.device] = None, lm_head: bool = True,
-             vision: bool = True) -> "JanusModel":
+             vision: bool = True, understanding: bool = True) -> "JanusModel":
         """Random init on ``device``; ``quantize`` (True = "int8", "int4",
         "int4g") quantizes each trunk matrix as it is drawn, so the
         model-dtype trunk never exists whole.  The draws are the same in
         every mode.  ``lm_head=False`` leaves the text head out,
-        ``vision=False`` the VQ model and the generation heads; the head
-        comes from a generator of its own, so neither changes the other
-        weights of a seed."""
+        ``understanding=False`` the SigLIP tower and the aligner,
+        ``vision=False`` the VQ model, the generation heads and the
+        understanding tower.  The head and the understanding tower come from
+        generators of their own, so leaving them out changes no other weight
+        of a seed."""
         mode = quant.quant_mode(quantize)
         device = torch.device(device or "cuda")
         ini = _Init(seed, device)
@@ -264,6 +348,9 @@ class JanusModel:
                 (cfg.language.vocab_size, e), 0.02, dt)
         if not vision:
             return cls(cfg, params, device)
+        if understanding:
+            params.update(_init_understanding(
+                _Init(llama.fold_seed(seed, 2), device), cfg))
         params.update({
             "gen_vision_model": _init_vq_decoder(ini, cfg.vq),
             "gen_aligner": {"layers": [ini.linear(cfg.gen_embed_dim, e, dt)] + [

@@ -12,9 +12,11 @@ The KV cache is preallocated in the batch-minor ``shbd`` layout
 JAX package threads a new cache through its scan instead).  Prefill
 (``self_attn=True``) writes the prompt rows and attends over them with the
 flash kernel; a cached T=1 step writes its row and reads the cache with the
-decode-attention kernel.  With a batch-shared prefix segment (``prefix_kv``,
-the text engine's shared-prefix decode) both take the plain prefix forms of
-``ops/attention.py`` instead.  Numerics follow the reference: weights in the
+decode-attention kernel, a cached T > 1 step its rows with the plain
+``cached_attention``.  With a batch-shared prefix segment (``prefix_kv``,
+the text engine's shared-prefix decode and step 4b's pre-image segment)
+prefill and T = 1 take the plain prefix forms of ``ops/attention.py``
+instead.  Numerics follow the reference: weights in the
 model dtype, RMSNorm / RoPE / softmax / SiLU in fp32.
 
 Without a cache the trunk is the training forward: LoRA adapters with
@@ -32,7 +34,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from ospo_tpu_torch.ops.attention import attention, prefix_decode_attention
+from ospo_tpu_torch.ops.attention import (attention, cached_attention,
+                                          prefix_decode_attention)
 from ospo_tpu_torch.ops.decode_attention import decode_attention
 from ospo_tpu_torch.ops.int4_matmul import int4_matmul_decode
 from ospo_tpu_torch.ops.quant import (quantized_matmul, quantized_matmul_int4,
@@ -285,10 +288,12 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
 
     Without a cache: ``attention_mask`` is ``[B, T]`` and attention is causal
     over the inputs.  ``self_attn=True`` (prefill into an empty cache):
-    writes the T rows and attends over them, mask ``[B, T]``.  A cached T=1
-    step writes its row at ``cache['length']`` and reads positions
-    ``[0, length + 1)`` of the cache; ``attention_mask`` covers the whole
-    cache window ``[B, S_max]`` (int32).
+    writes the T rows and attends over them, mask ``[B, T]``.  A cached
+    step writes its T rows at ``cache['length']`` (one host integer for
+    every row) and reads positions ``[0, length + T)`` of the cache,
+    causally; ``attention_mask`` covers the whole cache window
+    ``[B, S_max]`` (int32).  T = 1 runs the decode-attention kernel, T > 1
+    (step 4b's question suffixes) the plain ``cached_attention``.
 
     Training (no cache, ``ospo_tpu/models/llama.py:325-776``): ``lora``
     ``{proj: {"a": [L, d_in, r], "b": [L, r, d_out]}}`` adds adapters with
@@ -335,13 +340,12 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
             "LoRA, remat and attn_impl are options of the training (no-cache) "
             "path; merge adapters for generation (train/lora.merge)")
     cache_len = kv_cache["length"]
-    if not self_attn:
-        if T != 1:
-            raise NotImplementedError(
-                "cached multi-token steps (speculative Jacobi) are queued in "
-                "ROADMAP.md (slice 5, opt-in modes)")
-        if cfg.kv_heads != cfg.num_heads:
-            raise NotImplementedError("the decode-attention kernel is MHA only")
+    if not isinstance(cache_len, int):
+        raise NotImplementedError(
+            "per-row cache offsets (speculative Jacobi) are queued in "
+            "ROADMAP.md (slice 5, opt-in modes)")
+    if not self_attn and T == 1 and cfg.kv_heads != cfg.num_heads:
+        raise NotImplementedError("the decode-attention kernel is MHA only")
     if self_attn and cache_len != 0:
         raise ValueError("self_attn prefill needs an empty cache")
 
@@ -360,6 +364,11 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
         if self_attn:
             attn = attention(q, k, v, mask=attention_mask, prefix_k=pk,
                              prefix_v=pv, prefix_mask=pm)
+        elif T > 1:
+            attn = cached_attention(
+                q, kv_cache["k"], kv_cache["v"], li, cache_len,
+                attention_mask, pk, pv, pm, k_scale=kv_cache.get("k_s"),
+                v_scale=kv_cache.get("v_s"))
         elif pk is not None:
             attn = prefix_decode_attention(
                 q, kv_cache["k"], kv_cache["v"], li, cache_len + 1,

@@ -1,20 +1,24 @@
 """Parameter loading for the port.
 
 - :func:`from_jax_params` maps a JAX-package parameter tree (numpy leaves)
-  to the port's tree: VQ convolution kernels HWIO → OIHW, everything else
-  as stored (the stacked ``[L, out, in]`` trunk included).  It is how both
+  to the port's tree: convolution kernels (the VQ model's and the SigLIP
+  patch embedding) HWIO → OIHW, everything else as stored (the stacked
+  ``[L, out, in]`` trunk and ViT blocks included).  It is how both
   packages compute on the same weights in the tests.
-- :func:`load_janus` reads the generation-side keys of an HF-keyed Janus-Pro
-  safetensors checkpoint, by the key map of ``ospo_tpu/models/weights.py``
-  (``port_llama`` :170, ``port_vqgan`` :307, ``port_mlp_projector`` :378,
-  ``port_vision_head`` :392, ``config_from_checkpoint`` :410), the VQ
-  model's encoder and decoder included, and ``lm_head`` on request.  The
-  understanding tower is not read (not built in the port yet); with
-  ``vision=False`` neither is the generation side (the text steps).
+- :func:`load_janus` reads an HF-keyed Janus-Pro safetensors checkpoint by
+  the key map of ``ospo_tpu/models/weights.py`` (``port_llama`` :170,
+  ``port_vit`` :203, ``_port_attn_pool`` :244, ``port_vqgan`` :307,
+  ``port_mlp_projector`` :378, ``port_vision_head`` :392,
+  ``config_from_checkpoint`` :410): the trunk, ``lm_head`` on request, the
+  understanding tower (SigLIP and the aligner) and the generation side
+  unless dropped.  Every key it reads is recorded, and a key-coverage audit
+  (``check_key_coverage`` :96) fails the load on any key neither read nor
+  skipped by name.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import json
 import os
@@ -25,12 +29,13 @@ import torch
 
 from ospo_tpu_torch.models import janus as janus_lib
 from ospo_tpu_torch.models import llama as llama_lib
+from ospo_tpu_torch.models import vit as vit_lib
 from ospo_tpu_torch.models import vqgan as vqgan_lib
 
 Params = Dict[str, Any]
 
-_GEN_KEYS = ("language_model", "gen_vision_model", "gen_aligner", "gen_head",
-             "gen_embed")
+_KEYS = ("language_model", "vision_model", "aligner", "gen_vision_model",
+         "gen_aligner", "gen_head", "gen_embed")
 
 
 def _to_torch(x, device) -> torch.Tensor:
@@ -50,18 +55,19 @@ def _map_tree(tree, fn, path=()):
 
 
 def from_jax_params(tree: Params, device=None) -> Params:
-    """JAX Janus param tree (numpy leaves) → port params on ``device``.
-    The language model (``lm_head`` included) and the generation-side
-    subtrees are taken."""
+    """JAX Janus param tree (numpy leaves) → port params on ``device``:
+    the language model (``lm_head`` included), the understanding tower and
+    the generation side, each where the tree has it."""
     device = torch.device(device or "cpu")
 
     def leaf(path, x):
         t = _to_torch(x, device)
-        if path[0] == "gen_vision_model" and path[-1] == "w" and t.ndim == 4:
+        if path[0] in ("gen_vision_model", "vision_model") and path[-1] == "w" \
+                and t.ndim == 4:
             t = t.permute(3, 2, 0, 1).contiguous()      # HWIO → OIHW
         return t
 
-    return _map_tree({k: tree[k] for k in _GEN_KEYS if k in tree}, leaf)
+    return _map_tree({k: tree[k] for k in _KEYS if k in tree}, leaf)
 
 
 # ---------------------------------------------------------------------------
@@ -70,7 +76,7 @@ def from_jax_params(tree: Params, device=None) -> Params:
 
 
 def config_from_checkpoint(model_path: str) -> janus_lib.JanusConfig:
-    """JanusConfig (generation side) from the HF ``config.json``."""
+    """JanusConfig from the HF ``config.json``."""
     with open(os.path.join(model_path, "config.json")) as f:
         hf = json.load(f)
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(
@@ -99,21 +105,36 @@ def config_from_checkpoint(model_path: str) -> janus_lib.JanusConfig:
         z_channels=vqp.get("z_channels", 256),
     ) if vqp else vqgan_lib.VQ_16
     gap = hf.get("gen_aligner_config", {}).get("params", {})
+    ap = hf.get("aligner_config", {}).get("params", {})
     vp = hf.get("vision_config", {}).get("params", {})
+    base_vit = {"siglip_large_patch16_384": vit_lib.SIGLIP_LARGE_384,
+                "siglip_so400m_patch14_384": vit_lib.SIGLIP_SO400M_384}.get(
+        vp.get("model_name", "siglip_large_patch16_384"),
+        vit_lib.SIGLIP_LARGE_384)
+    # explicit shape fields (synthetic checkpoints describe themselves
+    # beyond the reference's model_name registry) win over the preset
+    vision = dataclasses.replace(
+        base_vit, image_size=vp.get("image_size", 384),
+        select_layer=vp.get("select_layer", base_vit.select_layer),
+        dtype=dtype,
+        **{k: vp[k] for k in ("width", "layers", "heads", "patch_size",
+                              "mlp_ratio") if k in vp})
     return janus_lib.JanusConfig(
         language=lang,
+        vision=vision,
         vq=vq,
         gen_embed_dim=gvp.get("n_embed", 8),
         image_token_size=gvp.get("image_token_size", 16384),
         gen_image_size=gvp.get("image_size", 384),
+        aligner_depth=ap.get("depth", 2),
         gen_aligner_depth=gap.get("depth", 2),
-        image_size=vp.get("image_size", 384),
         dtype=dtype,
     )
 
 
 class _Checkpoint:
-    """Lazy key → tensor reader over the ``*.safetensors`` shards."""
+    """Lazy key → tensor reader over the ``*.safetensors`` shards; records
+    the keys read (an ``in`` test reads nothing) for the coverage audit."""
 
     def __init__(self, model_path: str, device):
         from safetensors import safe_open
@@ -124,13 +145,62 @@ class _Checkpoint:
         self._files = [safe_open(s, framework="pt") for s in shards]
         self._where = {k: f for f in self._files for k in f.keys()}
         self.device = device
+        self.consumed: set = set()
+
+    def keys(self):
+        return self._where.keys()
 
     def __contains__(self, key: str) -> bool:
         return key in self._where
 
     def get(self, key: str, dtype=None) -> torch.Tensor:
+        self.consumed.add(key)
         t = self._where[key].get_tensor(key)
         return t.to(device=self.device, dtype=dtype or t.dtype)
+
+
+# key prefixes of the parts a load may leave out, by load_janus's flag
+_PART_PREFIXES = {
+    "lm_head": ("language_model.lm_head.",),
+    "understanding": ("vision_model.", "aligner."),
+    "vision": ("gen_vision_model.", "gen_aligner.", "gen_head.", "gen_embed."),
+}
+
+
+def expected_skipped_keys(keys, cfg: janus_lib.JanusConfig,
+                          dropped=()) -> set:
+    """Checkpoint keys a load leaves unread on purpose
+    (``ospo_tpu/models/weights.py:75-93``): ViT blocks past the
+    ``select_layer`` depth, the per-layer ``rotary_emb.inv_freq`` buffers
+    (recomputed from ``rope_theta``), and every key of a part the caller
+    dropped (``dropped``: names of :data:`_PART_PREFIXES`)."""
+    skipped = set()
+    for i in range(cfg.vision.depth, cfg.vision.layers):
+        pre = f"vision_model.vision_tower.blocks.{i}."
+        skipped |= {k for k in keys if k.startswith(pre)}
+    skipped |= {k for k in keys if k.endswith("rotary_emb.inv_freq")}
+    prefixes = tuple(p for part in dropped for p in _PART_PREFIXES[part])
+    if prefixes:
+        skipped |= {k for k in keys if k.startswith(prefixes)}
+    return skipped
+
+
+def check_key_coverage(keys, cfg: janus_lib.JanusConfig, consumed,
+                       dropped=(), context: str = "checkpoint") -> Dict[str, int]:
+    """Every checkpoint key read or skipped by name, or ``ValueError``
+    naming the leftovers (``ospo_tpu/models/weights.py:96-116``)."""
+    keys = set(keys)
+    skipped = expected_skipped_keys(keys, cfg, dropped)
+    leftover = sorted(keys - set(consumed) - skipped)
+    if leftover:
+        head = "\n  ".join(leftover[:20])
+        more = f"\n  ... and {len(leftover) - 20} more" if len(leftover) > 20 else ""
+        raise ValueError(
+            f"key-coverage audit failed for {context}: {len(leftover)} "
+            f"key(s) neither read by the port nor skipped by name:\n  {head}"
+            f"{more}\n(read={len(set(consumed) & keys)}, skipped="
+            f"{len(skipped)}, total={len(keys)})")
+    return {"consumed": len(set(consumed) & keys), "skipped": len(skipped)}
 
 
 def _port_llama(ck: _Checkpoint, cfg: llama_lib.LlamaConfig, quantize,
@@ -221,6 +291,48 @@ def _port_vq(ck: _Checkpoint, cfg: vqgan_lib.VQConfig,
             "post_quant_conv": conv(prefix + "post_quant_conv")}
 
 
+def _port_vit(ck: _Checkpoint, cfg: vit_lib.ViTConfig,
+              prefix: str = "vision_model.vision_tower.") -> Params:
+    """timm naming; the first ``cfg.depth`` blocks stacked on a layer axis,
+    the patch kernel OIHW as stored, the attention-pool head when the
+    checkpoint carries it."""
+    dt = cfg.dtype
+
+    def stack(fmt: str) -> torch.Tensor:
+        return torch.stack([ck.get(prefix + fmt.format(i), dt)
+                            for i in range(cfg.depth)])
+
+    names = {"norm1_scale": "norm1.weight", "norm1_bias": "norm1.bias",
+             "wqkv": "attn.qkv.weight", "bqkv": "attn.qkv.bias",
+             "wo": "attn.proj.weight", "bo": "attn.proj.bias",
+             "norm2_scale": "norm2.weight", "norm2_bias": "norm2.bias",
+             "w1": "mlp.fc1.weight", "b1": "mlp.fc1.bias",
+             "w2": "mlp.fc2.weight", "b2": "mlp.fc2.bias"}
+    out = {
+        "patch_embed": {"w": ck.get(prefix + "patch_embed.proj.weight", dt),
+                        "b": ck.get(prefix + "patch_embed.proj.bias", dt)},
+        "pos_embed": ck.get(prefix + "pos_embed", dt),
+        "blocks": {k: stack("blocks.{}." + v) for k, v in names.items()},
+        "final_norm": {"scale": ck.get(prefix + "norm.weight", dt),
+                       "bias": ck.get(prefix + "norm.bias", dt)},
+    }
+    if prefix + "attn_pool.latent" in ck:
+        out["attn_pool"] = _port_attn_pool(ck, prefix + "attn_pool.", dt)
+    return out
+
+
+def _port_attn_pool(ck: _Checkpoint, prefix: str, dt) -> Params:
+    def lin(name):
+        return {"w": ck.get(f"{prefix}{name}.weight", dt),
+                "b": ck.get(f"{prefix}{name}.bias", dt)}
+
+    return {"latent": ck.get(prefix + "latent", dt), "q": lin("q"),
+            "kv": lin("kv"), "proj": lin("proj"),
+            "norm": {"scale": ck.get(prefix + "norm.weight", dt),
+                     "bias": ck.get(prefix + "norm.bias", dt)},
+            "fc1": lin("mlp.fc1"), "fc2": lin("mlp.fc2")}
+
+
 def _port_mlp_projector(ck: _Checkpoint, prefix: str, depth: int, dtype) -> Params:
     """``mlp_gelu`` nn.Sequential: Linear at index 0, then 2, 4, ..."""
     return {"layers": [
@@ -242,15 +354,23 @@ def load_janus(model_path: str, device=None,
                cfg: Optional[janus_lib.JanusConfig] = None,
                quantize=False,
                lm_head: bool = False,
-               vision: bool = True) -> janus_lib.JanusModel:
-    """Load the language model of an HF-keyed Janus-Pro checkpoint onto
-    ``device`` (default ``cuda``), with ``lm_head`` on request and the
-    generation side unless ``vision`` is False; ``quantize`` (True =
-    "int8", "int4", "int4g") quantizes the trunk layer by layer."""
+               vision: bool = True,
+               understanding: bool = True) -> janus_lib.JanusModel:
+    """Load an HF-keyed Janus-Pro checkpoint onto ``device`` (default
+    ``cuda``): the trunk, ``lm_head`` on request, the understanding tower
+    (SigLIP and the aligner) unless ``understanding`` is False, and with
+    ``vision`` False neither the generation side nor the understanding
+    tower; ``quantize`` (True = "int8", "int4", "int4g") quantizes the
+    trunk layer by layer.  The key-coverage audit runs on every load."""
     device = torch.device(device or "cuda")
     cfg = cfg or config_from_checkpoint(model_path)
+    understanding = understanding and vision
     ck = _Checkpoint(model_path, device)
     params = {"language_model": _port_llama(ck, cfg.language, quantize, lm_head)}
+    if understanding:
+        params["vision_model"] = _port_vit(ck, cfg.vision)
+        params["aligner"] = _port_mlp_projector(ck, "aligner.",
+                                                cfg.aligner_depth, cfg.dtype)
     if vision:
         params.update({
             "gen_vision_model": _port_vq(ck, cfg.vq),
@@ -259,4 +379,11 @@ def load_janus(model_path: str, device=None,
             "gen_head": _port_vision_head(ck, "gen_head.", cfg.dtype),
             "gen_embed": ck.get("gen_embed.weight", cfg.dtype),
         })
+    dropped = [part for part, kept in (("lm_head", lm_head),
+                                       ("understanding", understanding),
+                                       ("vision", vision)) if not kept]
+    cov = check_key_coverage(ck.keys(), cfg, ck.consumed, dropped,
+                             context=model_path)
+    print(f"# key coverage: {cov['consumed']} read, {cov['skipped']} skipped "
+          f"by name, 0 left over")
     return janus_lib.JanusModel(cfg, params, device)

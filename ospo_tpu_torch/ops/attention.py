@@ -16,8 +16,9 @@ causal test inside it).  Its scores join the own scores in ONE fp32 softmax
 over ``[prefix ++ own]``, so the result is that of the prefix materialised
 per row.  The XLA path of the JAX package is its counterpart, so these forms
 are plain PyTorch: :func:`xla_attention` over a fresh chunk (the tail
-prefill) and :func:`prefix_decode_attention` over the batch-minor cache (a
-cached T = 1 step).
+prefill), :func:`prefix_decode_attention` over the batch-minor cache (a
+cached T = 1 step) and :func:`cached_attention` (a cached T > 1 step, with
+or without the prefix: step 4b's question suffixes).
 """
 
 from __future__ import annotations
@@ -157,15 +158,77 @@ def prefix_decode_attention(q, k_cache, v_cache, layer_idx: int, cur_len: int,
     return out.permute(1, 0, 2)[:, None].to(q.dtype)
 
 
+def cached_attention(q, k_cache, v_cache, layer_idx: int, cache_len: int,
+                     mask, prefix_k=None, prefix_v=None, prefix_mask=None,
+                     k_scale=None, v_scale=None) -> torch.Tensor:
+    """A cached multi-token step: q ``[B, T, H, Dh]`` for absolute rows
+    ``[cache_len, cache_len + T)``, already written to layer ``layer_idx``
+    of the batch-minor cache ``[L, S, H, B, Dh]`` (bf16 or f32, or int8 with
+    ``[L, S, H, B]`` fp32 scales), against rows ``[0, cache_len + T)``:
+    key j is allowed iff ``mask[b, j]`` and ``j <= cache_len + i``; ``mask``
+    ``[B, S]`` covers the cache window.  With ``prefix_k`` / ``prefix_v``
+    ``[C, KVH, Dh]`` the batch-shared prefix joins the same fp32 softmax.
+    The reference's XLA path over the ``shbd`` cache
+    (``ospo_tpu/ops/attention.py:50-185``): scores ``(q . k) * Dh^-0.5``,
+    the k scale folded into the own scores, the v scale into the own
+    probabilities; rows past ``cache_len + T`` are causally excluded
+    there, so they are not read here.  The generalisation of
+    :func:`prefix_decode_attention` to T > 1, in row chunks whose scores
+    stay under ``PREFIX_SCORE_ELEMS``.  → ``[B, T, H, Dh]`` in q's dtype."""
+    B, T, H, Dh = q.shape
+    cur = cache_len + T
+    C = 0 if prefix_k is None else prefix_k.shape[0]
+    scale = Dh ** -0.5
+    rows = cache_len + torch.arange(T, device=q.device)[:, None]
+    causal_ok = torch.arange(cur, device=q.device)[None, :] <= rows  # [T, cur]
+    if C:
+        pkf = _repeat_heads(prefix_k, H, 1).float()
+        pvf = _repeat_heads(prefix_v, H, 1).float()
+        p_ok = _prefix_allowed(prefix_mask, C, q.device)         # [1|B, C]
+    step = max(1, PREFIX_SCORE_ELEMS // (H * T * (C + cur)))
+    outs = []
+    for b0 in range(0, B, step):
+        b1 = min(B, b0 + step)
+        qf = q[b0:b1].float()
+        kf = _repeat_heads(k_cache[layer_idx, :cur, :, b0:b1], H, 1).float()
+        s_own = torch.einsum("bthd,shbd->bhts", qf, kf) * scale
+        if k_scale is not None:
+            ks = _repeat_heads(k_scale[layer_idx, :cur, :, b0:b1], H, 1)
+            s_own = s_own * ks.permute(2, 1, 0)[:, :, None, :]
+        ok = causal_ok[None, None] & (mask[b0:b1, None, None, :cur] != 0)
+        s_own = torch.where(ok, s_own, torch.full_like(s_own, NEG_FILL))
+        if C:
+            s_pre = torch.einsum("bthd,chd->bhtc", qf, pkf) * scale
+            pm = p_ok if p_ok.shape[0] == 1 else p_ok[b0:b1]
+            s_pre = torch.where(pm[:, None, None, :], s_pre,
+                                torch.full_like(s_pre, NEG_FILL))
+            probs = torch.softmax(torch.cat([s_pre, s_own], dim=-1), dim=-1)
+            p_own = probs[..., C:]
+        else:
+            p_own = torch.softmax(s_own, dim=-1)
+        if v_scale is not None:
+            vs = _repeat_heads(v_scale[layer_idx, :cur, :, b0:b1], H, 1)
+            p_own = p_own * vs.permute(2, 1, 0)[:, :, None, :]
+        vf = _repeat_heads(v_cache[layer_idx, :cur, :, b0:b1], H, 1).float()
+        out = torch.einsum("bhts,shbd->bthd", p_own, vf)
+        if C:
+            out = out + torch.einsum("bhtc,chd->bthd", probs[..., :C], pvf)
+        outs.append(out)
+    return torch.cat(outs).to(q.dtype)
+
+
 def attention(q, k, v, mask=None, q_offset: int = 0, causal: bool = True,
               impl: str = "auto", prefix_k=None, prefix_v=None,
               prefix_mask=None) -> torch.Tensor:
     """``impl`` as in ``ospo_tpu.ops.attention.attention`` (:263-313):
 
-    - ``"auto"``: self-attention (``q_offset == 0`` and T == S) takes the
-      flash path, any other shape :func:`xla_attention`;
+    - ``"auto"``: the flash path where the JAX dispatcher takes it (static
+      offset 0, T == S, T > 1, a head dim that is a multiple of 128),
+      narrowed to the kernel's one head dim, 128 (SigLIP-L's 64 takes the
+      plain form, as on the TPU); any other call :func:`xla_attention`;
     - ``"flash"``: the flash path; only a ``q_offset`` of 0 (the kernels'
-      causality is row-local);
+      causality is row-local), and off the CPU (where the plain versions
+      take any head dim) only head dim 128;
     - ``"xla"``: :func:`xla_attention`, differentiated by autograd.
 
     The flash path is differentiable: the forward kernel, and the dQ and
@@ -173,6 +236,8 @@ def attention(q, k, v, mask=None, q_offset: int = 0, causal: bool = True,
     call with a batch-shared prefix (``prefix_k``) always takes
     :func:`xla_attention`: the kernel has no second key segment.
     """
+    from ospo_tpu_torch.ops.flash_attention import HEAD_DIM
+
     if impl not in ("auto", "flash", "xla"):
         raise ValueError(f"unknown attention impl {impl!r} "
                          "(expected auto | flash | xla)")
@@ -181,8 +246,14 @@ def attention(q, k, v, mask=None, q_offset: int = 0, causal: bool = True,
         raise ValueError(
             "impl='flash' supports only a static q_offset of 0 (prefill); "
             "cached/offset reads take the XLA path")
-    if impl == "xla" or prefix_k is not None or (impl == "auto" and (
-            not offset_zero or q.shape[1] != k.shape[1])):
+    if impl == "flash" and q.device.type != "cpu" and q.shape[-1] != HEAD_DIM:
+        raise ValueError(
+            f"impl='flash': head dim {q.shape[-1]}; the flash kernels take "
+            f"head dim {HEAD_DIM} (use impl='auto' or 'xla')")
+    flash_shape = (offset_zero and q.shape[1] > 1 and q.shape[1] == k.shape[1]
+                   and q.shape[-1] == HEAD_DIM)
+    if impl == "xla" or prefix_k is not None or (impl == "auto"
+                                                 and not flash_shape):
         return xla_attention(q, k, v, mask, q_offset, causal,
                              prefix_k, prefix_v, prefix_mask)
     from ospo_tpu_torch.ops.flash_attention import flash_attention_train

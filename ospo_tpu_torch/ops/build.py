@@ -50,11 +50,17 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
+class KernelError(RuntimeError):
+    """A kernel that did not build or did not launch.  Callers that
+    tolerate per-item failures (step 4b's per-image retry) re-raise it:
+    it says the program is broken, not the item."""
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
-                           "machine with the CUDA toolkit")
+        raise KernelError("nvcc not found: the CUDA kernels are built on a "
+                          "machine with the CUDA toolkit")
     return path
 
 
@@ -89,7 +95,7 @@ def _finish(name: str, target: Path, job) -> str:
     proc, tmp = job
     out, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+        raise KernelError(f"nvcc failed for {name}.cu:\n{out}")
     log.write_text(out)
     os.replace(tmp, target)
     return out
@@ -127,4 +133,4 @@ def load(name: str) -> ctypes.CDLL:
 
 def check(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+        raise KernelError(f"{what}: CUDA launch failed with cudaError {err}")

@@ -3,8 +3,8 @@ counterpart of ``ospo_tpu/pipeline/model_factory.py``.
 
 Resolution (fail-fast, as in the JAX package):
 
-1. ``model_path`` set → it must hold ``*.safetensors``; the generation side
-   is loaded (``models/weights.load_janus``);
+1. ``model_path`` set → it must hold ``*.safetensors``; it is loaded
+   (``models/weights.load_janus``);
 2. else ``model_preset`` (``tiny`` | ``1b`` | ``7b``) → random init;
 3. neither → error.
 
@@ -12,11 +12,12 @@ The model lives on ``config.device`` (default ``cuda``; ``cpu`` only when
 asked).  ``ckpt_path`` (a LoRA checkpoint of step 5, from either package)
 is merged into the trunk before ``quantize`` (int8, int4 or int4g) quantizes
 it (``ospo_tpu/pipeline/model_factory.py:154-177``); ``drop_lm_head``,
-``drop_vision`` (the VQ model and the generation heads, :197-214) and
-``drop_understanding`` are honoured by never building those parts (the port
-does not build the understanding tower yet).  The processor's image processor comes from the
-checkpoint's ``preprocessor_config.json`` or the defaults at the model's
-image size.
+``drop_understanding`` (SigLIP and the aligner, :216-230) and
+``drop_vision`` (the VQ model, the generation heads and the understanding
+tower, :197-214) are honoured by never building those parts.  The
+processor's image processor comes from the checkpoint's
+``preprocessor_config.json`` or the defaults at the model's image size, and
+its image-token count from the model's tower.
 """
 
 from __future__ import annotations
@@ -66,7 +67,8 @@ def _reject_unported(config) -> None:
 def build_model(config, quantize: str = "") -> janus_lib.JanusModel:
     device = resolve_device(config.get("device"))
     parts = {"lm_head": not config.get("drop_lm_head"),
-             "vision": not config.get("drop_vision")}
+             "vision": not config.get("drop_vision"),
+             "understanding": not config.get("drop_understanding")}
     model_path = config.get("model_path")
     if model_path:
         if not has_weights(model_path):
@@ -133,4 +135,5 @@ def get_model(config) -> Tuple[janus_lib.JanusModel, object, Processor]:
     image_processor = load_image_processor(
         model_path if has_weights(model_path) else None,
         image_size=model.cfg.image_size)
-    return model, tokenizer, Processor(tokenizer, image_processor)
+    return model, tokenizer, Processor(
+        tokenizer, image_processor, num_image_tokens=model.cfg.num_image_tokens)

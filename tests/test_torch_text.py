@@ -329,7 +329,7 @@ def test_prefix_kv_is_refused_off_the_serving_path():
     with pytest.raises(NotImplementedError):
         tllama.forward(tp, cfg, x, mask, mask, kv_cache=kv,
                        prefix_kv=pre, remat=True)
-    kv["length"] = 2
+    kv["length"] = torch.tensor([2])  # per-row offsets (speculative Jacobi)
     with pytest.raises(NotImplementedError):
         tllama.forward(tp, cfg, x, torch.ones((1, 8), dtype=torch.int32), mask,
                        kv_cache=kv, prefix_kv=pre)
@@ -451,8 +451,9 @@ def _stub_answer(prompt: str) -> str:
 @pytest.fixture()
 def stubbed(monkeypatch):
     """Both packages' engines answer with ``_stub_answer``; ``get_model``
-    returns no model (JAX prewarm, engine statistics and model building
-    are out of the comparison)."""
+    returns no model and each step 4 stops where scoring would start (JAX
+    prewarm, engine statistics, model building and 4b are out of the
+    comparison)."""
     from ospo_tpu.pipeline import step1 as js1, step2 as js2, step4 as js4
     from ospo_tpu_torch.pipeline import step1 as ts1, step2 as ts2, step4 as ts4
 
@@ -468,6 +469,7 @@ def stubbed(monkeypatch):
         raise _After4a
 
     monkeypatch.setattr(js4, "ScoringEngine", stop)
+    monkeypatch.setattr(ts4, "ScoringEngine", stop)
     for mod, proc in ((js1, jproc), (js2, jproc), (js4, jproc),
                       (ts1, tproc), (ts2, tproc), (ts4, tproc)):
         fake = type("M", (), {"device": torch.device("cpu"), "mesh": None})()
@@ -508,9 +510,8 @@ def test_steps_write_byte_identical_files_under_a_stub_engine(stubbed, tmp_path)
                      save_path=str(s1dir), category_num=quotas))
         s2.main(_cfg("step2", batch_size=4, save_path=str(root / "step2"),
                      data_path=str(s1dir / "base_prompt.json")))
-        # 4b is asked for (image_path set): the JAX step reaches scoring,
-        # the port raises
-        with pytest.raises(_After4a if name == "jax" else NotImplementedError):
+        # 4b is asked for (image_path set): both steps reach scoring
+        with pytest.raises(_After4a):
             s4.main(_cfg("step4", batch_size=4, save_path=str(root / "step4"),
                          data_path=os.path.join(EXAMPLES, "step2",
                                                 "long_prompt.json")))

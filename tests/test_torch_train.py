@@ -293,9 +293,9 @@ def test_normalize_pixels_matches_jax(do_normalize):
 
 def test_image_processor_passes_same_size_and_refuses_others(tmp_path):
     """A 32×32 RGB image comes out of the port's processor exactly as out
-    of PIL's same-size resize; any other size raises, naming ROADMAP.md; a
-    checkpoint's preprocessor_config.json is read as the JAX loader reads
-    it."""
+    of PIL's same-size resize, a 30×32 one as out of PIL's bicubic resize
+    and square padding; a checkpoint's preprocessor_config.json is read as
+    the JAX loader reads it."""
     from PIL import Image
 
     from ospo_tpu.image_processing import load_image_processor as jload
@@ -305,8 +305,9 @@ def test_image_processor_passes_same_size_and_refuses_others(tmp_path):
     ref = JImageProcessor(image_size=32).process_one_u8(Image.fromarray(img))
     np.testing.assert_array_equal(ImageProcessor(image_size=32).process_one_u8(img),
                                   ref)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ImageProcessor(image_size=32).process_one_u8(img[:, :30])
+    np.testing.assert_array_equal(
+        ImageProcessor(image_size=32).process_one_u8(img[:, :30]),
+        JImageProcessor(image_size=32).process_one_u8(Image.fromarray(img[:, :30])))
     (tmp_path / "preprocessor_config.json").write_text(json.dumps(
         {"image_size": 48, "image_mean": [0.5] * 3, "image_std": [0.5] * 3}))
     a, b = jload(str(tmp_path)), load_image_processor(str(tmp_path))
