@@ -59,7 +59,32 @@ fails):
    must hold the JAX package's record schema.  It prints images scored per
    second over the scoring loop (model set-up excluded), the slices and
    their (p_b, t_b, pre) buckets, the ViT, prefill and suffix device time
-   per slice (CUDA events), and peak memory.
+   per slice (CUDA events), and peak memory;
+10. the inference CLI: ``ospo_tpu_torch.pipeline.inference.main`` on
+    ``configs/inference.yaml`` composed by ``compose_config`` at the 7B
+    width (int8 weights, int8 ``shbd`` KV, batch 24), seed 0, over the
+    first 24 long prompts of the step-2 fixture, with phase 5's LoRA
+    checkpoint as ``ckpt_path`` (merged, then quantized).  Every prompt
+    must yield one real PNG under its own name or, for a name over 255
+    bytes, ``longprompt_0_NNNN.png``, with no ``error_sample.json``; the
+    flash forward must launch 30 times and decode attention 30 x 575; a
+    second ``main`` on the same tree must ask for none of the prompts whose
+    own names exist.  It prints img-tok/s over ``generate_all``, the merge
+    and quantize seconds and peak memory;
+11. full fine-tune: ``step5.main`` on ``configs/step5.yaml`` with
+    ``use_peft: False`` (the yaml's freeze matrix: ``language_model``
+    trains) at the Janus-Pro-1B width (bf16), ``attn_impl: flash``, 3
+    optimizer steps over phase 5's records and images; the flash counters
+    must match 24 layers (48/24/24 a micro-step), ``meta.json`` must say
+    ``mode: full``, ``get_model`` with that checkpoint must give a
+    language model bit-equal to the trained one, and the codebook must
+    equal its initial value.  It first checks the temp directory's free
+    space (``FULL_CKPT_GB``), and prints the step seconds, pairs/s, peak
+    memory and the checkpoint's size and write seconds;
+12. step 5 as in phase 5 with ``experiment.quantize_base: int8``: the
+    trunk's seven projections must be int8, the flash counters 60/30/30 a
+    micro-step, and the checkpoint must land; it prints the step seconds
+    and peak memory beside phase 5's.
 
 Phase 2 also holds the flash forward at the step-2 prefix prefill (B = 1,
 H = 32, T = S = the prefix bucket, left-padded) and the decode kernel at
@@ -207,6 +232,11 @@ BASE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "examples", "step1",
                             "base_prompt.json")
 
 
+# phase 11's 1B full checkpoint: the bf16 language model (lm_head included,
+# ~1.65B parameters) and its fp32 first and second moments, with room
+FULL_CKPT_GB = 20
+
+
 def step5_overrides(data_path: str, image_root: str, save_path: str) -> dict:
     """What phase 5 changes in ``STEP5_CONFIG``: a random-init 7B model
     (``model_path`` unset, as the random-init opt-in requires), the flash
@@ -295,6 +325,7 @@ class Smoke:
         self.failures = []
         self.kernels = {}
         self.workdir = workdir          # phase 4 writes PNGs, phase 5 reads
+        self.lora_train = {}            # phase 5's peak and step seconds
         self.text_bucket = train_bucket()
         self.launches = {}              # kernel → launches in the main paths
         self.train_kernel_ms = {}       # phase 2's times at the training shape
@@ -718,6 +749,19 @@ class Smoke:
         # tensor)
         budget(2, T, H, H, 9, f"bf16 rows=2 T=S={T} H={H}")
         fwd_budget(2, T, H, H, 9, f"bf16 rows=2 T=S={T} H={H}")
+        # the 1B training shape (phase 11's full fine-tune): the same rows and
+        # sequence, 16 heads
+        what_1b = f"bf16 rows={rows} T=S={T} H=16 causal (1B training shape)"
+        args_1b = case(rows, T, 16, 16, torch.bfloat16, False, 10, what_1b)
+        check(args_1b, what_1b)
+        budget(2, T, 16, 16, 11, f"bf16 rows=2 T=S={T} H=16 (1B)")
+        fwd_budget(2, T, 16, 16, 11, f"bf16 rows=2 T=S={T} H=16 (1B)")
+        q1, k1, v1, mask1 = args_1b[:4]
+        print(f"flash at the 1B training shape ({what_1b}): forward "
+              f"{cuda_ms(lambda: fa.flash_attention(q1, k1, v1, mask1, return_stats=True), 10):.4f}"
+              f" ms, dq {cuda_ms(lambda: fa.flash_dq(*args_1b), 10):.4f} ms, "
+              f"dkv {cuda_ms(lambda: fa.flash_dkv(*args_1b), 10):.4f} ms")
+        del args_1b, q1, k1, v1, mask1
         ms, plain, sdpa_fwd_ms, lib_bwd_ms = timed(args, 10)
         pairs = rows * H * T * (T + 1) / 2
         tensor = rows * T * H * D * 2                     # one bf16 [B,T,H,D]
@@ -1466,6 +1510,7 @@ class Smoke:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         steps = trainer.update_seconds
         stats = trainer.stats
+        self.lora_train = {"peak_gb": peak_gb, "steps": list(steps)}
         print(f"step 5: {trainer.global_step} optimizer steps, text bucket "
               f"{trainer._t_pad} (sequence {trainer._t_pad + 576}), step "
               f"seconds {[round(x, 3) for x in steps]}, samples/s steady "
@@ -1776,6 +1821,296 @@ class Smoke:
                    f"schema, as many as the summary's pairs")
 
 
+    # -- phase 10 --------------------------------------------------------
+    def inference_path(self):
+        """The inference CLI at the 7B width, round-2 generation from phase
+        5's LoRA checkpoint (module docstring, phase 10)."""
+        import gc
+
+        from ospo_tpu_torch import config as config_lib
+        from ospo_tpu_torch.engine.image_engine import ImageGenEngine
+        from ospo_tpu_torch.ops import decode_attention as da
+        from ospo_tpu_torch.ops import flash_attention as fa
+        from ospo_tpu_torch.ops import quant
+        from ospo_tpu_torch.pipeline import inference
+        from ospo_tpu_torch.train import checkpoint as ckpt_lib
+        from ospo_tpu_torch.utils.png import read_png
+
+        gc.collect()  # the previous phase's model goes first
+        torch.cuda.empty_cache()
+        root = os.path.join(self.workdir, "inference")
+        os.makedirs(root)
+        prompts = inference_prompts()
+        data_path = os.path.join(root, "prompts.json")
+        with open(data_path, "w") as f:
+            json.dump(prompts, f)
+        out = os.path.join(root, "results")
+        ckpt = os.path.join(self.workdir, "step5", "ospo")
+        config = config_lib.compose_config(
+            os.path.join(ROOT, "configs"), "inference", overrides=[
+                "model_path=null", "model_preset=7b", "seed=[0]",
+                f"data_path={data_path}", f"save_path={out}",
+                f"ckpt_path={ckpt}"])
+        self.check(config.batch_size == 24 and config.quantize == "int8"
+                   and config.kv_quant == "int8" and config.kv_layout == "shbd",
+                   f"configs/inference.yaml composes to batch 24, int8 weights, "
+                   f"int8 shbd KV: {config.batch_size}, {config.quantize}, "
+                   f"{config.kv_quant}, {config.kv_layout}")
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = da.launches = 0
+        t0 = time.time()
+        with _Timed([(inference, "generate_all"),
+                     (ckpt_lib, "merge_lora_checkpoint"),
+                     (quant, "quantize_layers")]) as timed:
+            inference.main(config)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = {"flash_fwd": fa.launches, "decode_attention": da.launches}
+        for name, n in counts.items():
+            self.launches[name] = self.launches.get(name, 0) + n
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        gen_s = timed.seconds["generate_all"]
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True).stdout.strip()
+        n_tok = len(prompts) * 576
+        print(f"inference: {len(prompts)} prompts, {n_tok} image tokens in "
+              f"{gen_s:.2f} s of generate_all ({n_tok / gen_s:.1f} img-tok/s, "
+              f"PNG writes included); LoRA merge "
+              f"{timed.seconds['merge_lora_checkpoint']:.2f} s, int8 quantize "
+              f"{timed.seconds['quantize_layers']:.2f} s; inference.main "
+              f"{wall:.1f} s with the 7B init; peak memory {peak_gb:.2f} GB; "
+              f"launches {counts}; card {smi}")
+        self.check(counts == {"flash_fwd": 30, "decode_attention": 30 * 575},
+                   f"inference launches {counts} == 30 flash_fwd (one batch of "
+                   f"24) and 30 x 575 decode_attention")
+        files = sorted(os.listdir(out))
+        own = [f"{p}_0.png".replace("/", "_") for p in prompts]
+        long_names = [n for n in own if len(n.encode()) > 255]
+        fallback = [f for f in files if f.startswith("longprompt_0_")]
+        print(f"inference: {len(fallback)} of {len(prompts)} prompts took the "
+              f"longprompt_0_NNNN.png fallback (names over 255 bytes)")
+        bad = []
+        for f in files:
+            img = read_png(os.path.join(out, f))
+            if img.shape != (384, 384, 3) or img.dtype.name != "uint8" \
+                    or int(img.max()) == int(img.min()):
+                bad.append(f"{f[:40]} {img.shape}")
+        expect = sorted([n for n in own if n not in long_names] + [
+            f"longprompt_0_{i:04d}.png" for i in range(len(long_names))])
+        self.check(files == expect and len(long_names) >= 1 and not bad,
+                   f"inference tree: {len(files)} PNGs for {len(prompts)} "
+                   f"prompts, {len(long_names)} under the fallback name, no "
+                   f"error_sample.json, each 384x384x3 uint8 and non-constant; "
+                   f"bad: {bad[:3]}")
+
+        asked = []
+        real = ImageGenEngine.generate_from_raw_prompts
+
+        def record(engine, raw_prompts, seed=0):
+            asked.extend(raw_prompts)
+            return real(engine, raw_prompts, seed=seed)
+
+        ImageGenEngine.generate_from_raw_prompts = record
+        try:
+            inference.main(config)
+        finally:
+            ImageGenEngine.generate_from_raw_prompts = real
+        own_exist = [p for p, n in zip(prompts, own) if n not in long_names]
+        self.check(not set(asked) & set(own_exist)
+                   and sorted(os.listdir(out)) == files,
+                   f"a second inference.main generated {len(asked)} prompt(s), "
+                   f"none of the {len(own_exist)} whose own names exist; the "
+                   "tree is unchanged")
+
+    # -- phase 11 --------------------------------------------------------
+    def full_finetune_path(self):
+        """Step 5 in full fine-tune mode at the Janus-Pro-1B width (module
+        docstring, phase 11)."""
+        import gc
+
+        import numpy as np
+
+        from ospo_tpu_torch.config import Config
+        from ospo_tpu_torch.io import read_json
+        from ospo_tpu_torch.ops import flash_attention as fa
+        from ospo_tpu_torch.pipeline import model_factory, step5
+        from ospo_tpu_torch.train import checkpoint as ckpt_lib
+        from ospo_tpu_torch.train.optim import leaves
+
+        gc.collect()  # the previous phase's model goes first
+        torch.cuda.empty_cache()
+        free_gb = shutil.disk_usage(self.workdir).free / 1e9
+        self.check(free_gb >= FULL_CKPT_GB,
+                   f"{free_gb:.1f} GB free under {self.workdir} for the 1B "
+                   f"full checkpoint (needs {FULL_CKPT_GB} GB: bf16 language "
+                   "model and fp32 moments)")
+        if free_gb < FULL_CKPT_GB:
+            return
+        data_path = os.path.join(self.workdir, "step4", "train.json")
+        save_path = os.path.join(self.workdir, "step5_full")
+        config = Config.from_nested(merged(merged(STEP5_CONFIG, step5_overrides(
+            data_path, os.path.join(self.workdir, "step3"), save_path)),
+            {"use_peft": False, "model": {"model_preset": "1b"}}))
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        t0 = time.time()
+        with _Timed([(ckpt_lib, "save_checkpoint")]) as timed:
+            trainer = step5.main(config)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+                  "flash_bwd_dkv": fa.dkv_launches}
+        for name, n in counts.items():
+            self.launches[name] = self.launches.get(name, 0) + n
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps = trainer.update_seconds
+        ck = os.path.join(trainer.log_dir, "step_000003")
+        files = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
+        ck_gb = sum(os.path.getsize(os.path.join(ck, f)) for f in files) / 1e9
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True).stdout.strip()
+        print(f"full fine-tune 1B: trainable {trainer.trainable_keys}, "
+              f"{trainer.global_step} optimizer steps, step seconds "
+              f"{[round(x, 3) for x in steps]} "
+              f"({config.dataset.train.batch_size / steps[-1]:.2f} pairs/s "
+              f"at the last step); peak memory {peak_gb:.2f} GB; checkpoint "
+              f"{ck_gb:.2f} GB ({files}) written in "
+              f"{timed.seconds['save_checkpoint']:.1f} s; step5.main "
+              f"{wall:.1f} s with the 1B init; launches {counts}; card {smi}")
+        micro = trainer.global_step
+        want = {"flash_fwd": 48 * micro, "flash_bwd_dq": 24 * micro,
+                "flash_bwd_dkv": 24 * micro}
+        self.check(counts == want and micro == 3
+                   and trainer.trainable_keys == ["language_model"],
+                   f"full fine-tune launches {counts} == 48/24/24 x {micro} "
+                   f"micro-steps (24 layers), trainable {trainer.trainable_keys}")
+        meta = read_json(os.path.join(ck, "meta.json")) if files else {}
+        self.check(files == ["lora.npz", "meta.json", "opt.npz"]
+                   and meta.get("mode") == "full" and meta.get("step") == 3,
+                   f"step_000003/ {files}, meta mode {meta.get('mode')} step "
+                   f"{meta.get('step')}")
+        loss = trainer.logged[0]["loss"] if trainer.logged else float("nan")
+        trained = trainer.model.params
+        base = {"model_path": None, "model_preset": "1b", "device": "cuda",
+                "seed": config.experiment.seed}
+        merged_model, _, _ = model_factory.get_model(Config.from_nested(
+            {**base, "ckpt_path": ck}))
+        got = dict(leaves(merged_model.params["language_model"]))
+        want_t = dict(leaves(trained["language_model"]))
+        same = set(got) == set(want_t) and all(
+            torch.equal(got[k], want_t[k].detach()) for k in got)
+        del merged_model, got
+        initial, _, _ = model_factory.get_model(Config.from_nested(base))
+        init_lm = dict(leaves(initial.params["language_model"]))
+        moved = sum(int((init_lm[k] != want_t[k].detach()).sum())
+                    for k in init_lm)
+        total = sum(t.numel() for t in init_lm.values())
+        codebook = torch.equal(initial.params["gen_vision_model"]["codebook"],
+                               trained["gen_vision_model"]["codebook"])
+        print(f"full fine-tune 1B: {moved} of {total} language-model elements "
+              f"({100 * moved / total:.2f}%) moved off their bf16 init in 3 "
+              f"steps at lr 4e-5")
+        self.check(same and codebook and moved > 0 and np.isfinite(loss),
+                   f"get_model(ckpt_path) language model bit-equal to the "
+                   f"trained one: {same}; codebook bit-equal to the initial "
+                   f"one: {codebook}; loss {loss:.4f} finite, weights moved")
+        del initial, init_lm, want_t, trained, trainer
+
+    # -- phase 12 --------------------------------------------------------
+    def int8_trunk_path(self):
+        """Step 5 at the 7B width with ``quantize_base: int8`` (module
+        docstring, phase 12)."""
+        import gc
+
+        import numpy as np
+
+        from ospo_tpu_torch.config import Config
+        from ospo_tpu_torch.io import read_json
+        from ospo_tpu_torch.ops import flash_attention as fa
+        from ospo_tpu_torch.ops import quant
+        from ospo_tpu_torch.pipeline import step5
+
+        gc.collect()  # the previous phase's model goes first
+        torch.cuda.empty_cache()
+        data_path = os.path.join(self.workdir, "step4", "train.json")
+        config = Config.from_nested(merged(merged(STEP5_CONFIG, step5_overrides(
+            data_path, os.path.join(self.workdir, "step3"),
+            os.path.join(self.workdir, "step5_int8"))),
+            {"experiment": {"quantize_base": "int8"}}))
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        t0 = time.time()
+        trainer = step5.main(config)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+                  "flash_bwd_dkv": fa.dkv_launches}
+        for name, n in counts.items():
+            self.launches[name] = self.launches.get(name, 0) + n
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps = trainer.update_seconds
+        ref = self.lora_train
+        print(f"step 5 int8 trunk 7B: step seconds "
+              f"{[round(x, 3) for x in steps]} (phase 5, bf16 trunk: "
+              f"{[round(x, 3) for x in ref.get('steps', [])]}); peak memory "
+              f"{peak_gb:.2f} GB (phase 5: {ref.get('peak_gb', float('nan')):.2f}"
+              f" GB); step5.main {wall:.1f} s; launches {counts}")
+        layers = trainer.model.params["language_model"]["layers"]
+        int8 = all(isinstance(layers[n], dict) and set(layers[n]) == {"q", "s"}
+                   and layers[n]["q"].dtype == torch.int8
+                   for n in quant.QUANTIZABLE)
+        micro = trainer.global_step
+        want = {"flash_fwd": 60 * micro, "flash_bwd_dq": 30 * micro,
+                "flash_bwd_dkv": 30 * micro}
+        self.check(int8 and counts == want and micro == 3,
+                   f"int8 trunk: the 7 projections are int8 dicts ({int8}); "
+                   f"launches {counts} == 60/30/30 x {micro} micro-steps")
+        ck = os.path.join(trainer.log_dir, "step_000003")
+        files = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
+        meta = read_json(os.path.join(ck, "meta.json")) if files else {}
+        loss = trainer.logged[0]["loss"] if trainer.logged else float("nan")
+        moved = all(bool(ab["b"].abs().max() > 0)
+                    for ab in trainer.trainable.values())
+        self.check(files == ["lora.npz", "meta.json", "opt.npz"]
+                   and meta.get("mode") == "lora" and np.isfinite(loss) and moved,
+                   f"int8 trunk: step_000003/ {files}, meta mode "
+                   f"{meta.get('mode')}, loss {loss:.4f} finite, B moved off zero")
+        del trainer
+
+
+class _Timed:
+    """Times the named module functions while active (host clock around a
+    synchronised call; seconds summed over calls)."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.seconds = {name: 0.0 for _, name in targets}
+        self.saved = []
+
+    def __enter__(self):
+        for module, name in self.targets:
+            real = getattr(module, name)
+
+            def timed(*a, _real=real, _name=name, **kw):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                try:
+                    return _real(*a, **kw)
+                finally:
+                    torch.cuda.synchronize()
+                    self.seconds[_name] += time.time() - t0
+
+            self.saved.append((module, name, real))
+            setattr(module, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, real in self.saved:
+            setattr(module, name, real)
+
+
 class _ScoreRecorder:
     """Watches step 4b while active: the scoring loop's seconds
     (``step4.run_scoring``), the engine's counts, and per shared-program
@@ -2000,6 +2335,14 @@ def score_buckets(pre_image_prefix: bool) -> list:
     return out
 
 
+def inference_prompts():
+    """Phase 10's prompt list: the first 24 long prompts of the step-2
+    fixture, in order."""
+    from ospo_tpu_torch.io import read_json
+
+    return [p for item in read_json(FIXTURE) for p in item["long_prompt"]][:24]
+
+
 def train_records():
     """The records of the step-4 fixture whose images phase 4 writes."""
     from ospo_tpu_torch.io import read_json
@@ -2093,6 +2436,12 @@ def main() -> int:
             smoke.phase("main path: steps 1, 2 and 4a at 7B width",
                         smoke.text_path)
             smoke.phase("main path: step 4b at 7B width", smoke.score_path)
+            smoke.phase("main path: inference CLI at 7B width from phase 5's "
+                        "LoRA checkpoint", smoke.inference_path)
+            smoke.phase("main path: step 5 full fine-tune at 1B width",
+                        smoke.full_finetune_path)
+            smoke.phase("main path: step 5 at 7B width on an int8 trunk",
+                        smoke.int8_trunk_path)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if smoke.failures or args.skip_main:

@@ -1,6 +1,7 @@
 """Config system: YAML file + dot-list CLI overrides (copy of the
-``build_config`` and ``save_config`` parts of ``ospo_tpu/config.py``; PyYAML
-is imported where a file or an override is parsed).
+``build_config``, ``compose_config`` and ``save_config`` parts of
+``ospo_tpu/config.py``; PyYAML is imported where a file or an override is
+parsed).
 
 Replicates the contract of the reference's ``build_config``
 (``ospo/utils/common.py:74-100``): load a YAML file, optionally re-merge a
@@ -180,6 +181,40 @@ def build_config(
         cfg = _deep_merge(cfg, from_cli())
     cfg = _interpolate(cfg)
     return Config.from_nested(cfg)
+
+
+def compose_config(config_dir: str, base_name: str, overrides=None) -> Config:
+    """Hydra-style composition for the inference entry point
+    (``ospo_tpu/config.py:192-227``).
+
+    The base YAML's ``defaults: [{group: name}, ..., _self_]`` list loads
+    ``<config_dir>/<group>/<name>.yaml`` under key ``<group>`` in order; a
+    ``null`` name is skipped.  ``_self_`` merges the base file at its place
+    in the list; without it the base file merges last.  ``overrides=None``
+    reads ``a.b=c`` dot-list overrides from the command line, an explicit
+    list (or ``()``) is used instead of it.  Interpolations resolve last."""
+    base = load_yaml(os.path.join(config_dir, f"{base_name}.yaml"))
+    defaults = base.pop("defaults", [])
+    tree: dict = {}
+    saw_self = False
+    for entry in defaults:
+        if isinstance(entry, Mapping):
+            for group, name in entry.items():
+                if name is None:
+                    continue
+                sub = load_yaml(os.path.join(config_dir, str(group),
+                                             f"{name}.yaml"))
+                tree = _deep_merge(tree, {str(group): sub})
+        elif entry == "_self_":
+            saw_self = True
+            tree = _deep_merge(tree, base)
+    if not saw_self:
+        tree = _deep_merge(tree, base)
+    if overrides is None:
+        tree = _deep_merge(tree, from_cli())
+    elif overrides:
+        tree = _deep_merge(tree, from_cli(list(overrides)))
+    return Config.from_nested(_interpolate(tree))
 
 
 def save_config(save_path: str, config: Mapping) -> None:

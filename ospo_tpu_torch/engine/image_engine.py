@@ -29,7 +29,7 @@ from ospo_tpu_torch.models import janus as janus_lib
 from ospo_tpu_torch.models import llama, vqgan
 from ospo_tpu_torch.ops.quant import parse_kv_quant
 from ospo_tpu_torch.ops.sampling import sample_categorical
-from ospo_tpu_torch.processing import Processor
+from ospo_tpu_torch.processing import Processor, t2i_prompt
 
 
 def _bucket(n: int, step: int = 64) -> int:
@@ -220,6 +220,12 @@ class ImageGenEngine:
         generator.manual_seed(int(seed))
         return self._generate_tokens(tokens, mask, generator), b_real
 
+    def generate_tokens(self, prompts: Sequence[str], seed: int = 0) -> np.ndarray:
+        """Prompts → sampled image tokens [B, n_img] on the host, without
+        the VQ decode (what ``python -m ospo_tpu_torch.bench`` times)."""
+        toks, b_real = self._generate_tokens_device(prompts, seed=seed)
+        return toks[:b_real].cpu().numpy()
+
     def generate_images_device(self, prompts: Sequence[str],
                                seed: int = 0) -> torch.Tensor:
         """T2I-formatted prompts → uint8 [b_bucket, H, W, 3] on the device,
@@ -231,3 +237,10 @@ class ImageGenEngine:
         """T2I-formatted prompts → uint8 images [B, H, W, 3] on the host."""
         imgs = self.generate_images_device(prompts, seed=seed)
         return imgs[: len(prompts)].cpu().numpy()
+
+    def generate_from_raw_prompts(self, raw_prompts: Sequence[str],
+                                  seed: int = 0) -> np.ndarray:
+        """Raw prompts → uint8 images [B, H, W, 3] on the host, each prompt
+        wrapped in the T2I template first (the inference CLI's entry)."""
+        return self.generate_images(
+            [t2i_prompt(self.processor, p) for p in raw_prompts], seed=seed)

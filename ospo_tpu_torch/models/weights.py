@@ -4,7 +4,9 @@
   to the port's tree: convolution kernels (the VQ model's and the SigLIP
   patch embedding) HWIO → OIHW, everything else as stored (the stacked
   ``[L, out, in]`` trunk and ViT blocks included).  It is how both
-  packages compute on the same weights in the tests.
+  packages compute on the same weights in the tests, and how a full
+  fine-tune checkpoint is read; :func:`to_jax_layout` is its inverse, how
+  one is written.
 - :func:`load_janus` reads an HF-keyed Janus-Pro safetensors checkpoint by
   the key map of ``ospo_tpu/models/weights.py`` (``port_llama`` :170,
   ``port_vit`` :203, ``_port_attn_pool`` :244, ``port_vqgan`` :307,
@@ -40,17 +42,20 @@ _KEYS = ("language_model", "vision_model", "aligner", "gen_vision_model",
 
 def _to_torch(x, device) -> torch.Tensor:
     a = np.asarray(x)
-    if a.dtype.name == "bfloat16":  # ml_dtypes bf16: reinterpret the bits
-        return torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
+    # ml_dtypes bf16, or the 2-byte void a bf16 array reads back as from an
+    # ``.npz``: reinterpret the bits
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V" and a.dtype.itemsize == 2):
+        return torch.from_numpy(a.view(np.int16).copy()).view(
             torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def _map_tree(tree, fn, path=()):
+def map_tree(tree, fn, path=()):
+    """``fn(path, leaf)`` over a nested dict / list tree, same structure."""
     if isinstance(tree, Mapping):
-        return {k: _map_tree(v, fn, path + (k,)) for k, v in tree.items()}
+        return {k: map_tree(v, fn, path + (k,)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_map_tree(v, fn, path + (i,)) for i, v in enumerate(tree)]
+        return [map_tree(v, fn, path + (i,)) for i, v in enumerate(tree)]
     return fn(path, tree)
 
 
@@ -67,7 +72,22 @@ def from_jax_params(tree: Params, device=None) -> Params:
             t = t.permute(3, 2, 0, 1).contiguous()      # HWIO → OIHW
         return t
 
-    return _map_tree({k: tree[k] for k in _KEYS if k in tree}, leaf)
+    return map_tree({k: tree[k] for k in _KEYS if k in tree}, leaf)
+
+
+def to_jax_layout(tree: Params) -> Params:
+    """Port param tree → the JAX package's layout (torch leaves, detached),
+    the inverse of :func:`from_jax_params`: convolution kernels OIHW →
+    HWIO, everything else as it is."""
+
+    def leaf(path, t):
+        t = t.detach()
+        if path[0] in ("gen_vision_model", "vision_model") and path[-1] == "w" \
+                and t.ndim == 4:
+            t = t.permute(2, 3, 1, 0)                    # OIHW → HWIO
+        return t
+
+    return map_tree(tree, leaf)
 
 
 # ---------------------------------------------------------------------------

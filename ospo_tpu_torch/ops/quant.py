@@ -57,11 +57,35 @@ def quantize_matrix(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"q": q, "s": s}
 
 
+def _w8a16(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    return (x @ q.to(x.dtype).T) * s.to(x.dtype)
+
+
+class _W8A16(torch.autograd.Function):
+    """:func:`_w8a16` under autograd for a frozen int8 trunk
+    (``quantize_base``): it saves ``q`` and ``s`` only and converts the
+    payload again for dX, where autograd through the plain form would keep
+    every matrix's x-dtype copy alive until the backward.  The weight gets
+    no gradient: the quantized base is a constant, as in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, x, q, s):
+        ctx.save_for_backward(q, s)
+        return _w8a16(x, q, s)
+
+    @staticmethod
+    def backward(ctx, dy):
+        q, s = ctx.saved_tensors
+        return (dy * s.to(dy.dtype)) @ q.to(dy.dtype), None, None
+
+
 def quantized_matmul(x: torch.Tensor, qw: Dict[str, torch.Tensor]) -> torch.Tensor:
     """y = x @ Wᵀ with W stored int8: the payload converted to x's dtype,
-    then the per-row scale in x's dtype (``llama.py:207-209``)."""
-    y = x @ qw["q"].to(x.dtype).T
-    return y * qw["s"].to(x.dtype)
+    then the per-row scale in x's dtype (``llama.py:207-209``).  Where x
+    needs a gradient it runs as :class:`_W8A16`."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _W8A16.apply(x, qw["q"], qw["s"])
+    return _w8a16(x, qw["q"], qw["s"])
 
 
 # ---------------------------------------------------------------------------
@@ -188,3 +212,27 @@ def quant_mode(value) -> str:
 def quant_fn(mode):
     """The per-matrix quantize function of ``mode`` (int8 | int4 | int4g)."""
     return _QUANT_FNS[quant_mode(mode)]
+
+
+@torch.no_grad()
+def quantize_layers(layers: Dict, mode) -> Dict:
+    """Quantize the stacked ``QUANTIZABLE`` matrices of a trunk's ``layers``
+    in place, one layer's matrix at a time: each model-dtype stack is
+    dropped as its quantized replacement lands, so at most one stack and
+    one layer's temporaries exist beside the quantized trunk (the JAX
+    package's ``quantize_llama_params_incremental``, ``quant.py:410-437``)."""
+    qfn = quant_fn(mode)
+    for name in QUANTIZABLE:
+        w = layers[name]
+        stacked = None
+        for li in range(w.shape[0]):
+            qw = qfn(w[li])
+            if stacked is None:
+                stacked = {k: torch.empty((w.shape[0], *t.shape), dtype=t.dtype,
+                                          device=t.device)
+                           for k, t in qw.items()}
+            for k, t in qw.items():
+                stacked[k][li] = t
+        layers[name] = stacked
+        del w
+    return layers

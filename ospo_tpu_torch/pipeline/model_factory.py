@@ -9,9 +9,10 @@ Resolution (fail-fast, as in the JAX package):
 3. neither → error.
 
 The model lives on ``config.device`` (default ``cuda``; ``cpu`` only when
-asked).  ``ckpt_path`` (a LoRA checkpoint of step 5, from either package)
-is merged into the trunk before ``quantize`` (int8, int4 or int4g) quantizes
-it (``ospo_tpu/pipeline/model_factory.py:154-177``); ``drop_lm_head``,
+asked).  ``ckpt_path`` (a checkpoint of step 5, from either package: LoRA
+adapters are merged into the trunk, a full fine-tune's submodules replace
+the model's) is applied before ``quantize`` (int8, int4 or int4g) quantizes
+the trunk (``ospo_tpu/pipeline/model_factory.py:154-177``); ``drop_lm_head``,
 ``drop_understanding`` (SigLIP and the aligner, :216-230) and
 ``drop_vision`` (the VQ model, the generation heads and the understanding
 tower, :197-214) are honoured by never building those parts.  The
@@ -111,7 +112,8 @@ def get_model(config) -> Tuple[janus_lib.JanusModel, object, Processor]:
     _reject_unported(config)
     ckpt_path = config.get("ckpt_path")
     if ckpt_path:
-        from ospo_tpu_torch.train.checkpoint import (merge_lora_checkpoint,
+        from ospo_tpu_torch.train.checkpoint import (checkpoint_mode,
+                                                     merge_lora_checkpoint,
                                                      resolve_checkpoint_dir)
 
         ckpt_path = resolve_checkpoint_dir(ckpt_path)  # fail before the build
@@ -122,13 +124,13 @@ def get_model(config) -> Tuple[janus_lib.JanusModel, object, Processor]:
     # built, unless adapters are merged into it first
     model = build_model(config, quantize="" if ckpt_path else qmode)
     if ckpt_path:
-        print(f"# Merging LoRA checkpoint {ckpt_path} into base weights.")
+        mode = checkpoint_mode(ckpt_path)
+        print(f"# Merging {'LoRA' if mode == 'lora' else 'full fine-tune'} "
+              f"checkpoint {ckpt_path} into base weights.")
         merge_lora_checkpoint(model, ckpt_path)
         if qmode:
-            layers = model.params["language_model"]["layers"]
-            qfn = quant.quant_fn(qmode)
-            for name in quant.QUANTIZABLE:
-                layers[name] = qfn(layers[name])
+            quant.quantize_layers(model.params["language_model"]["layers"],
+                                  qmode)
     model_path = config.get("model_path")
     tokenizer = load_tokenizer(model_path if has_weights(model_path) else None,
                                vocab_size=model.cfg.language.vocab_size)

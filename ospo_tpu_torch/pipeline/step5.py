@@ -1,9 +1,11 @@
-"""Step 5 — SimPO training of LoRA adapters on (prompt, chosen image,
-rejected image) triples (counterpart of ``ospo_tpu/pipeline/step5.py``).
+"""Step 5 — SimPO training on (prompt, chosen image, rejected image)
+triples (counterpart of ``ospo_tpu/pipeline/step5.py``).
 
-Loads ``train.json`` into a :class:`PreferenceDataset`, trains the adapters
-with :class:`SimPOTrainer`, checkpoints every ``save_steps`` and at the end,
-and supports ``base.resume``.
+Loads ``train.json`` into a :class:`PreferenceDataset`, trains with
+:class:`SimPOTrainer` — LoRA adapters (``use_peft: True``, optionally on
+an int8 trunk with ``experiment.quantize_base``) or the submodules that
+``experiment.freeze`` leaves unfrozen (``use_peft: False``) — checkpoints
+every ``save_steps`` and at the end, and supports ``base.resume``.
 
 Run: ``python -m ospo_tpu_torch.pipeline.step5 --cfg_path configs/step5.yaml
 [key=value ...]`` (``device=cpu`` to run on the CPU).

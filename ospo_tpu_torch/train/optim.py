@@ -6,7 +6,8 @@ square root, decoupled weight decay scaled by the LR), optionally wrapped
 in ``MultiSteps`` (the running mean of k micro-gradients, applied on the
 k-th).  ``torch.optim.AdamW`` and ``clip_grad_norm_`` differ in small ways
 (the latter adds 1e-6 to the norm), so neither is used.  Updates are
-in place on the parameter tensors and never read a tensor back to the host.
+in place on the parameter tensors (the LoRA adapters, or in full mode the
+trained submodules) and never read a tensor back to the host.
 
 Schedules (``optim.py:35-93``): ``constant``, ``cosine``
 (CosineDecayWarmUpRestarts: linear warmup, one cosine decay to ``min_lr``)
@@ -17,11 +18,9 @@ evaluated at the number of updates applied before the current one.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
-
-Tree = Dict[str, Dict[str, torch.Tensor]]  # {proj: {"a": t, "b": t}}
 
 
 def cosine_decay_warmup(init_lr: float, warmup_steps: int, max_steps: int,
@@ -85,22 +84,35 @@ def make_schedule(scheduler_type: str, init_lr: float, max_steps: int,
     raise ValueError(f"unknown scheduler_type: {scheduler_type}")
 
 
-def _leaves(tree: Tree):
-    return [(f"{name}/{k}", t) for name, ab in tree.items()
-            for k, t in ab.items()]
+def leaves(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """(path, tensor) of every leaf of a nested dict / list tree, paths
+    keyed as the checkpoints key them (``q_proj/a``, ``levels/[0]/w``)."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items() for kv in leaves(v, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree)
+                for kv in leaves(v, f"{prefix}[{i}]/")]
+    return [(prefix[:-1], tree)]
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
+def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf (``optax.global_norm``)."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for _, t in _leaves(tree)))
+    return torch.sqrt(sum((t.float() * t.float()).sum() for _, t in leaves(tree)))
 
 
 class AdamW:
     """clip → fp32 → AdamW, optionally accumulated over ``accumulation_steps``
-    micro-batches.  ``step(params, grads)`` updates ``params`` in place and
-    returns whether an update was applied."""
+    micro-batches.  ``step(params, grads)`` updates ``params`` (any nested
+    tree of tensors; ``grads`` of the same structure) in place and returns
+    whether an update was applied.
 
-    def __init__(self, params: Tree, schedule: Callable[[int], float],
+    The moments and the update are fp32 whatever the parameter dtype, and
+    the update is added in fp32 and rounded once to the parameter's dtype:
+    optax's ``adamw(mu_dtype=float32)`` behind the fp32 cast and
+    ``apply_updates`` (``ospo_tpu/train/optim.py:120-139``).  No fp32
+    master copy of the parameters is kept, as in the JAX package."""
+
+    def __init__(self, params, schedule: Callable[[int], float],
                  betas=(0.9, 0.95), eps: float = 1e-8,
                  weight_decay: float = 0.0, grad_clip: Optional[float] = 1.0,
                  accumulation_steps: int = 1):
@@ -112,47 +124,49 @@ class AdamW:
         self.k = max(int(accumulation_steps or 1), 1)
         self.count = 0       # updates applied
         self.mini_step = 0   # micro-batches accumulated toward the next one
-        zeros = lambda: {n: {k: torch.zeros_like(t, dtype=torch.float32)  # noqa: E731
-                             for k, t in ab.items()} for n, ab in params.items()}
+        shapes = leaves(params)
+        zeros = lambda: {k: torch.zeros_like(t, dtype=torch.float32)  # noqa: E731
+                         for k, t in shapes}
         self.mu, self.nu = zeros(), zeros()
         self.acc = zeros() if self.k > 1 else None
 
     @torch.no_grad()
-    def step(self, params: Tree, grads: Tree) -> bool:
+    def step(self, params, grads) -> bool:
+        grads = dict(leaves(grads))
         if self.acc is not None:
             n = self.mini_step
-            for name, ab in grads.items():
-                for key, g in ab.items():
-                    acc = self.acc[name][key]
-                    acc.add_((g.float() - acc) / (n + 1))
+            for key, g in grads.items():
+                acc = self.acc[key]
+                acc.add_((g.float() - acc) / (n + 1))
             self.mini_step += 1
             if self.mini_step < self.k:
                 return False
             self.mini_step = 0
-            grads = {n: {k: t.clone() for k, t in ab.items()}
-                     for n, ab in self.acc.items()}
-            for ab in self.acc.values():
-                for t in ab.values():
-                    t.zero_()
-        if self.grad_clip is not None:
-            norm = global_norm(grads)
-            keep = norm < self.grad_clip
-            grads = {n: {k: torch.where(keep, g, (g / norm.to(g.dtype))
-                                        * self.grad_clip)
-                         for k, g in ab.items()} for n, ab in grads.items()}
+            grads = {k: t.clone() for k, t in self.acc.items()}
+            for t in self.acc.values():
+                t.zero_()
+        norm = global_norm(grads) if self.grad_clip is not None else None
         lr = float(self.schedule(self.count))
         self.count += 1
         c1 = 1 - self.b1 ** self.count
         c2 = 1 - self.b2 ** self.count
-        for name, ab in params.items():
-            for key, p in ab.items():
-                g = grads[name][key].float()
-                mu, nu = self.mu[name][key], self.nu[name][key]
-                mu.copy_((1 - self.b1) * g + self.b1 * mu)
-                nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
-                upd = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+        for key, p in leaves(params):
+            g = grads[key]
+            if norm is not None:  # clip_by_global_norm, in g's dtype
+                g = torch.where(norm < self.grad_clip, g,
+                                (g / norm.to(g.dtype)) * self.grad_clip)
+            g = g.float()
+            mu, nu = self.mu[key], self.nu[key]
+            mu.copy_((1 - self.b1) * g + self.b1 * mu)
+            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+            upd = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+            if self.weight_decay:
                 upd = upd + self.weight_decay * p.float()
-                p.add_((-lr * upd).to(p.dtype))
+            upd = -lr * upd
+            if p.dtype == torch.float32:
+                p.add_(upd)
+            else:
+                p.copy_(p.float() + upd)
         return True
 
     # -- state for checkpoints (the port's own keys) ---------------------
@@ -160,19 +174,19 @@ class AdamW:
         out = {"count": torch.tensor(self.count),
                "mini_step": torch.tensor(self.mini_step)}
         for part in ("mu", "nu", "acc"):
-            tree = getattr(self, part)
-            if tree is not None:
-                out.update({f"{part}/{k}": t for k, t in _leaves(tree)})
+            state = getattr(self, part)
+            if state is not None:
+                out.update({f"{part}/{k}": t for k, t in state.items()})
         return out
 
     def load_state_dict(self, flat: Dict[str, object]) -> None:
         """Restore the keys :meth:`state_dict` writes; an absent key (e.g. a
         JAX-package ``opt.npz``) leaves that part fresh."""
         for part in ("mu", "nu", "acc"):
-            tree = getattr(self, part)
-            if tree is None:
+            state = getattr(self, part)
+            if state is None:
                 continue
-            for key, t in _leaves(tree):
+            for key, t in state.items():
                 if f"{part}/{key}" in flat:
                     t.copy_(torch.as_tensor(flat[f"{part}/{key}"]))
         self.count = int(flat.get("count", self.count))

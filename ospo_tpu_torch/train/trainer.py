@@ -1,5 +1,5 @@
-"""SimPO trainer (step 5), LoRA mode — counterpart of
-``ospo_tpu/train/trainer.py`` (:71-533).
+"""SimPO trainer (step 5) — counterpart of ``ospo_tpu/train/trainer.py``
+(:71-533).
 
 One step does what the JAX package's ``_jit_step`` does (:289-350):
 
@@ -8,7 +8,16 @@ One step does what the JAX package's ``_jit_step`` does (:289-350):
   → gen-aligner image embeds → all-ones mask, ``arange`` positions
   → 2B trunk forward with LoRA (remat) → gen-head logits
   → labels −100 on text, image ids after it → SimPO loss
-  → LoRA gradients → grad_norm (before clipping) → AdamW update.
+  → gradients of the trained tree → grad_norm (before clipping) → AdamW.
+
+The trained tree is the LoRA adapters (``use_peft``, the default), or
+with ``use_peft: False`` the submodules the ``experiment.freeze`` matrix
+leaves unfrozen (:190-204): the model's own tensors, trained in place in
+the model's dtype with fp32 moments.  Their image tokens are data: the VQ
+encode runs without gradients and the codebook's gradient is zeroed, as in
+the JAX step (:341-346).  ``experiment.quantize_base: int8`` (LoRA mode)
+quantizes the frozen trunk's projections to int8 before the adapters are
+drawn (:149-189); their backward runs ``ops/quant._W8A16``.
 
 Text is right-padded, so the first image label is predicted from a
 zero-embedded pad position when a prompt is shorter than the bucket — a
@@ -18,8 +27,8 @@ quirk of the reference kept as it is.
 ``global_step``, saves every ``save_steps`` and at the end, and writes
 ``train_stats.json``.  Scalars go to ``scalars.jsonl`` in the log directory
 (one JSON object per logged step, the JAX package's ``train/<name>`` tags)
-instead of a TensorBoard writer.  Full fine-tune (``use_peft: False``),
-``quantize_base`` and more than one process raise ``NotImplementedError``.
+instead of a TensorBoard writer.  ``quantize_base: w8a8`` and more than
+one process raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,15 +46,15 @@ from ospo_tpu_torch.constants import IGNORE_ID
 from ospo_tpu_torch.models import janus as janus_lib
 from ospo_tpu_torch.models import llama as llama_lib
 from ospo_tpu_torch.models import vqgan
+from ospo_tpu_torch.models.weights import map_tree
+from ospo_tpu_torch.ops import quant
 from ospo_tpu_torch.ops.pixels import normalize_pixels
 from ospo_tpu_torch.pipeline.datasets import PreferenceDataset
 from ospo_tpu_torch.train import checkpoint as ckpt_lib
 from ospo_tpu_torch.train import lora as lora_lib
-from ospo_tpu_torch.train.optim import AdamW, global_norm, make_schedule
+from ospo_tpu_torch.train.optim import AdamW, global_norm, leaves, make_schedule
 from ospo_tpu_torch.train.simpo import SimPOConfig, loss_and_metrics
 from ospo_tpu_torch.utils.prefetch import prefetch_iter
-
-_NOT_PORTED = "queued in ROADMAP.md (training remainder: full fine-tune / quantize_base)"
 
 
 def _bucket(n: int, step: int = 32) -> int:
@@ -95,9 +104,7 @@ class SimPOTrainer:
             sft_weight=float(algo.get("sft_weight", 0.0)),
             loss_type=algo.get("loss_type", "sigmoid"),
         )
-        if not bool(config.get("use_peft", True)):
-            raise NotImplementedError(f"full fine-tune (use_peft: False) is "
-                                      f"{_NOT_PORTED}")
+        self.use_peft = bool(config.get("use_peft", True))
         lcfg = config.get("lora") or {}
         self.lora_cfg = lora_lib.LoraConfig(
             rank=int(lcfg.get("lora_rank", 32)),
@@ -109,9 +116,7 @@ class SimPOTrainer:
 
         exp = config.get("experiment") or {}
         opt_cfg = config.get("optimizer") or {}
-        if _parse_quantize_base(exp.get("quantize_base")):
-            raise NotImplementedError(f"experiment.quantize_base is "
-                                      f"{_NOT_PORTED}")
+        qb_mode = _parse_quantize_base(exp.get("quantize_base"))
         if _world_size() > 1:
             raise NotImplementedError(
                 "training in more than one process is queued in ROADMAP.md "
@@ -143,14 +148,53 @@ class SimPOTrainer:
         self.log_dir = os.path.join(self.save_path,
                                     base.get("exp_name") or "ospo")
 
-        self._set_trainable(lora_lib.init_lora(
-            model.cfg.language, self.lora_cfg, self.seed, self.device))
+        if self.use_peft:
+            if qb_mode:
+                self._quantize_base(qb_mode)
+            self._set_trainable(lora_lib.init_lora(
+                model.cfg.language, self.lora_cfg, self.seed, self.device))
+        else:
+            freeze = dict(exp.get("freeze") or {})
+            self.trainable_keys = sorted(
+                k for k in model.params if not freeze.get(k, True))
+            if not self.trainable_keys:
+                raise ValueError("full-finetune mode with everything frozen")
+            self.trainable = {k: model.params[k] for k in self.trainable_keys}
+            for path, t in leaves(self.trainable):
+                if not t.is_floating_point():
+                    raise ValueError(
+                        f"full fine-tune: {path} is {t.dtype}; a quantized "
+                        "trunk cannot be trained (build it unquantized)")
+                t.requires_grad_(True)
+            self.opt = AdamW(self.trainable, self._lr_fn, **self._opt_args)
         self.global_step = 0
         self.update_seconds: List[float] = []  # wall time of each update
         self.stats: Dict[str, float] = {}      # fit()'s train_stats.json
         self.logged: List[Dict[str, float]] = []  # metrics of logged steps
 
+    def _quantize_base(self, mode: str) -> None:
+        """The QLoRA-style frozen trunk: its projections to ``mode`` (int8),
+        unless already quantized, then in the same mode or an error
+        (``ospo_tpu/train/trainer.py:149-189``)."""
+        layers = self.model.params["language_model"]["layers"]
+        wq = layers["wq"]
+        if isinstance(wq, dict):
+            have = "int8" if set(wq) == {"q", "s"} else "int4*"
+            if have != mode:
+                raise ValueError(
+                    f"experiment.quantize_base={mode!r} but the model's "
+                    f"trunk is already {have}-quantized — rebuild the model "
+                    "unquantized (quantize: none) or align the two settings")
+        if mode == "w8a8":
+            raise NotImplementedError(
+                "experiment.quantize_base: w8a8 is queued in ROADMAP.md "
+                "(queue 1 item 8, opt-in modes)")
+        if not isinstance(wq, dict):
+            quant.quantize_layers(layers, mode)
+
     def _set_trainable(self, tree) -> None:
+        """The LoRA adapters (fp32 leaves requiring grad) and a fresh
+        optimizer over them."""
         self.trainable = {
             n: {k: torch.as_tensor(t, dtype=torch.float32, device=self.device)
                 .clone().requires_grad_(True) for k, t in ab.items()}
@@ -182,7 +226,8 @@ class SimPOTrainer:
     # ------------------------------------------------------------------
     def loss_and_grads(self, text_ids, text_mask, chosen_pixels,
                        rejected_pixels, dropout_seed=None):
-        """→ (loss, metrics, LoRA gradients) of one micro-batch."""
+        """→ (loss, metrics, gradients of the trained tree) of one
+        micro-batch."""
         cfg, params, dev = self.model.cfg, self.model.params, self.device
         as_dev = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
         text_ids = as_dev(text_ids).long()
@@ -202,8 +247,9 @@ class SimPOTrainer:
         pos = torch.arange(t_total, device=dev).expand(2 * b, t_total)
         hidden, _ = llama_lib.forward(
             params["language_model"], cfg.language, seq, attn, pos,
-            lora=self.trainable, lora_scaling=self.lora_cfg.scaling,
-            lora_dropout=self.lora_cfg.dropout,
+            lora=self.trainable if self.use_peft else None,
+            lora_scaling=self.lora_cfg.scaling,
+            lora_dropout=self.lora_cfg.dropout if self.use_peft else 0.0,
             lora_dropout_seed=dropout_seed, remat=self.remat,
             attn_impl=self.attn_impl)
         logits = janus_lib.gen_logits(params, hidden)
@@ -211,12 +257,16 @@ class SimPOTrainer:
                                  dtype=torch.long, device=dev)
         labels = torch.cat([text_labels, img_ids.long()], dim=1)
         loss, metrics = loss_and_metrics(self.simpo_cfg, logits, labels)
-        names = [(n, k) for n, ab in self.trainable.items() for k in ab]
-        flat = torch.autograd.grad(
-            loss, [self.trainable[n][k] for n, k in names])
-        grads: Dict = {}
-        for (n, k), g in zip(names, flat):
-            grads.setdefault(n, {})[k] = g
+        params_ = [t for _, t in leaves(self.trainable)]
+        # a leaf the loss does not reach (the VQ model, lm_head) gets zeros
+        flat = iter([torch.zeros_like(p) if g is None else g for p, g in zip(
+            params_, torch.autograd.grad(loss, params_, allow_unused=True))])
+        grads = map_tree(self.trainable, lambda *_: next(flat))
+        if not self.use_peft and "gen_vision_model" in grads:
+            # the codebook stays frozen when the VQ model trains
+            # (train.py:161-168)
+            grads["gen_vision_model"]["codebook"] = torch.zeros_like(
+                grads["gen_vision_model"]["codebook"])
         return loss, metrics, grads
 
     def _step(self, text_ids, text_mask, chosen_pixels, rejected_pixels,
@@ -240,8 +290,14 @@ class SimPOTrainer:
 
     def resume(self, ckpt_path: str) -> None:
         tree, lora_cfg, step, opt_flat = ckpt_lib.load_checkpoint(ckpt_path)
-        self.lora_cfg = lora_cfg
-        self._set_trainable(tree)
+        if self.use_peft:
+            self.lora_cfg = lora_cfg
+            self._set_trainable(tree)
+        else:
+            if set(tree) != set(self.trainable):
+                raise ValueError(f"{ckpt_path} trains {sorted(tree)}, this "
+                                 f"run {sorted(self.trainable)}")
+            ckpt_lib.assign_tree(self.trainable, tree)
         if opt_flat is not None:
             self.opt.load_state_dict(opt_flat)
         self.global_step = step
@@ -250,7 +306,8 @@ class SimPOTrainer:
     def save(self) -> str:
         path = ckpt_lib.save_checkpoint(
             self.log_dir, self.global_step, self.trainable, self.lora_cfg,
-            opt_state=self.opt.state_dict())
+            opt_state=self.opt.state_dict(),
+            mode="lora" if self.use_peft else "full")
         print(f"# Saved checkpoint: {path}")
         return path
 

@@ -31,12 +31,13 @@ from ospo_tpu.train import checkpoint as jckpt
 from ospo_tpu.train import lora as jlora
 from ospo_tpu.train import optim as joptim
 from ospo_tpu.train import simpo as jsimpo
-from ospo_tpu_torch.config import Config
+from ospo_tpu_torch.config import Config, load_yaml
 from ospo_tpu_torch.image_processing import ImageProcessor
 from ospo_tpu_torch.models import janus as tjanus
 from ospo_tpu_torch.models import llama as tllama
 from ospo_tpu_torch.models import vqgan as tvq
 from ospo_tpu_torch.models.weights import from_jax_params
+from ospo_tpu_torch.ops import quant as tquant
 from ospo_tpu_torch.ops.pixels import normalize_pixels
 from ospo_tpu_torch.processing import Processor
 from ospo_tpu_torch.tokenizer import ByteTokenizer
@@ -501,8 +502,7 @@ def _port_processor():
     return Processor(ByteTokenizer(512), ImageProcessor(image_size=32))
 
 
-@pytest.fixture(scope="module")
-def jax_step(tmp_path_factory):
+def _jax_lora_step(tmp, **exp):
     """One ``SimPOTrainer._step`` of the JAX package (XLA attention, remat,
     dropout 0) on a tiny model: metrics, exact gradients (captured from the
     update chain) and the parameters after one AdamW update."""
@@ -514,8 +514,8 @@ def jax_step(tmp_path_factory):
     jmodel = jjanus.JanusModel(cfg, jax.tree.map(jnp.asarray, params))
     jproc = JProcessor(JByteTokenizer(512), JImageProcessor(image_size=32),
                        num_image_tokens=cfg.num_image_tokens)
-    trainer = JTrainer(JConfig.from_nested(_trainer_config(
-        tmp_path_factory.mktemp("j"), "xla")), jmodel, jproc)
+    trainer = JTrainer(JConfig.from_nested(_trainer_config(tmp, "xla", **exp)),
+                       jmodel, jproc)
     lora = _np_lora(tllama.tiny_config(), 4, 17)
     captured = {}
 
@@ -534,6 +534,11 @@ def jax_step(tmp_path_factory):
     updated = jax.tree.map(np.asarray, optax.apply_updates(jl, upd))
     return {"params": params, "lora": lora, "grads": grads, "updated": updated,
             "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+@pytest.fixture(scope="module")
+def jax_step(tmp_path_factory):
+    return _jax_lora_step(tmp_path_factory.mktemp("j"))
 
 
 @pytest.mark.parametrize("attn_impl", ["flash", "xla"])
@@ -564,14 +569,15 @@ def test_trainer_step_matches_jax(jax_step, tmp_path, attn_impl):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """``quantize_base: w8a8`` names ROADMAP.md, an unknown spelling is a
+    ValueError, and more than one process is refused."""
     model = tjanus.JanusModel.init(tjanus.tiny_janus_config(), seed=0,
                                    device="cpu")
     base = _trainer_config(tmp_path, "flash")
-    for change in ({"use_peft": False},
-                   {"experiment": {**base["experiment"], "quantize_base": "int8"}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SimPOTrainer(Config.from_nested({**base, **change}), model,
-                         _port_processor())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SimPOTrainer(Config.from_nested({**base, "experiment": {
+            **base["experiment"], "quantize_base": "w8a8"}}), model,
+            _port_processor())
     with pytest.raises(ValueError, match="quantize_base"):
         SimPOTrainer(Config.from_nested({**base, "experiment": {
             **base["experiment"], "quantize_base": "int_8"}}), model,
@@ -778,3 +784,382 @@ def test_chip_smoke_step5_config_is_the_yaml_plus_named_overrides():
                        "experiment.attn_impl", "experiment.max_training_steps",
                        "experiment.max_epochs", "experiment.save_steps",
                        "dataset.train.data_path", "image_root", "base.save_path"}
+
+
+# ---------------------------------------------------------------------------
+# full fine-tune (use_peft: False) and the int8 frozen trunk (quantize_base)
+# ---------------------------------------------------------------------------
+
+# the freeze matrix of configs/step5.yaml: the language model trains
+FREEZE = load_yaml(os.path.join(ROOT, "configs", "step5.yaml"))[
+    "experiment"]["freeze"]
+
+
+def _full_config(tmp, attn_impl="flash", freeze=None, **exp):
+    conf = _trainer_config(tmp, attn_impl, **exp)
+    conf["use_peft"] = False
+    conf["experiment"]["freeze"] = {**FREEZE, **(freeze or {})}
+    return conf
+
+
+def _as_np(x):
+    if torch.is_tensor(x):
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            return x.float().numpy()
+        return x.numpy()
+    return np.asarray(x, np.float32) if np.asarray(x).dtype.kind == "V" \
+        else np.asarray(x)
+
+
+def _assert_trees(got, want, atol):
+    """Same structure; every leaf within ``atol`` (0: bit for bit)."""
+    g, w = dict(toptim.leaves(got)), dict(toptim.leaves(want))
+    assert set(g) == set(w), sorted(set(g) ^ set(w))[:5]
+    for k in w:
+        a, b = _as_np(g[k]), _as_np(w[k])
+        assert a.shape == b.shape, k
+        if atol:
+            np.testing.assert_allclose(a, b, atol=atol, rtol=0, err_msg=k)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+@pytest.mark.parametrize("freeze", [{}, {"gen_head": False},
+                                    {"gen_vision_model": False,
+                                     "language_model": True}])
+def test_full_finetune_trainable_keys_match_jax(tmp_path, freeze):
+    """The trained submodules are the top-level parameter keys the freeze
+    matrix leaves unfrozen (a key it does not name stays frozen), as in the
+    JAX trainer; their leaves are the model's own tensors, trained in
+    place."""
+    from ospo_tpu.config import Config as JConfig
+    from ospo_tpu.train.trainer import SimPOTrainer as JTrainer
+
+    cfg = jjanus.tiny_janus_config()
+    params = np_janus_params(cfg, 24)
+    conf = _full_config(tmp_path, freeze=freeze)
+    jt = JTrainer(JConfig.from_nested(conf),
+                  jjanus.JanusModel(cfg, jax.tree.map(jnp.asarray, params)),
+                  JProcessor(JByteTokenizer(512), JImageProcessor(image_size=32)))
+    model = _port_model(params)
+    tt = SimPOTrainer(Config.from_nested(conf), model, _port_processor())
+    assert tt.trainable_keys == jt.trainable_keys
+    for k in tt.trainable_keys:
+        assert tt.trainable[k] is model.params[k]
+        assert all(t.requires_grad for _, t in toptim.leaves(tt.trainable[k]))
+
+
+@pytest.fixture(scope="module")
+def jax_full_step(tmp_path_factory):
+    """One full-mode ``SimPOTrainer._step`` of the JAX package (the language
+    model and the gen head trained, XLA attention, remat): the metrics, the
+    exact gradients (captured from the update chain) and the trained
+    submodules after one AdamW update."""
+    from ospo_tpu.config import Config as JConfig
+    from ospo_tpu.train.trainer import SimPOTrainer as JTrainer
+
+    cfg = jjanus.tiny_janus_config()
+    params = np_janus_params(cfg, 25)
+    jproc = JProcessor(JByteTokenizer(512), JImageProcessor(image_size=32),
+                       num_image_tokens=cfg.num_image_tokens)
+    trainer = JTrainer(JConfig.from_nested(_full_config(
+        tmp_path_factory.mktemp("jf"), "xla", {"gen_head": False})),
+        jjanus.JanusModel(cfg, jax.tree.map(jnp.asarray, params)), jproc)
+    captured = {}
+
+    def capture(updates, params=None):
+        jax.debug.callback(lambda g: captured.update(g=g), updates)
+        return jax.tree.map(jnp.zeros_like, updates)
+
+    real_tx = trainer.tx
+    trainer.tx = optax.stateless(capture)
+    start = jax.tree.map(np.array, trainer.trainable)
+    _, _, metrics = trainer._step(trainer.trainable, trainer.opt_state,
+                                  *map(jnp.asarray, _batch()))
+    jax.effects_barrier()
+    grads = jax.tree.map(np.asarray, captured["g"])
+    jt = jax.tree.map(jnp.asarray, start)
+    upd, _ = real_tx.update(jax.tree.map(jnp.asarray, grads), real_tx.init(jt), jt)
+    return {"params": params, "grads": grads,
+            "updated": jax.tree.map(np.asarray, optax.apply_updates(jt, upd)),
+            "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+@pytest.mark.parametrize("attn_impl", ["flash", "xla"])
+def test_full_finetune_step_matches_jax(jax_full_step, tmp_path, attn_impl):
+    """One full-mode step against the JAX package's on the same weights and
+    batch: loss and every metric (grad_norm included) within 1e-4 relative
+    or 1e-5 absolute; the gradient of every trained leaf within
+    1e-3·max|g|; after the update, every trained element within 1e-2·lr
+    where the JAX gradient exceeds 100·eps (there Adam's first step is ±lr
+    within 1%; where |g| is near eps the step is |g|/(|g| + eps)·lr, which
+    amplifies fp32 rounding of g, and the gradient check holds those
+    elements)."""
+    model = _port_model(jax_full_step["params"])
+    trainer = SimPOTrainer(Config.from_nested(_full_config(
+        tmp_path, attn_impl, {"gen_head": False})), model, _port_processor())
+    assert trainer.trainable_keys == ["gen_head", "language_model"]
+    _, metrics, grads = trainer.loss_and_grads(*_batch())
+    metrics["grad_norm"] = toptim.global_norm(grads)
+    assert set(metrics) == set(jax_full_step["metrics"])
+    for k, ref in jax_full_step["metrics"].items():
+        np.testing.assert_allclose(float(metrics[k]), ref, rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+    ref_g = dict(toptim.leaves(from_jax_params(jax_full_step["grads"])))
+    got_g = dict(toptim.leaves(grads))
+    assert set(got_g) == set(ref_g)
+    for k, r in ref_g.items():
+        scale = max(float(r.abs().max()), 1e-30)
+        assert float((got_g[k] - r).abs().max()) <= 1e-3 * scale, k
+    assert trainer.opt.step(trainer.trainable, grads)
+    want = dict(toptim.leaves(from_jax_params(jax_full_step["updated"])))
+    for k, t in toptim.leaves(trainer.trainable):
+        sure = ref_g[k].abs() > 100 * 1e-8
+        diff = (t.detach() - want[k]).abs()[sure]
+        assert not diff.numel() or float(diff.max()) <= 1e-2 * LR, k
+
+
+def test_full_finetune_keeps_the_codebook(tmp_path):
+    """With the VQ model trainable its image tokens stay data: the encode
+    runs without gradients and the codebook's gradient is zeroed, so with
+    no weight decay the codebook and the encoder come out of a step bit for
+    bit as they went in, while the language model moves."""
+    model = tjanus.JanusModel.init(tjanus.tiny_janus_config(), seed=0,
+                                   device="cpu")
+    before = {k: t.clone() for k, t in toptim.leaves(model.params["gen_vision_model"])}
+    wq = model.params["language_model"]["layers"]["wq"].detach().clone()
+    trainer = SimPOTrainer(Config.from_nested(_full_config(
+        tmp_path, freeze={"gen_vision_model": False})), model, _port_processor())
+    assert trainer.trainable_keys == ["gen_vision_model", "language_model"]
+    _, _, grads = trainer.loss_and_grads(*_batch())
+    assert not grads["gen_vision_model"]["codebook"].any()
+    trainer.opt.step(trainer.trainable, grads)
+    after = dict(toptim.leaves(model.params["gen_vision_model"]))
+    assert all(torch.equal(before[k], after[k]) for k in before)
+    assert not torch.equal(wq, model.params["language_model"]["layers"]["wq"])
+
+
+def test_full_finetune_refuses_everything_frozen(tmp_path):
+    model = tjanus.JanusModel.init(tjanus.tiny_janus_config(), seed=0,
+                                   device="cpu")
+    with pytest.raises(ValueError, match="everything frozen"):
+        SimPOTrainer(Config.from_nested(_full_config(
+            tmp_path, freeze={"language_model": True})), model, _port_processor())
+
+
+def test_full_checkpoints_merge_across_packages(tmp_path):
+    """A port full checkpoint (fp32; the language model and the VQ model,
+    whose convolution kernels, lists and empty lists the JAX encoding keys)
+    merges in ``ospo_tpu``'s ``merge_lora_checkpoint`` to the trained
+    weights, and a JAX full checkpoint merges in the port's, bit for bit;
+    both packages read the mode as ``full``."""
+    from ospo_tpu_torch.models.weights import to_jax_layout
+
+    cfg = jjanus.tiny_janus_config()
+    params = np_janus_params(cfg, 26)
+    trainer = SimPOTrainer(Config.from_nested(_full_config(
+        tmp_path / "run", freeze={"gen_vision_model": False})),
+        _port_model(params), _port_processor())
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():  # move every trained leaf off the base weights
+        for _, t in toptim.leaves(trainer.trainable):
+            t.add_(torch.randn(t.shape, generator=gen) * 1e-3)
+    trainer.global_step = 4
+    path = trainer.save()
+    assert jckpt.checkpoint_mode(path) == tckpt.checkpoint_mode(path) == "full"
+    merged = jckpt.merge_lora_checkpoint(
+        jjanus.JanusModel(cfg, jax.tree.map(jnp.asarray, params)), path)
+    for k in trainer.trainable_keys:
+        _assert_trees(jax.tree.map(np.asarray, merged.params[k]),
+                      to_jax_layout(trainer.trainable)[k], 0)
+
+    rng = np.random.default_rng(27)
+    moved = {k: jax.tree.map(lambda x: x + rng.standard_normal(x.shape).astype(
+        np.float32) * 1e-3, params[k]) for k in ("language_model",
+                                                 "gen_vision_model")}
+    jpath = jckpt.save_checkpoint(str(tmp_path / "j"), 3, moved,
+                                  jlora.LoraConfig(), mode="full")
+    model = _port_model(params)
+    assert tckpt.merge_lora_checkpoint(model, jpath) is model
+    for k in moved:
+        _assert_trees(model.params[k], from_jax_params(moved)[k], 0)
+
+
+def test_full_checkpoints_keep_bf16_bits(tmp_path):
+    """bf16 leaves are written as the JAX package writes them (2-byte voids
+    of the bf16 bits): a port bf16 checkpoint round-trips bit for bit (load,
+    and merge into a fresh model), and a JAX bf16 checkpoint's leaves read
+    back as the same bits."""
+    cfg = tjanus.tiny_janus_config(dtype=torch.bfloat16)
+    trainer = SimPOTrainer(Config.from_nested(_full_config(tmp_path / "run")),
+                           tjanus.JanusModel.init(cfg, seed=0, device="cpu"),
+                           _port_processor())
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for _, t in toptim.leaves(trainer.trainable):
+            t.add_((torch.randn(t.shape, generator=gen) * 1e-2).to(t.dtype))
+    trainer.global_step = 2
+    path = trainer.save()
+    with np.load(os.path.join(path, "lora.npz")) as f:
+        assert f["language_model/layers/wq"].dtype == np.dtype("V2")
+    tree, _, step, _ = tckpt.load_checkpoint(path)
+    got = tree["language_model"]
+    want = trainer.trainable["language_model"]
+    for k, t in toptim.leaves(want):
+        assert torch.equal(dict(toptim.leaves(got))[k], t.detach()), k
+    fresh = tjanus.JanusModel.init(cfg, seed=5, device="cpu")
+    tckpt.merge_lora_checkpoint(fresh, path)
+    for k, t in toptim.leaves(want):
+        g = dict(toptim.leaves(fresh.params["language_model"]))[k]
+        assert g.dtype == torch.bfloat16 and torch.equal(g, t.detach()), k
+
+    jtree = {"language_model": jax.tree.map(
+        lambda x: jnp.asarray(x, jnp.bfloat16),
+        np_janus_params(jjanus.tiny_janus_config(), 28)["language_model"])}
+    jpath = jckpt.save_checkpoint(str(tmp_path / "j"), 1, jtree,
+                                  jlora.LoraConfig(), mode="full")
+    fresh = tjanus.JanusModel.init(cfg, seed=5, device="cpu")
+    tckpt.merge_lora_checkpoint(fresh, jpath)
+    for k, x in toptim.leaves(jtree["language_model"]):
+        bits = np.asarray(x).view(np.int16)
+        g = dict(toptim.leaves(fresh.params["language_model"]))[k]
+        np.testing.assert_array_equal(g.view(torch.int16).numpy(), bits, err_msg=k)
+
+
+def test_full_finetune_resume_is_exact(tmp_path):
+    """Full mode: two steps in one run equal one step, a ``mode: full``
+    checkpoint, a resume into a fresh model and the second step — the
+    trained weights and the optimizer state bit for bit."""
+    b1, b2 = _batch(29), _batch(30)
+    conf = _full_config(tmp_path / "a", freeze={"gen_head": False})
+    t1 = SimPOTrainer(Config.from_nested(conf), tjanus.JanusModel.init(
+        tjanus.tiny_janus_config(), seed=0, device="cpu"), _port_processor())
+    t1._step(*b1)
+    t1.global_step = 1
+    ckpt = t1.save()
+    t1._step(*b2)
+    conf["base"]["save_path"] = str(tmp_path / "b")
+    t2 = SimPOTrainer(Config.from_nested(conf), tjanus.JanusModel.init(
+        tjanus.tiny_janus_config(), seed=0, device="cpu"), _port_processor())
+    t2.resume(ckpt)
+    assert t2.global_step == 1 and t2.opt.count == 1
+    t2._step(*b2)
+    _assert_trees(t2.trainable, t1.trainable, 0)
+    s1, s2 = t1.opt.state_dict(), t2.opt.state_dict()
+    assert set(s1) == set(s2) and any(k.startswith("mu/gen_head/") for k in s1)
+    for k in s1:
+        torch.testing.assert_close(torch.as_tensor(s2[k]), torch.as_tensor(s1[k]),
+                                   atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("clip,wd", [(None, 0.0), (1.0, 0.1)])
+def test_optimizer_over_model_dtype_trees_matches_optax(clip, wd):
+    """AdamW over a nested tree of bf16 leaves (dicts and a list), as full
+    mode trains them: fp32 moments and an fp32 update rounded once into
+    the parameter, no fp32 master copy; against the JAX package's
+    ``build_optimizer`` (optax ``adamw(mu_dtype=float32)`` behind the fp32
+    cast) for 5 steps, within one bf16 step of each parameter (optax takes
+    the clipping norm in bf16, the port in fp32)."""
+    rng = np.random.default_rng(31)
+    shapes = {"language_model": {"layers": {"wq": (2, 3, 4)}, "embed": (5, 4)},
+              "gen_vision_model": {"levels": [{"w": (3, 3)}, {"w": (2, 2)}]}}
+    params = jax.tree.map(lambda s: rng.standard_normal(s).astype(np.float32),
+                          shapes, is_leaf=lambda x: isinstance(x, tuple))
+    jparams = jax.tree.map(lambda x: jnp.asarray(x, jnp.bfloat16), params)
+    tparams = jax.tree.map(lambda x: torch.as_tensor(x).to(torch.bfloat16), params)
+    jtx = joptim.build_optimizer(init_lr=3e-2, weight_decay=wd, grad_clip=clip)
+    jstate = jtx.init(jparams)
+    opt = toptim.AdamW(tparams, lambda s: 3e-2, weight_decay=wd, grad_clip=clip)
+    assert {k.split("/")[0] for k in opt.state_dict()} == {"count", "mini_step",
+                                                           "mu", "nu"}
+    assert all(t.dtype == torch.float32 for t in opt.mu.values())
+    for step in range(5):
+        g = jax.tree.map(lambda x: (rng.standard_normal(x.shape) * (
+            3.0 if step % 2 else 0.05)).astype(np.float32), params)
+        jg = jax.tree.map(lambda x: jnp.asarray(x, jnp.bfloat16), g)
+        upd, jstate = jtx.update(jg, jstate, jparams)
+        jparams = optax.apply_updates(jparams, upd)
+        assert opt.step(tparams, jax.tree.map(
+            lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(torch.bfloat16),
+            jg))
+        for k, t in toptim.leaves(tparams):
+            assert t.dtype == torch.bfloat16
+            ref = np.asarray(dict(toptim.leaves(jparams))[k], np.float32)
+            np.testing.assert_allclose(t.float().numpy(), ref, rtol=2 ** -7,
+                                       atol=1e-6, err_msg=(step, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8a16_function_matches_the_plain_form(dtype):
+    """``quantized_matmul`` on an input that needs a gradient runs the
+    W8A16 autograd Function: its output and dX equal autograd through the
+    plain form bit for bit, it keeps only the int8 payload and the scales
+    for the backward (the plain form keeps an x-dtype copy of the weight),
+    and the weight gets no gradient."""
+    rng = np.random.default_rng(32)
+    x = torch.as_tensor(rng.standard_normal((2, 5, 64), np.float32)).to(dtype)
+    qw = tquant.quantize_matrix(torch.as_tensor(
+        rng.standard_normal((48, 64), np.float32) * 0.02).to(dtype))
+    dy = torch.as_tensor(rng.standard_normal((2, 5, 48), np.float32)).to(dtype)
+
+    def run(fn):
+        xr = x.clone().requires_grad_(True)
+        saved = []
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda t: saved.append(t) or t, lambda t: t):
+            y = fn(xr, qw)
+        (dx,) = torch.autograd.grad(y, xr, dy)
+        return y.detach(), dx, saved
+
+    y1, dx1, kept = run(tquant.quantized_matmul)
+    y2, dx2, kept_plain = run(lambda xr, w: tquant._w8a16(xr, w["q"], w["s"]))
+    assert torch.equal(y1, y2) and torch.equal(dx1, dx2)
+    assert {(t.dtype, tuple(t.shape)) for t in kept} == {
+        (torch.int8, (48, 64)), (torch.float32, (48,))}
+    assert any(t.dtype == dtype and t.numel() == 48 * 64 for t in kept_plain)
+    with torch.no_grad():
+        assert torch.equal(tquant.quantized_matmul(x, qw), y1)
+
+
+@pytest.fixture(scope="module")
+def jax_int8_step(tmp_path_factory):
+    return _jax_lora_step(tmp_path_factory.mktemp("jq"), quantize_base="int8")
+
+
+def test_int8_trunk_step_matches_jax(jax_int8_step, tmp_path):
+    """``quantize_base: int8``: the trainer quantizes the trunk's seven
+    projections before the adapters (per row, as the JAX trainer does), and
+    one step on the same weights, adapters and batch matches the JAX
+    trainer's with the same flag: metrics within 1e-4 relative or 1e-5
+    absolute, LoRA gradients within 1e-3·max|g| per leaf."""
+    model = _port_model(jax_int8_step["params"])
+    trainer = SimPOTrainer(Config.from_nested(_trainer_config(
+        tmp_path, "flash", quantize_base="int8")), model, _port_processor())
+    layers = model.params["language_model"]["layers"]
+    for name in tquant.QUANTIZABLE:
+        assert set(layers[name]) == {"q", "s"} and layers[name]["q"].dtype == torch.int8
+    trainer._set_trainable(jax_int8_step["lora"])
+    _, metrics, grads = trainer.loss_and_grads(*_batch())
+    metrics["grad_norm"] = toptim.global_norm(grads)
+    for k, ref in jax_int8_step["metrics"].items():
+        np.testing.assert_allclose(float(metrics[k]), ref, rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+    _close_trees(grads, jax_int8_step["grads"], 1e-3)
+
+
+def test_int8_trunk_checks_a_trunk_already_quantized(tmp_path):
+    """A trunk quantized upstream must be in the mode ``quantize_base``
+    asks for (the JAX trainer's ValueError); an int8 trunk with
+    ``quantize_base: int8`` is kept as it is."""
+    conf = Config.from_nested(_trainer_config(tmp_path, "flash",
+                                              quantize_base="int8"))
+    model = tjanus.JanusModel.init(tjanus.tiny_janus_config(), seed=0,
+                                   quantize="int4", device="cpu")
+    with pytest.raises(ValueError, match="already int4\\*-quantized"):
+        SimPOTrainer(conf, model, _port_processor())
+    model = tjanus.JanusModel.init(tjanus.tiny_janus_config(), seed=0,
+                                   quantize="int8", device="cpu")
+    q = model.params["language_model"]["layers"]["wq"]["q"]
+    SimPOTrainer(conf, model, _port_processor())
+    assert model.params["language_model"]["layers"]["wq"]["q"] is q
