@@ -84,7 +84,24 @@ fails):
 12. step 5 as in phase 5 with ``experiment.quantize_base: int8``: the
     trunk's seven projections must be int8, the flash counters 60/30/30 a
     micro-step, and the checkpoint must land; it prints the step seconds
-    and peak memory beside phase 5's.
+    and peak memory beside phase 5's;
+13. step 3's opt-in decode modes, each over one group of 24 CFG pairs as
+    phases 6 and 7 (int8 weights): (a) ``kv_layout: bshd`` with the int8
+    cache and ``decode_segments: 8``, the plain cache read; (b) the same
+    with ``speculative: 4`` (speculative Jacobi decoding), printing
+    ``last_sjd_iters`` and the tokens an iteration; (c) ``kv_quant: int4``
+    at ``bshd``, printing its peak memory beside (a)'s.  Each must launch
+    the flash forward 30 times and the decode kernel never; (a)'s model
+    also runs the teacher-forced CFG probe (``PROBE_PROMPTS`` prompts,
+    ``PROBE_TOKENS`` tokens) through a ``bshd`` engine and through the
+    ``shbd`` engine of the decode kernel: logits within 1e-2 max|ref|;
+14. the weight modes: (a) step 3 as phase 7 with ``quantize: int4n`` (the
+    row kernel); (b) step 4b as phase 9 with ``quantize: w8a8`` over the
+    ``W8A8_SCORE_ITEMS`` first items (2 chunks), once with the w8a8 readout
+    and once with ``readout_w8a16``: images/s for each and the share of
+    yes/no answers on which the two agree; (c) step 5 as phase 12 with
+    ``quantize_base: w8a8``, the step seconds and peak memory beside
+    phase 12's.
 
 Phase 2 also holds the flash forward at the step-2 prefix prefill (B = 1,
 H = 32, T = S = the prefix bucket, left-padded) and the decode kernel at
@@ -232,6 +249,13 @@ BASE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "examples", "step1",
                             "base_prompt.json")
 
 
+# phase 13's plain-read probe: prompts and image tokens (two segments of
+# growing windows)
+PROBE_PROMPTS = 4
+PROBE_TOKENS = 192
+# phase 14b's items: 6 images each, 30 images = 2 chunks of 16
+W8A8_SCORE_ITEMS = 5
+
 # phase 11's 1B full checkpoint: the bf16 language model (lm_head included,
 # ~1.65B parameters) and its fp32 first and second moments, with room
 FULL_CKPT_GB = 20
@@ -328,6 +352,7 @@ class Smoke:
         self.lora_train = {}            # phase 5's peak and step seconds
         self.text_bucket = train_bucket()
         self.launches = {}              # kernel → launches in the main paths
+        self.trunks = {}                # phases 12, 14c: step seconds, peak
         self.train_kernel_ms = {}       # phase 2's times at the training shape
 
     def check(self, ok: bool, what: str) -> None:
@@ -1553,14 +1578,15 @@ class Smoke:
                    f"train_stats.json keys {sorted(keys)}")
 
 
-    # -- phases 6 and 7 ----------------------------------------------------
-    def int4_path(self, mode: str):
-        """Step 3 at the 7B width and depth with ``quantize: mode`` (int4g:
-        the group kernel; int4: the row kernel), everything else as
-        ``configs/step3.yaml``, over one group of 24 CFG pairs (M = 48 in
-        every decode projection): the first prompt of each of the first 24
-        fixture items, their other prompts left empty (step 3 skips an empty
-        prompt), so the tree holds 24 images."""
+    # -- phases 6, 7, 13 and 14a -------------------------------------------
+    def step3_group(self, tag: str, overrides: dict) -> dict:
+        """Step 3 (``step3.main``) at the 7B width and depth with
+        ``overrides`` on ``configs/step3.yaml``, over one group of 24 CFG
+        pairs (M = 48 in every decode projection): the first prompt of each
+        of the first 24 fixture items, their other prompts left empty (step 3
+        skips an empty prompt), so the tree holds 24 images; checks them.
+        → the run's statistics, its kernel launches, its peak memory and the
+        engine ``main`` built (its model kept alive)."""
         import gc
 
         from ospo_tpu_torch.config import Config
@@ -1573,55 +1599,75 @@ class Smoke:
 
         gc.collect()  # the previous phase's model goes first
         torch.cuda.empty_cache()
-        print(f"device memory before step 3 ({mode}): "
+        print(f"device memory before step 3 ({tag}): "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
         data = read_json(FIXTURE)[:N_ITEMS]
         for sample in data:
             sample["long_prompt"] = [sample["long_prompt"][0], "", ""]
             sample["negative_long_prompt"] = ["", "", ""]
-        root = os.path.join(self.workdir, f"step3_{mode}")
+        root = os.path.join(self.workdir, "step3_" + tag.replace(" ", "_"))
         os.makedirs(root, exist_ok=True)
         data_path = os.path.join(root, "long_prompt.json")
         with open(data_path, "w") as f:
             json.dump(data, f)
         config = Config.from_nested({
             **STEP3_CONFIG, "model_path": None, "model_preset": "7b",
-            "quantize": mode, "data_path": data_path, "e_idx": N_ITEMS,
+            **overrides, "data_path": data_path, "e_idx": N_ITEMS,
             "save_path": os.path.join(root, "out")})
+        engines, peaks = [], {"init": 0.0, "tokens": 0.0, "vq": 0.0}
+        engine_cls = step3.ImageGenEngine
+
+        def keep(*args, **kw):
+            """Keeps the engine ``main`` builds, and reads the peak memory of
+            the model set-up, of token generation and of the VQ decode."""
+            eng = engine_cls(*args, **kw)
+            gen, vq = eng._generate_tokens_device, eng._decode_tokens
+
+            def generate(*a, **k):
+                key = "tokens" if peaks["tokens"] or peaks["vq"] else "init"
+                peaks[key] = max(peaks[key], torch.cuda.max_memory_allocated() / 1e9)
+                torch.cuda.reset_peak_memory_stats()
+                return gen(*a, **k)
+
+            def decode(*a, **k):
+                peaks["tokens"] = max(peaks["tokens"],
+                                      torch.cuda.max_memory_allocated() / 1e9)
+                torch.cuda.reset_peak_memory_stats()
+                out = vq(*a, **k)
+                peaks["vq"] = max(peaks["vq"], torch.cuda.max_memory_allocated() / 1e9)
+                return out
+
+            eng._generate_tokens_device, eng._decode_tokens = generate, decode
+            engines.append(eng)
+            return eng
+
         torch.cuda.reset_peak_memory_stats()
         fa.launches = da.launches = i4.row_launches = i4.group_launches = 0
+        step3.ImageGenEngine = keep
         t0 = time.time()
-        stats = step3.main(config)
-        torch.cuda.synchronize()
+        try:
+            stats = step3.main(config)
+            torch.cuda.synchronize()
+        finally:
+            step3.ImageGenEngine = engine_cls
         wall = time.time() - t0
-        kname = "int4_matmul_group" if mode == "int4g" else "int4_matmul_row"
-        other = i4.row_launches if mode == "int4g" else i4.group_launches
         counts = {"flash_fwd": fa.launches, "decode_attention": da.launches,
-                  kname: i4.group_launches if mode == "int4g" else i4.row_launches}
-        print(f"step 3 {mode} launches: {counts}")
+                  "int4_matmul_row": i4.row_launches,
+                  "int4_matmul_group": i4.group_launches}
         for name, n in counts.items():
             self.launches[name] = self.launches.get(name, 0) + n
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        peak_gb = max(torch.cuda.max_memory_allocated() / 1e9, *peaks.values())
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"],
                              capture_output=True, text=True).stdout.strip()
-        print(f"step 3 {mode}: {stats['groups']} group(s), {stats['images']} "
+        rate = stats["image_tokens"] / stats["seconds"]
+        print(f"step 3 {tag}: {stats['groups']} group(s), {stats['images']} "
               f"images, {stats['image_tokens']} image tokens in "
-              f"{stats['seconds']:.1f} s of serving "
-              f"({stats['image_tokens'] / stats['seconds']:.1f} img-tok/s); "
+              f"{stats['seconds']:.1f} s of serving ({rate:.1f} img-tok/s); "
               f"step3.main {wall:.1f} s with the 7B init; peak memory "
-              f"{peak_gb:.2f} GB; card {smi}")
-        layers, steps, groups = 30, 575, stats["groups"]
-        self.check(groups == 1 and counts[kname] == 7 * layers * steps * groups
-                   and other == 0,
-                   f"{kname} launches {counts[kname]} == 7 x {layers} x {steps} "
-                   f"x {groups} group(s) (expected 1), the other int4 kernel "
-                   f"{other}")
-        self.check(counts["flash_fwd"] == layers * groups
-                   and counts["decode_attention"] == layers * steps * groups,
-                   f"flash_fwd {counts['flash_fwd']} == {layers} x {groups}, "
-                   f"decode_attention {counts['decode_attention']} == "
-                   f"{layers} x {steps} x {groups}")
+              f"{peak_gb:.2f} GB (model set-up {peaks['init']:.2f}, token "
+              f"generation {peaks['tokens']:.2f}, VQ decode "
+              f"{peaks['vq']:.2f}); launches {counts}; card {smi}")
         bad, n_png = [], 0
         for sample in data:
             for ptype in ("base", "negative"):
@@ -1635,9 +1681,31 @@ class Smoke:
             if img.shape != (384, 384, 3) or img.dtype.name != "uint8" \
                     or int(img.max()) == int(img.min()):
                 bad.append(f"{sample['item_id']}/00.png {img.shape}")
-        self.check(not bad and n_png == N_ITEMS and stats["images"] == N_ITEMS,
-                   f"step 3 {mode} output tree: {n_png} PNGs (384x384x3 uint8, "
+        self.check(not bad and n_png == N_ITEMS and stats["images"] == N_ITEMS
+                   and stats["groups"] == 1,
+                   f"step 3 {tag}: one group, {n_png} PNGs (384x384x3 uint8, "
                    f"non-constant) + metadata.json; bad: {bad[:3]}")
+        return {"stats": stats, "counts": counts, "peak_gb": peak_gb,
+                "tokens_gb": peaks["tokens"], "rate": rate,
+                "engine": engines[0] if engines else None}
+
+    def int4_path(self, mode: str):
+        """Step 3 as :meth:`step3_group` with ``quantize: mode`` (int4g: the
+        group kernel; int4 and int4n: the row kernel)."""
+        run = self.step3_group(f"quantize {mode}", {"quantize": mode})
+        counts = run["counts"]
+        kname = "int4_matmul_group" if mode == "int4g" else "int4_matmul_row"
+        other = counts["int4_matmul_row" if mode == "int4g"
+                       else "int4_matmul_group"]
+        layers, steps = 30, 575
+        self.check(counts[kname] == 7 * layers * steps and other == 0,
+                   f"{kname} launches {counts[kname]} == 7 x {layers} x "
+                   f"{steps} x 1 group, the other int4 kernel {other}")
+        self.check(counts["flash_fwd"] == layers
+                   and counts["decode_attention"] == layers * steps,
+                   f"flash_fwd {counts['flash_fwd']} == {layers}, "
+                   f"decode_attention {counts['decode_attention']} == "
+                   f"{layers} x {steps}")
 
     # -- phase 8 ---------------------------------------------------------
     def text_path(self):
@@ -2018,10 +2086,10 @@ class Smoke:
                    f"one: {codebook}; loss {loss:.4f} finite, weights moved")
         del initial, init_lm, want_t, trained, trainer
 
-    # -- phase 12 --------------------------------------------------------
-    def int8_trunk_path(self):
-        """Step 5 at the 7B width with ``quantize_base: int8`` (module
-        docstring, phase 12)."""
+    # -- phases 12 and 14c -------------------------------------------------
+    def trunk_path(self, mode: str):
+        """Step 5 at the 7B width with ``quantize_base: mode`` (module
+        docstring, phases 12 and 14c)."""
         import gc
 
         import numpy as np
@@ -2037,8 +2105,8 @@ class Smoke:
         data_path = os.path.join(self.workdir, "step4", "train.json")
         config = Config.from_nested(merged(merged(STEP5_CONFIG, step5_overrides(
             data_path, os.path.join(self.workdir, "step3"),
-            os.path.join(self.workdir, "step5_int8"))),
-            {"experiment": {"quantize_base": "int8"}}))
+            os.path.join(self.workdir, f"step5_{mode}"))),
+            {"experiment": {"quantize_base": mode}}))
         torch.cuda.reset_peak_memory_stats()
         fa.launches = fa.dq_launches = fa.dkv_launches = 0
         t0 = time.time()
@@ -2051,22 +2119,34 @@ class Smoke:
             self.launches[name] = self.launches.get(name, 0) + n
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         steps = trainer.update_seconds
+        self.trunks[mode] = {"steps": steps, "peak_gb": peak_gb}
         ref = self.lora_train
-        print(f"step 5 int8 trunk 7B: step seconds "
+        int8 = self.trunks.get("int8", {}) if mode != "int8" else {}
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True).stdout.strip()
+        print(f"step 5 {mode} trunk 7B: step seconds "
               f"{[round(x, 3) for x in steps]} (phase 5, bf16 trunk: "
-              f"{[round(x, 3) for x in ref.get('steps', [])]}); peak memory "
-              f"{peak_gb:.2f} GB (phase 5: {ref.get('peak_gb', float('nan')):.2f}"
-              f" GB); step5.main {wall:.1f} s; launches {counts}")
+              f"{[round(x, 3) for x in ref.get('steps', [])]}"
+              + (f"; phase 12, int8 trunk: "
+                 f"{[round(x, 3) for x in int8.get('steps', [])]}" if int8 else "")
+              + f"); peak memory {peak_gb:.2f} GB (phase 5: "
+              f"{ref.get('peak_gb', float('nan')):.2f} GB"
+              + (f"; phase 12: {int8.get('peak_gb', float('nan')):.2f} GB"
+                 if int8 else "")
+              + f"); step5.main {wall:.1f} s; launches {counts}; card {smi}")
         layers = trainer.model.params["language_model"]["layers"]
-        int8 = all(isinstance(layers[n], dict) and set(layers[n]) == {"q", "s"}
-                   and layers[n]["q"].dtype == torch.int8
-                   for n in quant.QUANTIZABLE)
+        keys = {"q", "sa"} if mode == "w8a8" else {"q", "s"}
+        quantized = all(isinstance(layers[n], dict) and set(layers[n]) == keys
+                        and layers[n]["q"].dtype == torch.int8
+                        for n in quant.QUANTIZABLE)
         micro = trainer.global_step
         want = {"flash_fwd": 60 * micro, "flash_bwd_dq": 30 * micro,
                 "flash_bwd_dkv": 30 * micro}
-        self.check(int8 and counts == want and micro == 3,
-                   f"int8 trunk: the 7 projections are int8 dicts ({int8}); "
-                   f"launches {counts} == 60/30/30 x {micro} micro-steps")
+        self.check(quantized and counts == want and micro == 3,
+                   f"{mode} trunk: the 7 projections are {sorted(keys)} dicts "
+                   f"({quantized}); launches {counts} == 60/30/30 x {micro} "
+                   f"micro-steps")
         ck = os.path.join(trainer.log_dir, "step_000003")
         files = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
         meta = read_json(os.path.join(ck, "meta.json")) if files else {}
@@ -2075,10 +2155,217 @@ class Smoke:
                     for ab in trainer.trainable.values())
         self.check(files == ["lora.npz", "meta.json", "opt.npz"]
                    and meta.get("mode") == "lora" and np.isfinite(loss) and moved,
-                   f"int8 trunk: step_000003/ {files}, meta mode "
+                   f"{mode} trunk: step_000003/ {files}, meta mode "
                    f"{meta.get('mode')}, loss {loss:.4f} finite, B moved off zero")
         del trainer
 
+    # -- phase 13 --------------------------------------------------------
+    def decode_modes_path(self):
+        """Step 3's opt-in decode modes at the 7B width (module docstring,
+        phase 13)."""
+        import dataclasses
+
+        import numpy as np
+
+        from ospo_tpu_torch.engine.image_engine import ImageGenEngine
+        from ospo_tpu_torch.io import read_json
+        from ospo_tpu_torch.models import janus, llama
+        from ospo_tpu_torch.ops import decode_attention as da
+        from ospo_tpu_torch.processing import t2i_prompt
+
+        layers, n_img = 30, 576
+        base = {"kv_layout": "bshd", "kv_quant": "int8", "decode_segments": 8}
+        plain = {"decode_attention": 0, "int4_matmul_row": 0,
+                 "int4_matmul_group": 0}
+
+        def plain_counts(tag, counts):
+            self.check(counts == {"flash_fwd": layers, **plain},
+                       f"step 3 {tag}: launches {counts} == flash_fwd {layers}"
+                       f" (the prefill) and no decode kernel (plain read)")
+
+        a = self.step3_group("bshd", base)
+        plain_counts("bshd", a["counts"])
+        # the plain read against the decode kernel: teacher-forced CFG
+        # logits of a bshd engine and of the shbd engine (the kernel) on
+        # the same model, prompts and forced tokens (PROBE_TOKENS: two
+        # segments of growing windows)
+        eng = a.pop("engine")
+        model, proc = eng.model, eng.processor
+        del eng
+        prompts = [t2i_prompt(proc, s["long_prompt"][0])
+                   for s in read_json(FIXTURE)[:PROBE_PROMPTS]]
+        forced = torch.randint(0, model.cfg.image_token_size,
+                               (len(prompts), PROBE_TOKENS),
+                               generator=torch.Generator().manual_seed(0)).numpy()
+
+        def probe(m, layout, plain_kernel=False):
+            """Forced logits of ``layout``'s engine on model ``m`` → (logits,
+            decode-kernel launches); ``plain_kernel`` swaps the kernel's
+            plain version in (the control)."""
+            eng = ImageGenEngine(m, proc, image_token_num=PROBE_TOKENS,
+                                 img_size=m.cfg.gen_image_size,
+                                 patch_size=m.cfg.vq.downsample_factor,
+                                 kv_quant="int8", decode_segments=8,
+                                 kv_layout=layout)
+            n0, kernel = da.launches, llama.decode_attention
+            if plain_kernel:
+                llama.decode_attention = da.decode_attention_plain
+            try:
+                out = eng.forced_cfg_logits(prompts, forced)
+            finally:
+                llama.decode_attention = kernel
+            return out, da.launches - n0
+
+        def dist(x, ref):
+            return float(np.abs(x - ref).max()), float(np.abs(ref).max())
+
+        # in fp32 (7B width and depth, int8 weights, fp32 activations and
+        # queries): the two reads differ by the order of fp32 sums
+        f32_cfg = dataclasses.replace(
+            model.cfg, dtype=torch.float32,
+            language=dataclasses.replace(model.cfg.language, dtype=torch.float32))
+        f32 = janus.JanusModel.init(f32_cfg, seed=1, quantize="int8",
+                                    device=model.device, lm_head=False,
+                                    understanding=False)
+        ref, n_kernel = probe(f32, "shbd")
+        got, n_plain = probe(f32, "bshd")
+        del f32
+        err, scale = dist(got, ref)
+        self.check(err <= 1e-2 * scale and np.isfinite(got).all()
+                   and n_kernel == layers * (PROBE_TOKENS - 1) and n_plain == 0,
+                   f"bshd plain read vs shbd decode kernel, forced CFG logits "
+                   f"(7B, int8 weights and KV, fp32 activations, "
+                   f"{len(prompts)} prompts, {PROBE_TOKENS} tokens): max|d|="
+                   f"{err:.3g}, max|ref|={scale:.3g} (tol 1e-2 max|ref|, phase "
+                   f"3's); decode launches {n_kernel} (shbd) and {n_plain} "
+                   f"(bshd)")
+        # on (a)'s bf16 model the same comparison reads bf16 rounding that
+        # 30 layers and 191 steps carry forward; the kernel against its own
+        # plain version is the control for that noise
+        ref, _ = probe(model, "shbd")
+        got, _ = probe(model, "bshd")
+        ctl, _ = probe(model, "shbd", plain_kernel=True)
+        del model
+        err, scale = dist(got, ref)
+        err_ctl, _ = dist(ctl, ref)
+        print(f"bf16 forced CFG logits (7B, {len(prompts)} prompts, "
+              f"{PROBE_TOKENS} tokens): bshd plain read vs shbd decode kernel "
+              f"max|d|={err:.3g}; the kernel's plain version vs the kernel "
+              f"max|d|={err_ctl:.3g}; max|ref|={scale:.3g}")
+        self.check(np.isfinite(got).all() and np.isfinite(ctl).all(),
+                   "bf16 forced CFG logits finite (bshd and the control)")
+
+        b = self.step3_group("bshd sjd4", {**base, "speculative": 4})
+        plain_counts("bshd sjd4", b["counts"])
+        iters = b.pop("engine").last_sjd_iters
+        per_iter = (n_img - 1) / iters if iters else float("nan")
+        print(f"step 3 bshd sjd4: last_sjd_iters {iters}, "
+              f"{per_iter:.3f} tokens an iteration (the bootstrap token "
+              f"comes from the prefill); {b['rate']:.1f} img-tok/s against "
+              f"{a['rate']:.1f} sequential")
+        self.check(iters is not None and 1 <= iters <= n_img - 1,
+                   f"SJD: {iters} Jacobi iterations for {n_img - 1} tokens "
+                   f"(never more than sequential)")
+
+        c = self.step3_group("bshd int4 kv", {**base, "kv_quant": "int4"})
+        plain_counts("bshd int4 kv", c["counts"])
+        cache_gb = {}
+        for tag, run in (("int8", a), ("int4", c)):
+            kv = llama.init_kv_cache(
+                janus.JANUS_PRO_7B.language, 48, 384 + n_img,
+                quantized=tag, layout="bshd", device="meta")
+            cache_gb[tag] = sum(t.numel() * t.element_size()
+                                for t in kv.values() if torch.is_tensor(t)) / 1e9
+        c.pop("engine")
+        print(f"step 3 bshd: peak memory of token generation int4 KV "
+              f"{c['tokens_gb']:.2f} GB, int8 KV {a['tokens_gb']:.2f} GB "
+              f"(a cache of 48 rows x {384 + n_img}: int4 {cache_gb['int4']:.2f}"
+              f" GB, int8 {cache_gb['int8']:.2f} GB); whole run {c['peak_gb']:.2f}"
+              f" and {a['peak_gb']:.2f} GB; {c['rate']:.1f} against "
+              f"{a['rate']:.1f} img-tok/s")
+
+    # -- phase 14b -------------------------------------------------------
+    def w8a8_score_path(self):
+        """Step 4b at the 7B width on a w8a8 trunk, readout off and on
+        (module docstring, phase 14b)."""
+        import gc
+
+        from ospo_tpu_torch.config import Config
+        from ospo_tpu_torch.engine.scoring import ScoringEngine
+        from ospo_tpu_torch.ops import flash_attention as fa
+        from ospo_tpu_torch.ops import quant
+        from ospo_tpu_torch.pipeline import step4
+        from ospo_tpu_torch.pipeline.model_factory import get_model
+
+        gc.collect()  # the previous phase's model goes first
+        torch.cuda.empty_cache()
+        items = score_items()[:W8A8_SCORE_ITEMS]
+        save = os.path.join(self.workdir, "step4b_w8a8")
+        os.makedirs(save)
+        config = Config.from_nested({
+            **STEP4_CONFIG, "model_path": None, "model_preset": "7b",
+            "quantize": "w8a8", "image_path": os.path.join(self.workdir, "step3"),
+            "save_path": save})
+        torch.cuda.reset_peak_memory_stats()
+        model, _, processor = get_model(config)
+        layers = model.params["language_model"]["layers"]
+        self.check(all(set(layers[n]) == {"q", "sa"} for n in quant.QUANTIZABLE),
+                   "step 4b w8a8: the trunk's 7 projections are {q, sa} dicts")
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True).stdout.strip()
+        scored = step4.score_prepared_chunk
+        answers = {}
+        for readout in (False, True):
+            seen = {}
+
+            def keep(engine, chunk):
+                out = scored(engine, chunk)
+                for job, res in zip(chunk["jobs"], out):
+                    if res is not None:
+                        seen[job["path"]] = [a["answer"]
+                                             for a in res["answer_metadata"]]
+                return out
+
+            engine = ScoringEngine(model, processor,
+                                   kv_quant=config.get("score_kv_quant") or False)
+            engine.readout_w8a16 = readout
+            fa.launches = 0
+            step4.score_prepared_chunk = keep
+            try:
+                with _ScoreRecorder(step4) as rec:
+                    pairs, summary = step4.run_scoring(config, engine, items)
+            finally:
+                step4.score_prepared_chunk = scored
+            st = rec.summary()
+            self.launches["flash_fwd"] = self.launches.get("flash_fwd", 0) \
+                + fa.launches
+            n_images = sum(c["images"] for c in summary.values())
+            answers[readout] = seen
+            print(f"step 4b w8a8, readout {'W8A16' if readout else 'w8a8'}: "
+                  f"{n_images} images in {st['loop_s']:.2f} s of the scoring "
+                  f"loop ({n_images / st['loop_s']:.2f} images/s); "
+                  f"{st['slices']} slices of {st['rows']} images, per slice "
+                  f"prefill {st['prefill_ms']:.2f} ms, suffixes "
+                  f"{st['suffix_ms']:.2f} ms; flash launches {fa.launches}; "
+                  f"engine counts {st['counts']}; {len(pairs)} pairs; card {smi}")
+            self.check(n_images == 6 * W8A8_SCORE_ITEMS and len(seen) == n_images
+                       and all(c["scored"] == c["images"] for c in summary.values())
+                       and st["counts"] == {"oom_retries": 0, "unshared_calls": 0,
+                                            "per_image_retries": 0}
+                       and fa.launches == 30 * st["slices"],
+                       f"step 4b w8a8 (readout {readout}): {n_images} images "
+                       f"scored, no retry or fallback {st['counts']}, flash "
+                       f"launches {fa.launches} == 30 x {st['slices']} slices")
+        keys = [(p, i) for p, a in answers[False].items() for i in range(len(a))]
+        same = sum(answers[False][p][i] == answers[True].get(p, [None] * (i + 1))[i]
+                   for p, i in keys)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"step 4b w8a8: the two readouts agree on {same} of {len(keys)} "
+              f"yes/no answers ({same / max(1, len(keys)):.4f}); peak memory "
+              f"{peak_gb:.2f} GB")
+        self.check(len(keys) > 0, f"step 4b w8a8: {len(keys)} answers compared")
+        del model
 
 class _Timed:
     """Times the named module functions while active (host clock around a
@@ -2441,7 +2728,15 @@ def main() -> int:
             smoke.phase("main path: step 5 full fine-tune at 1B width",
                         smoke.full_finetune_path)
             smoke.phase("main path: step 5 at 7B width on an int8 trunk",
-                        smoke.int8_trunk_path)
+                        lambda: smoke.trunk_path("int8"))
+            smoke.phase("main path: step 3 at 7B width, decode modes (bshd "
+                        "plain read, SJD, int4 KV)", smoke.decode_modes_path)
+            smoke.phase("main path: step 3 at 7B width, quantize int4n",
+                        lambda: smoke.int4_path("int4n"))
+            smoke.phase("main path: step 4b at 7B width, quantize w8a8",
+                        smoke.w8a8_score_path)
+            smoke.phase("main path: step 5 at 7B width on a w8a8 trunk",
+                        lambda: smoke.trunk_path("w8a8"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if smoke.failures or args.skip_main:

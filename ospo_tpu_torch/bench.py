@@ -16,7 +16,8 @@ defaults:
   AdamW) on random pixels,
   LoRA r32 (``--full``: full fine-tune of the language model, the
   ``configs/step5.yaml`` freeze matrix), batch 2, text length 32,
-  ``--quantize int8`` for the int8 frozen trunk (``quantize_base``);
+  ``--quantize int8`` / ``w8a8`` for a quantized frozen trunk
+  (``quantize_base``);
 - ``text`` — ``text-tokens/sec/chip``: :meth:`TextGenEngine.generate_ids`,
   64 rows of one 120-byte prompt, 256 new tokens, int8 weights and KV;
 - ``score`` — ``pref-pairs/hour/chip``: :meth:`ScoringEngine.
@@ -122,7 +123,7 @@ def bench_step3(args) -> dict:
         model, _processor(cfg, cfg.gen_image_size), cfg_weight=5.0,
         temperature=1.0, image_token_num=args.tokens,
         img_size=cfg.gen_image_size, patch_size=cfg.vq.downsample_factor,
-        kv_quant=args.kv, batch_cap=batch)
+        kv_quant=args.kv, decode_segments=8, batch_cap=batch)
     prompts = ["A" * args.prompt_len] * batch  # byte tokenizer: one id a byte
     out = {}
 
@@ -278,9 +279,11 @@ def parse_args(argv=None):
                    help="prompt bytes (step3 64, text 120)")
     p.add_argument("--quantize", default=None,
                    help="trunk weights: int8 (default for step3, text, "
-                        "score), int4, int4g or none; train: the frozen "
-                        "trunk (quantize_base, default none)")
-    p.add_argument("--kv", default="int8", help="KV cache: int8 or bf16")
+                        "score), w8a8, int4, int4g, int4n or none; train: "
+                        "the frozen trunk (quantize_base: int8 or w8a8, "
+                        "default none)")
+    p.add_argument("--kv", default="int8",
+                   help="KV cache: int8, int4 (step3, text) or bf16")
     p.add_argument("--text-len", type=int, default=32,
                    help="train: text tokens a sample")
     p.add_argument("--full", action="store_true",

@@ -4,16 +4,19 @@
 - cond/uncond pairs are one fused batch of 2B rows ([0:B] cond, [B:2B]
   uncond);
 - the prompt prefill runs once through the flash kernel into a preallocated
-  batch-minor KV cache, then 576 image tokens are decoded one step at a
-  time, each step reading the cache with the decode-attention kernel;
+  KV cache, then 576 image tokens are decoded one step at a time;
 - the CFG combine ``uncond + w·(cond − uncond)``, temperature and sampling
   run in fp32; the sampled token is fed back through gen_embed → gen_aligner;
 - ``decode_code`` turns the tokens into uint8 pixels on the device.
 
-This is what the JAX engine does with ``decode_kernel: true``: the cache
-window is 64-aligned and always the whole cache (the kernel reads only the
-populated prefix).  The step-3 config keys ``decode_kernel`` and
-``decode_segments`` therefore select nothing here and are not read.
+The default cache is the batch-minor ``shbd`` one with a model-dtype or int8
+payload: each step reads it with the decode-attention kernel, which reads
+only the populated rows, so the window is always the whole (64-aligned)
+cache — the JAX engine with ``decode_kernel: true``.  The ``bshd`` and
+``bhsd`` layouts and the int4 cache read through the plain
+``xla_attention``, the JAX engine's XLA path: there ``decode_segments``
+growing windows bound each read.  ``speculative: W`` runs speculative
+Jacobi decoding (``_generate_tokens_sjd``) on a ``bshd`` / ``bhsd`` cache.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ class ImageGenEngine:
         img_size: int = IMG_SIZE,
         patch_size: int = PATCH_SIZE,
         kv_quant=False,
+        decode_segments: int = 1,
         speculative: int = 0,
         kv_layout: str = None,
         batch_cap: int = None,
@@ -60,23 +64,29 @@ class ImageGenEngine:
         self.img_size = img_size
         self.patch_size = patch_size
         self.kv_quant = parse_kv_quant(kv_quant)
-        if self.kv_quant == "int4":
-            raise NotImplementedError(
-                "kv_quant: int4 is queued in ROADMAP.md (slice 5, opt-in modes)")
-        if int(speculative):
-            raise NotImplementedError(
-                "speculative Jacobi decoding is queued in ROADMAP.md "
-                "(slice 5, opt-in modes)")
+        self.decode_segments = max(1, int(decode_segments))
+        # speculative Jacobi decoding: window W (0 = sequential)
+        self.speculative = int(speculative)
         self.kv_layout = kv_layout or "shbd"
-        if self.kv_layout != "shbd":
-            raise NotImplementedError(
-                f"kv_layout {self.kv_layout!r}: the port has the batch-minor "
-                "'shbd' cache only; 'bshd'/'bhsd' are queued in ROADMAP.md "
-                "(slice 5, opt-in modes)")
+        if self.kv_layout not in ("bshd", "bhsd", "shbd"):
+            raise ValueError(f"kv_layout {self.kv_layout!r}: expected bshd | "
+                             "bhsd | shbd")
+        # the JAX engine's refusals (:96-111)
+        if self.speculative:
+            if self.kv_layout == "shbd":
+                raise ValueError("speculative decoding needs per-row offsets "
+                                 "(bshd/bhsd)")
+            if self.kv_quant == "int4":
+                raise ValueError("int4 KV does not support per-row offsets "
+                                 "(SJD)")
+        # the decode-attention kernel reads the shbd model-dtype / int8 cache
+        self.kernel_read = self.kv_layout == "shbd" and self.kv_quant != "int4"
         self.batch_cap = batch_cap
+        # Jacobi iterations of the last speculative call
+        self.last_sjd_iters = None
         # step_hook(step) is called on the host before each step's emit
-        # (step 0 right after the prefill); scripts/profile_torch_step3.py
-        # times and profiles the serving loop through it
+        # (step 0 right after the prefill) of the sequential loop;
+        # scripts/profile_torch_step3.py times and profiles it through it
         self.step_hook = None
 
     # ------------------------------------------------------------------
@@ -119,14 +129,18 @@ class ImageGenEngine:
     def _segmented_decode(self, tokens: torch.Tensor, attn_mask: torch.Tensor,
                           step_fn: Callable) -> torch.Tensor:
         """The serving loop shared by sampling and the teacher-forced probe:
-        prefill into the KV cache, then ``n_img - 1`` cached steps.
-        ``step_fn(hidden_last, step, prompt_len) → (emit, embeds, pos)``
-        defines what each step emits and feeds next; emits are stacked on
-        axis 1."""
+        prefill into the KV cache, then ``n_img - 1`` cached steps in
+        ``decode_segments`` segments (:162-245).  ``step_fn(hidden_last,
+        step, prompt_len) → (emit, embeds, pos)`` defines what each step
+        emits and feeds next; emits are stacked on axis 1.  On the kernel's
+        cache every step reads the whole window; on a plain read each
+        segment's window covers the rows it writes (64-aligned)."""
         params, cfg = self.model.params, self.model.cfg
         two_b, t_prompt = tokens.shape
         n_img = self.image_token_num
-        s_max = ((t_prompt + n_img + 63) // 64) * 64
+        s_max = t_prompt + n_img
+        if self.kernel_read:
+            s_max = ((s_max + 63) // 64) * 64
 
         kv = llama.init_kv_cache(cfg.language, two_b, s_max,
                                  quantized=self.kv_quant, layout=self.kv_layout,
@@ -137,7 +151,7 @@ class ImageGenEngine:
         prompt_len = attn_mask.sum(dim=-1)           # [2B] valid prompt tokens
 
         # mask over the whole cache: prompt part, all-ones image part
-        # (cur_len excludes rows not written yet), zero alignment pad
+        # (causality excludes rows not written yet), zero alignment pad
         window_mask = torch.cat([
             attn_mask,
             torch.ones((two_b, n_img), dtype=torch.int32, device=self.device),
@@ -149,20 +163,33 @@ class ImageGenEngine:
             hook(0)
         emit, embeds, pos = step_fn(hidden[:, -1], 0, prompt_len)
         outs = [emit]
-        for step in range(1, n_img):
-            hidden, kv = janus_lib.language_forward(
-                params, cfg, embeds, window_mask, pos, kv_cache=kv)
-            if hook:
-                hook(step)
-            emit, embeds, pos = step_fn(hidden[:, -1], step, prompt_len)
-            outs.append(emit)
+        n_seg = min(self.decode_segments, max(1, (n_img - 1) // 64))
+        start = 1
+        for s in range(n_seg):
+            end = 1 + (n_img - 1) * (s + 1) // n_seg
+            window = s_max if self.kernel_read else \
+                min(s_max, ((t_prompt + end + 63) // 64) * 64)
+            for step in range(start, end):
+                hidden, kv = janus_lib.language_forward(
+                    params, cfg, embeds, window_mask[:, :window], pos,
+                    kv_cache=kv, attn_window=window)
+                if hook:
+                    hook(step)
+                emit, embeds, pos = step_fn(hidden[:, -1], step, prompt_len)
+                outs.append(emit)
+            start = end
         return torch.stack(outs, dim=1)
 
-    def _cfg_logits(self, hidden_last: torch.Tensor, cfg_weight: float):
-        logits = janus_lib.gen_logits(self.model.params, hidden_last[:, None, :])[:, 0]
+    def _cfg_logits(self, hidden: torch.Tensor, cfg_weight: float):
+        """Fused fp32 CFG logits of the last position ([2B, D] → [B, V]) or
+        of every position ([2B, W, D] → [B, W, V])."""
+        last = hidden.dim() == 2
+        logits = janus_lib.gen_logits(self.model.params,
+                                      hidden[:, None] if last else hidden)
         b = logits.shape[0] // 2
         cond, uncond = logits[:b], logits[b:]
-        return (uncond + cfg_weight * (cond - uncond)).float()
+        fused = (uncond + cfg_weight * (cond - uncond)).float()
+        return fused[:, 0] if last else fused
 
     def _feed(self, tok: torch.Tensor, step: int, prompt_len: torch.Tensor):
         both = torch.cat([tok, tok])                           # [2B]
@@ -177,6 +204,104 @@ class ImageGenEngine:
             return (tok, *self._feed(tok, step, prompt_len))
 
         return self._segmented_decode(tokens, attn_mask, sample_step)
+
+    def _fused_probs(self, hidden: torch.Tensor) -> torch.Tensor:
+        fused = self._cfg_logits(hidden, self.cfg_weight)
+        return torch.softmax(fused / max(self.temperature, 1e-6), dim=-1)
+
+    @torch.inference_mode()
+    def _generate_tokens_sjd(self, tokens, attn_mask,
+                             generator: torch.Generator) -> torch.Tensor:
+        """Speculative Jacobi CFG decode (:305-453): each model call
+        verifies W drafted tokens at every row's own cache offset with
+        speculative-sampling acceptance, so the output distribution is that
+        of sequential sampling.  The JAX while-loop is a host loop here: it
+        reads ``min(n_gen)`` once an iteration; all else stays on the
+        device, every draw from ``generator``."""
+        params, cfg = self.model.params, self.model.cfg
+        dev = self.device
+        two_b, t_prompt = tokens.shape
+        b = two_b // 2
+        n_img, W = self.image_token_num, self.speculative
+        s_max = t_prompt + n_img + W          # drafts may overhang the end
+
+        kv = llama.init_kv_cache(cfg.language, two_b, s_max,
+                                 quantized=self.kv_quant, layout=self.kv_layout,
+                                 device=dev)
+        hidden, kv = janus_lib.language_forward(
+            params, cfg, janus_lib.embed_text(params, tokens), attn_mask,
+            llama.positions_from_mask(attn_mask), kv_cache=kv, self_attn=True)
+        prompt_len = attn_mask.sum(dim=-1)               # [2B] rotary base
+        base_mask = torch.cat([attn_mask, torch.zeros(
+            (two_b, s_max - t_prompt), dtype=attn_mask.dtype, device=dev)], -1)
+        s_idx = torch.arange(s_max, device=dev)[None, :]
+        rows = torch.arange(b, device=dev)
+        wi = torch.arange(W, device=dev)[None, :]
+
+        def draw(p):
+            return sample_categorical(torch.log(p + 1e-30), 1.0, generator)
+
+        # bootstrap: one sequential token, W drafts iid from p0
+        p0 = self._fused_probs(hidden[:, -1])            # [B, V]
+        last = draw(p0)
+        q_probs = p0[:, None].expand(b, W, p0.shape[-1])
+        drafts = draw(q_probs)
+        # W spare columns take the writes past n_img (dropped at the end)
+        out = torch.zeros((b, n_img + W), dtype=torch.long, device=dev)
+        out[:, 0] = last
+        n_gen = torch.ones((b,), dtype=torch.long, device=dev)
+        iters = 0
+        while int(n_gen.min()) < n_img:
+            # the window's first query is last = out[n_gen - 1]: its cache
+            # row is t_prompt + n_gen - 1 and its rotary position
+            # prompt_len + n_gen - 1 (one off either way leaves row t_prompt
+            # an all-zero row every later softmax attends)
+            row2b = torch.cat([t_prompt + n_gen - 1] * 2)
+            inputs = torch.cat([last[:, None], drafts[:, :W - 1]], dim=1)
+            embeds = janus_lib.prepare_gen_img_embeds(
+                params, cfg, torch.cat([inputs, inputs]))
+            pos = (prompt_len + torch.cat([n_gen, n_gen]) - 1)[:, None] + wi
+            mask = base_mask | ((s_idx >= t_prompt)
+                                & (s_idx < (row2b + W)[:, None])).to(
+                                    base_mask.dtype)
+            hidden, kv = janus_lib.language_forward(
+                params, cfg, embeds, mask, pos, kv_cache=kv,
+                cache_positions=row2b)
+            p = self._fused_probs(hidden)                # [B, W, V]
+
+            p_d = p.gather(-1, drafts[..., None])[..., 0]
+            q_d = q_probs.gather(-1, drafts[..., None])[..., 0]
+            u = torch.rand((b, W), generator=generator, device=dev)
+            acc = (u < p_d / q_d.clamp_min(1e-30)).long()
+            n_acc = torch.cumprod(acc, dim=1).sum(dim=1)  # [B] 0..W
+
+            # residual resample at the first rejected slot
+            j = n_acc.clamp_max(W - 1)
+            p_j, q_j = p[rows, j], q_probs[rows, j]
+            resid = (p_j - q_j).clamp_min(0.0)
+            resid = torch.where(resid.sum(-1, keepdim=True) > 1e-20, resid, p_j)
+            t_res = draw(resid)
+
+            c = torch.where(n_acc < W, n_acc + 1, W)    # committed count
+            c = torch.where(n_gen >= n_img, 0, c)         # freeze done rows
+            committed = torch.where(
+                wi < n_acc[:, None], drafts,
+                torch.where(wi == n_acc[:, None], t_res[:, None], 0))
+            write = (wi < c[:, None]) & ((n_gen[:, None] + wi) < n_img)
+            out.scatter_(1, torch.where(write, n_gen[:, None] + wi, n_img + wi),
+                         committed)
+            tail = committed.gather(1, (c - 1).clamp_min(0)[:, None])[:, 0]
+            last = torch.where(c > 0, tail, last)
+
+            # next drafts: each slot drawn on its own from this round's
+            # distribution shifted by c (clamped to the last slot), so
+            # q_probs stays the true proposal
+            q_probs = p[rows[:, None], (c[:, None] + wi).clamp_max(W - 1)]
+            drafts = draw(q_probs)
+            n_gen = (n_gen + c).clamp_max(n_img)
+            iters += 1
+        self.last_sjd_iters = iters
+        return out[:, :n_img]
 
     def forced_cfg_logits(self, prompts: Sequence[str],
                           forced_tokens: np.ndarray) -> np.ndarray:
@@ -218,6 +343,8 @@ class ImageGenEngine:
         tokens, mask = self._to_device(*self.build_cfg_batch(prompts))
         generator = torch.Generator(device=self.device)
         generator.manual_seed(int(seed))
+        if self.speculative:
+            return self._generate_tokens_sjd(tokens, mask, generator), b_real
         return self._generate_tokens(tokens, mask, generator), b_real
 
     def generate_tokens(self, prompts: Sequence[str], seed: int = 0) -> np.ndarray:

@@ -20,7 +20,8 @@ unshared forward's token for token:
   flash prefill from position 0 (the single-segment program);
 - each question's suffix runs as a cached multi-token step against that
   cache (``llama.forward`` with T > 1), the cache length reset between
-  questions so each suffix overwrites the same rows.
+  questions so each suffix overwrites the same rows; on a w8a8 trunk
+  ``readout_w8a16`` runs them weight-only.
 
 Chunks are cut into balanced slices under a row-token budget (images × cache
 rows); a CUDA out-of-memory error halves the slice (sticky) and, at one
@@ -29,6 +30,7 @@ image, falls back for good to the unshared N·Q-row forward.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import sys
 import traceback
@@ -39,6 +41,7 @@ import torch
 
 from ospo_tpu_torch.models import janus as janus_lib
 from ospo_tpu_torch.models import llama
+from ospo_tpu_torch.ops import quant
 from ospo_tpu_torch.ops.pixels import normalize_pixels
 from ospo_tpu_torch.processing import Processor
 
@@ -72,6 +75,9 @@ def parse_kv_quant(kv_quant):
         return False
     if kv_quant in (True, "int8"):
         return "int8"
+    if kv_quant == "int4":
+        raise ValueError("scoring supports bf16 or int8 prefix caches (int4 "
+                         "KV is a decode-engine option)")
     raise ValueError(f"score_kv_quant {kv_quant!r}: scoring takes a bf16 or "
                      "an int8 prefix cache")
 
@@ -84,6 +90,12 @@ class ScoringEngine:
         self.device = model.device
         self.kv_quant = parse_kv_quant(kv_quant)
         self.pre_image_prefix = bool(pre_image_prefix)
+        # precision-mixed readout (``ospo_tpu/engine/scoring.py:88-124``):
+        # on a w8a8 trunk the question suffixes, whose last position feeds
+        # the yes/no readout, run weight-only (W8A16) while the prefills
+        # keep the int8 x int8 product; no-op for other trunks.  The JAX
+        # package reads it from OSPO_SCORE_READOUT; here callers set it
+        self.readout_w8a16 = False
         self.row_token_budget = ROW_TOKEN_BUDGET[self.kv_quant]
         self._shared_oom = False  # sticky fallback (score_images_multi)
         # what the run took besides the shared path: halved slices after an
@@ -149,9 +161,12 @@ class ScoringEngine:
             kv["length"] = p  # this question overwrites the last one's rows
             pos = prefix_len - 1 + torch.cumsum(sfx_mask[i], dim=-1).clamp_min(1)
             window = torch.cat([mask, sfx_mask[i]], dim=-1)
-            hidden, _ = janus_lib.language_forward(
-                params, cfg, janus_lib.embed_text(params, sfx_ids[i].clamp_min(0)),
-                window, pos, kv_cache=kv, prefix_kv=prefix)
+            with (quant.w8a16_override() if self.readout_w8a16
+                  else contextlib.nullcontext()):
+                hidden, _ = janus_lib.language_forward(
+                    params, cfg,
+                    janus_lib.embed_text(params, sfx_ids[i].clamp_min(0)),
+                    window, pos, kv_cache=kv, prefix_kv=prefix)
             out.append(self._yes_no(
                 janus_lib.lm_logits(params, hidden[:, -1:])[:, 0]))
         return torch.stack(out)

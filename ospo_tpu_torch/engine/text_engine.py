@@ -7,7 +7,8 @@
   run the same shapes.
 - The plain program prefills the batch into a batch-minor KV cache of
   ``t_prompt + max_new`` rows (flash kernel), then decodes one token a step
-  (decode-attention kernel).
+  (decode-attention kernel; an int4 cache, ``kv_quant: int4``, through the
+  plain ``xla_attention``).
 - The shared-prefix program, for batches whose prompts share at least
   ``SHARED_PREFIX_MIN`` leading tokens (a few-shot template), prefills that
   prefix once at B = 1 into a bf16 cache and reads it as a batch-shared
@@ -75,10 +76,9 @@ class TextGenEngine:
         self.temperature = float(temperature)
         self.top_p = top_p
         self.do_sample = bool(do_sample)
+        # an int4 per-row cache (shbd, two heads a byte) is read by the
+        # plain forms: the decode kernel takes model-dtype and int8 caches
         self.kv_quant = parse_kv_quant(kv_quant)
-        if self.kv_quant == "int4":
-            raise NotImplementedError(
-                "kv_quant: int4 is queued in ROADMAP.md (slice 5, opt-in modes)")
         self.batch_cap = batch_cap
         self.shared_prefix = True if shared_prefix is None else bool(shared_prefix)
         # step_hook(step) is called on the host before each step's sampling

@@ -328,9 +328,9 @@ class JanusModel:
     def init(cls, cfg: JanusConfig, seed: int = 0, quantize=False,
              device: Optional[torch.device] = None, lm_head: bool = True,
              vision: bool = True, understanding: bool = True) -> "JanusModel":
-        """Random init on ``device``; ``quantize`` (True = "int8", "int4",
-        "int4g") quantizes each trunk matrix as it is drawn, so the
-        model-dtype trunk never exists whole.  The draws are the same in
+        """Random init on ``device``; ``quantize`` (True = "int8", "w8a8",
+        "int4", "int4g", "int4n") quantizes each trunk matrix as it is
+        drawn, so the model-dtype trunk never exists whole.  The draws are the same in
         every mode.  ``lm_head=False`` leaves the text head out,
         ``understanding=False`` the SigLIP tower and the aligner,
         ``vision=False`` the VQ model, the generation heads and the

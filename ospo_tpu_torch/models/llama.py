@@ -7,17 +7,20 @@ projection either a tensor or a quantized dict (int8 ``{"q", "s"}``, int4
 ``{"q4", "s"}`` or ``{"q4", "gs"}``; ``ops/quant.py``).  The layer loop is a
 Python loop over the stack.
 
-The KV cache is preallocated in the batch-minor ``shbd`` layout
-``[L, S, H, B, Dh]`` and updated in place (PyTorch tensors are mutable; the
-JAX package threads a new cache through its scan instead).  Prefill
+The KV cache is preallocated (by default in the batch-minor ``shbd``
+layout ``[L, S, H, B, Dh]``; ``bshd`` and ``bhsd``, int8 and int4 payloads
+too) and updated in place (PyTorch tensors are mutable; the JAX package
+threads a new cache through its scan instead).  Prefill
 (``self_attn=True``) writes the prompt rows and attends over them with the
-flash kernel; a cached T=1 step writes its row and reads the cache with the
-decode-attention kernel, a cached T > 1 step its rows with the plain
-``cached_attention``.  With a batch-shared prefix segment (``prefix_kv``,
-the text engine's shared-prefix decode and step 4b's pre-image segment)
-prefill and T = 1 take the plain prefix forms of ``ops/attention.py``
-instead.  Numerics follow the reference: weights in the
-model dtype, RMSNorm / RoPE / softmax / SiLU in fp32.
+flash kernel; on an ``shbd`` model-dtype or int8 cache a cached T=1 step
+writes its row and reads the cache with the decode-attention kernel, a
+cached T > 1 step its rows with the plain ``cached_attention``.  With a
+batch-shared prefix segment (``prefix_kv``, the text engine's shared-prefix
+decode and step 4b's pre-image segment) prefill and T = 1 take the plain
+prefix forms of ``ops/attention.py`` instead.  Other layouts, int4 caches
+and per-row offsets read through the plain ``xla_attention``.  Numerics
+follow the reference: weights in the model dtype, RMSNorm / RoPE / softmax
+/ SiLU in fp32.
 
 Without a cache the trunk is the training forward: LoRA adapters with
 dropout, per-layer activation checkpointing, and attention through the
@@ -34,12 +37,17 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from ospo_tpu_torch.ops.attention import (attention, cached_attention,
-                                          prefix_decode_attention)
+from ospo_tpu_torch.ops.attention import (HEAD_AXIS, POS_AXIS, attention,
+                                          cached_attention,
+                                          prefix_decode_attention,
+                                          xla_attention)
 from ospo_tpu_torch.ops.decode_attention import decode_attention
 from ospo_tpu_torch.ops.int4_matmul import int4_matmul_decode
-from ospo_tpu_torch.ops.quant import (quantized_matmul, quantized_matmul_int4,
-                                      quantized_matmul_int4_group)
+from ospo_tpu_torch.ops.quant import (_pack_halves, quantized_matmul,
+                                      quantized_matmul_int4,
+                                      quantized_matmul_int4_group,
+                                      quantized_matmul_w8a8,
+                                      quantized_matmul_w8a16, w8a16_active)
 
 Params = Dict[str, Any]
 
@@ -120,11 +128,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 def linear(x: torch.Tensor, w) -> torch.Tensor:
     """y = x @ wᵀ for a plain weight or a quantized dict: int8 ``{"q", "s"}``,
-    int4 ``{"q4", "s"}`` or int4 groups ``{"q4", "gs"}``.  A T == 1 int4
-    product runs the decode-matmul kernel (its plain version on the CPU);
-    a longer one the prefill forms of ``ops/quant.py``."""
+    w8a8 ``{"q", "sa"}``, int4 ``{"q4", "s"}`` (int4 and int4n) or int4
+    groups ``{"q4", "gs"}``.  A w8a8 weight runs the int8 × int8 product,
+    or the weight-only one under ``quant.w8a16_override()``
+    (``ospo_tpu/models/llama.py:196-206``).  A T == 1 int4 product runs the
+    decode-matmul kernel (its plain version on the CPU); a longer one the
+    prefill forms of ``ops/quant.py``."""
     if not isinstance(w, dict):
         return x @ w.T
+    if "sa" in w:
+        return (quantized_matmul_w8a16(x, w) if w8a16_active()
+                else quantized_matmul_w8a8(x, w))
     if "q4" not in w:
         return quantized_matmul(x, w)
     if x.shape[1] == 1:
@@ -186,32 +200,39 @@ def _maybe_lora(x: torch.Tensor, w, lora: Optional[Params], name: str,
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
                   quantized=False, layout: str = "shbd",
                   device=None) -> Dict[str, Any]:
-    """Preallocated batch-minor cache ``[L, S, H, B, Dh]``: model-dtype
-    payload, or int8 with ``[L, S, H, B]`` fp32 scales
-    (``quantized=True``/``"int8"``).  ``length`` is a host integer."""
-    if layout != "shbd":
-        raise NotImplementedError(
-            f"kv_layout {layout!r}: the port has the batch-minor 'shbd' cache "
-            "only; 'bshd'/'bhsd' are queued in ROADMAP.md (slice 5, opt-in "
-            "modes)")
-    if quantized not in (False, True, "int8"):
-        raise NotImplementedError(
-            f"kv_quant {quantized!r}: int4 KV is queued in ROADMAP.md "
-            "(slice 5, opt-in modes)")
-    shape = (cfg.num_layers, max_len, cfg.kv_heads, batch, cfg.dim_head)
+    """Preallocated cache (``ospo_tpu/models/llama.py:232-286``) in one of
+    three layouts: batch-minor ``shbd`` ``[L, S, H, B, Dh]`` (the default:
+    the decode-attention kernel's layout), position-major ``bshd``
+    ``[L, B, S, H, Dh]`` or head-major ``bhsd`` ``[L, B, H, S, Dh]``.  The
+    payload is the model dtype, int8 (``quantized=True``/``"int8"``) or
+    int4 (``"int4"``: two heads a byte, head axis ``H/2``, MHA only), the
+    quantized ones with fp32 scales ``[L, S, H, B]`` (``shbd``) or
+    ``[L, B, H, S]``.  ``length`` is a host integer; ``layout`` names the
+    layout for every forward that touches the cache."""
+    if layout not in ("bshd", "bhsd", "shbd"):
+        raise ValueError(f"kv_layout {layout!r}: expected bshd | bhsd | shbd")
+    if quantized not in (False, True, "int8", "int4"):
+        raise ValueError(f"kv_quant {quantized!r}: expected False, True, "
+                         "'int8' or 'int4'")
+    L, H, D = cfg.num_layers, cfg.kv_heads, cfg.dim_head
+    int4 = quantized == "int4"
+    if int4 and H % 2:
+        raise ValueError("int4 KV packs head pairs (even head count)")
+    hp = H // 2 if int4 else H
+    shape = {"bshd": (L, batch, max_len, hp, D),
+             "bhsd": (L, batch, hp, max_len, D),
+             "shbd": (L, max_len, hp, batch, D)}[layout]
+    out: Dict[str, Any] = {"length": 0, "layout": layout}
     if quantized:
-        return {
-            "k": torch.zeros(shape, dtype=torch.int8, device=device),
-            "k_s": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
-            "v": torch.zeros(shape, dtype=torch.int8, device=device),
-            "v_s": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
-            "length": 0,
-        }
-    return {
-        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-        "length": 0,
-    }
+        sshape = (L, max_len, H, batch) if layout == "shbd" else (L, batch, H, max_len)
+        for name in ("k", "v"):
+            out[name] = torch.zeros(shape, dtype=torch.int8, device=device)
+            out[name + "_s"] = torch.zeros(sshape, dtype=torch.float32,
+                                           device=device)
+        return out
+    out["k"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+    out["v"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+    return out
 
 
 def _quantize_rows(x: torch.Tensor):
@@ -222,22 +243,92 @@ def _quantize_rows(x: torch.Tensor):
     return q, s
 
 
+def _quantize_rows_int4(x: torch.Tensor):
+    """[..., H, Dh] → (packed int8 [..., H/2, Dh], fp32 scales [..., H])
+    (``llama.py:297-316``): 15-level symmetric per (row, head), head j in
+    the low nibble and head j + H/2 in the high nibble of head slot j."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1).clamp_min(1e-12) / 7.0
+    q = torch.round(xf / s[..., None]).clamp(-7, 7).to(torch.int8)
+    if q.shape[-2] % 2:
+        raise ValueError("int4 KV packs head pairs — needs an even head count")
+    return _pack_halves(q), s
+
+
+def _int4_cache(cache: Dict[str, Any]) -> bool:
+    """Head-pair packed: the payload holds half the heads of the scales
+    (whose head axis is 2 in every layout)."""
+    layout = cache.get("layout", "shbd")
+    return "k_s" in cache and cache["k_s"].shape[2] != cache["k"].shape[
+        HEAD_AXIS[layout] + 1]
+
+
+# fresh rows [B, T, H, Dh] → a layout's row order, and scales [B, T, H] →
+# its scale order
+_ROW_PERM = {"bshd": (0, 1, 2, 3), "bhsd": (0, 2, 1, 3), "shbd": (1, 2, 0, 3)}
+_SCALE_PERM = {"bshd": (0, 2, 1), "bhsd": (0, 2, 1), "shbd": (1, 2, 0)}
+
+
 def _write_kv(cache: Dict[str, Any], li: int, start: int,
-              k: torch.Tensor, v: torch.Tensor) -> None:
-    """Write fresh [B, T, H, Dh] rows at positions [start, start + T)."""
-    end = start + k.shape[1]
-    kw = k.permute(1, 2, 0, 3)   # → cache row order [T, H, B, Dh]
-    vw = v.permute(1, 2, 0, 3)
-    if "k_s" in cache:
-        kq, ks = _quantize_rows(kw)
-        vq, vs = _quantize_rows(vw)
-        cache["k"][li, start:end] = kq
-        cache["v"][li, start:end] = vq
-        cache["k_s"][li, start:end] = ks
-        cache["v_s"][li, start:end] = vs
-    else:
-        cache["k"][li, start:end] = kw.to(cache["k"].dtype)
-        cache["v"][li, start:end] = vw.to(cache["v"].dtype)
+              k: torch.Tensor, v: torch.Tensor,
+              positions: Optional[torch.Tensor] = None) -> None:
+    """Write fresh [B, T, H, Dh] rows at positions [start, start + T), or at
+    ``[positions[b], positions[b] + T)`` per row (``llama.py:475-526``).
+    A quantized cache stores the rows' int8 or int4 values (quantized in
+    head order, then permuted) and their scales."""
+    layout = cache.get("layout", "shbd")
+    T = k.shape[1]
+    int4 = _int4_cache(cache)
+    for name, x in (("k", k), ("v", v)):
+        if "k_s" in cache:
+            xq, xs = _quantize_rows_int4(x) if int4 else _quantize_rows(x)
+            rows = [(name, xq.permute(_ROW_PERM[layout])),
+                    (name + "_s", xs.permute(_SCALE_PERM[layout]))]
+        else:
+            rows = [(name, x.permute(_ROW_PERM[layout]).to(cache[name].dtype))]
+        for key, val in rows:
+            dst = cache[key]
+            if positions is None:
+                if layout == "shbd":
+                    dst[li, start:start + T] = val
+                elif layout == "bshd" and key in ("k", "v"):
+                    dst[li, :, start:start + T] = val
+                else:  # bhsd rows, and the [B, H, S] scales of both
+                    dst[li, :, :, start:start + T] = val
+                continue
+            B, dev = k.shape[0], k.device
+            sidx = positions[:, None] + torch.arange(T, device=dev)[None, :]
+            if layout == "bshd" and key in ("k", "v"):
+                dst[li, torch.arange(B, device=dev)[:, None], sidx] = val
+            else:  # [B, H, T(, Dh)] at [b, h, positions[b] + t]
+                dst[li, torch.arange(B, device=dev)[:, None, None],
+                    torch.arange(val.shape[1], device=dev)[None, :, None],
+                    sidx[:, None, :]] = val
+
+
+def _cache_window(cache: Dict[str, Any], li: int, layout: str,
+                  window: Optional[int]):
+    """Layer ``li``'s k and v, truncated to the first ``window`` positions,
+    as :func:`~ospo_tpu_torch.ops.attention.xla_attention` reads them:
+    tensors, or ``{"q" | "q4", "s"}`` with scales ``[B, H, S]`` (a view of
+    the ``shbd`` ``[S, H, B]`` ones)."""
+    pax = POS_AXIS[layout]
+    key = "q4" if _int4_cache(cache) else "q"
+    out = []
+    for name in ("k", "v"):
+        t = cache[name][li]
+        if window is not None:
+            t = t.narrow(pax, 0, min(window, t.shape[pax]))
+        if "k_s" not in cache:
+            out.append(t)
+            continue
+        s = cache[name + "_s"][li]
+        if layout == "shbd":
+            s = s.permute(2, 1, 0)
+        if window is not None:
+            s = s[..., :t.shape[pax]]
+        out.append({key: t, "s": s})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +374,8 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
             remat: bool = False,
             attn_impl: str = "auto",
             prefix_kv: Optional[Dict[str, torch.Tensor]] = None,
+            attn_window: Optional[int] = None,
+            cache_positions: Optional[torch.Tensor] = None,
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Run the decoder trunk; returns (final-norm hidden states, cache).
 
@@ -292,8 +385,21 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     step writes its T rows at ``cache['length']`` (one host integer for
     every row) and reads positions ``[0, length + T)`` of the cache,
     causally; ``attention_mask`` covers the whole cache window
-    ``[B, S_max]`` (int32).  T = 1 runs the decode-attention kernel, T > 1
-    (step 4b's question suffixes) the plain ``cached_attention``.
+    ``[B, S_max]`` (int32).  On a model-dtype or int8 ``shbd`` cache T = 1
+    runs the decode-attention kernel (MHA) and T > 1 (step 4b's question
+    suffixes) the plain ``cached_attention``.  Every other cached read (the
+    ``bshd`` and ``bhsd`` layouts, an int4 cache, per-row offsets) takes
+    the plain ``xla_attention`` over the layer's cache, the path of the
+    JAX package without its decode kernel; ``attn_window`` truncates that
+    read to the first ``attn_window`` positions (and the mask with it).
+
+    ``cache_positions`` ``[B]`` (``bshd`` / ``bhsd`` caches) writes each
+    row's T rows at its own offset and makes the causal offset per row —
+    speculative Jacobi decoding's rows advance unevenly
+    (``ospo_tpu/models/llama.py:439-526``).  The combinations the JAX
+    package asserts against raise ``ValueError``: int4 KV with GQA or with
+    per-row offsets, per-row offsets on ``shbd``, ``prefix_kv`` with
+    per-row offsets.
 
     Training (no cache, ``ospo_tpu/models/llama.py:325-776``): ``lora``
     ``{proj: {"a": [L, d_in, r], "b": [L, r, d_out]}}`` adds adapters with
@@ -340,14 +446,35 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
             "LoRA, remat and attn_impl are options of the training (no-cache) "
             "path; merge adapters for generation (train/lora.merge)")
     cache_len = kv_cache["length"]
-    if not isinstance(cache_len, int):
-        raise NotImplementedError(
-            "per-row cache offsets (speculative Jacobi) are queued in "
-            "ROADMAP.md (slice 5, opt-in modes)")
-    if not self_attn and T == 1 and cfg.kv_heads != cfg.num_heads:
-        raise NotImplementedError("the decode-attention kernel is MHA only")
-    if self_attn and cache_len != 0:
+    layout = kv_cache.get("layout", "shbd")
+    per_row = cache_positions is not None
+    int4 = _int4_cache(kv_cache)
+    if int4 and cfg.kv_heads != cfg.num_heads:
+        raise ValueError("int4 KV currently supports MHA only (head-pair "
+                         "packing)")
+    if int4 and per_row:
+        raise ValueError("int4 KV does not support per-row offsets (SJD)")
+    if per_row and layout == "shbd":
+        raise ValueError("per-row cache offsets (SJD) not supported "
+                         "batch-minor")
+    if per_row and prefix_kv is not None:
+        raise ValueError(
+            "prefix_kv (batch-shared KV segment) is supported on the standard "
+            "cached path only — not SJD per-row offsets or the Pallas decode "
+            "kernel")
+    if self_attn and cache_len != 0 and not per_row:
         raise ValueError("self_attn prefill needs an empty cache")
+    # the batch-minor model-dtype / int8 cache has the kernel and the
+    # cached forms; everything else reads through xla_attention
+    # (T == 1 forms: MHA only)
+    shbd_read = layout == "shbd" and not int4 and not per_row
+    mha = cfg.kv_heads == cfg.num_heads
+    kernel = shbd_read and T == 1 and mha and prefix_kv is None
+    prefix_decode = shbd_read and T == 1 and mha and prefix_kv is not None
+    cached = shbd_read and T > 1
+    mask_w = attention_mask
+    if attn_window is not None:
+        mask_w = attention_mask[:, :attn_window]
 
     pm = None if prefix_kv is None else prefix_kv["mask"]
     for li in range(cfg.num_layers):
@@ -360,25 +487,31 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
         k = linear(h, lp["wk"]).view(B, T, cfg.kv_heads, cfg.dim_head)
         v = linear(h, lp["wv"]).view(B, T, cfg.kv_heads, cfg.dim_head)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        _write_kv(kv_cache, li, cache_len, k, v)
+        _write_kv(kv_cache, li, cache_len, k, v, cache_positions)
         if self_attn:
             attn = attention(q, k, v, mask=attention_mask, prefix_k=pk,
                              prefix_v=pv, prefix_mask=pm)
-        elif T > 1:
+        elif kernel:
+            attn = decode_attention(q, kv_cache["k"], kv_cache["v"], li,
+                                    cache_len + 1, attention_mask,
+                                    k_scale=kv_cache.get("k_s"),
+                                    v_scale=kv_cache.get("v_s"))
+        elif cached:
             attn = cached_attention(
                 q, kv_cache["k"], kv_cache["v"], li, cache_len,
                 attention_mask, pk, pv, pm, k_scale=kv_cache.get("k_s"),
                 v_scale=kv_cache.get("v_s"))
-        elif pk is not None:
+        elif prefix_decode:
             attn = prefix_decode_attention(
                 q, kv_cache["k"], kv_cache["v"], li, cache_len + 1,
                 attention_mask, pk, pv, pm, k_scale=kv_cache.get("k_s"),
                 v_scale=kv_cache.get("v_s"))
         else:
-            attn = decode_attention(q, kv_cache["k"], kv_cache["v"], li,
-                                    cache_len + 1, attention_mask,
-                                    k_scale=kv_cache.get("k_s"),
-                                    v_scale=kv_cache.get("v_s"))
+            k_att, v_att = _cache_window(kv_cache, li, layout, attn_window)
+            attn = xla_attention(
+                q, k_att, v_att, mask_w,
+                cache_positions if per_row else cache_len, True, pk, pv, pm,
+                kv_layout=layout)
         x = x + linear(attn.reshape(B, T, cfg.num_heads * cfg.dim_head), lp["wo"])
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
         gate = linear(h, lp["w_gate"])

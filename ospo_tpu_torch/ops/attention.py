@@ -19,6 +19,14 @@ are plain PyTorch: :func:`xla_attention` over a fresh chunk (the tail
 prefill), :func:`prefix_decode_attention` over the batch-minor cache (a
 cached T = 1 step) and :func:`cached_attention` (a cached T > 1 step, with
 or without the prefix: step 4b's question suffixes).
+
+:func:`xla_attention` also reads a cache window in any of the three layouts
+(``kv_layout`` ``bshd`` ``[B, S, H, Dh]``, ``bhsd`` ``[B, H, S, Dh]``,
+``shbd`` ``[S, H, B, Dh]``) with a model-dtype, int8 ``{"q", "s"}`` or int4
+head-pair ``{"q4", "s"}`` payload (scales ``[B, H, S]``) and a shared or
+per-row (``[B]``) query offset (``ospo_tpu/ops/attention.py:50-186``): the
+scales fold into the scores and probabilities and the nibbles unpack inside
+the reads, so no dequantized copy of the cache is made.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from ospo_tpu_torch.ops.quant import unpack_int4_halves
 
 NEG_FILL = -1e30
 # fp32 score elements [rows, H, T, C + S] the prefix form of xla_attention
@@ -46,17 +56,35 @@ def _repeat_heads(x: torch.Tensor, H: int, dim: int) -> torch.Tensor:
     return x if x.shape[dim] == H else x.repeat_interleave(H // x.shape[dim], dim=dim)
 
 
-def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  mask: Optional[torch.Tensor], q_offset: int = 0,
-                  causal: bool = True,
+# axes of a layer's cache window in each layout
+POS_AXIS = {"bshd": 1, "bhsd": 2, "shbd": 0}
+HEAD_AXIS = {"bshd": 2, "bhsd": 1, "shbd": 1}
+BATCH_AXIS = {"bshd": 0, "bhsd": 0, "shbd": 2}
+TO_BHSD = {"bshd": (0, 2, 1, 3), "bhsd": (0, 1, 2, 3), "shbd": (2, 1, 0, 3)}
+
+
+# head-pair packed int8 → (low, high) nibble halves, the inverse of
+# ``llama._quantize_rows_int4`` (head j in the low nibble of head slot j,
+# head j + H/2 in the high one): the weights' unpack, the same bits
+unpack_int4 = unpack_int4_halves
+
+
+def xla_attention(q: torch.Tensor, k, v, mask: Optional[torch.Tensor],
+                  q_offset=0, causal: bool = True,
                   prefix_k: Optional[torch.Tensor] = None,
                   prefix_v: Optional[torch.Tensor] = None,
-                  prefix_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  prefix_mask: Optional[torch.Tensor] = None,
+                  kv_layout: str = "bshd") -> torch.Tensor:
     """Plain masked attention, fp32 softmax, ``-1e30`` fill for every
     disallowed key (a fully masked row averages V over all S keys) — the
-    counterpart of the JAX package's ``xla_attention`` for plain ``bshd``
-    arrays, with the batch-shared prefix segment when ``prefix_k`` is
-    given."""
+    counterpart of the JAX package's ``xla_attention``, with the
+    batch-shared prefix segment when ``prefix_k`` is given.  Plain ``bshd``
+    tensors with a shared offset take the form below; a quantized payload,
+    another layout or a per-row ``q_offset`` ``[B]`` take
+    :func:`_layout_attention`."""
+    if isinstance(k, dict) or kv_layout != "bshd" or torch.is_tensor(q_offset):
+        return _layout_attention(q, k, v, mask, q_offset, causal, kv_layout,
+                                 prefix_k, prefix_v, prefix_mask)
     B, T, H, Dh = q.shape
     S = k.shape[1]
     k, v = _repeat_heads(k, H, 2), _repeat_heads(v, H, 2)
@@ -77,6 +105,99 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhts,bshd->bthd", probs, v.float())
     return out.to(q.dtype)
+
+
+def _bhsd_f32(x: torch.Tensor, layout: str) -> torch.Tensor:
+    """A window's chunk in ``layout`` → contiguous fp32 ``[B, H, S, Dh]``,
+    converted and reordered in one copy."""
+    x = x.permute(TO_BHSD[layout]) if layout != "bhsd" else x
+    return x.to(torch.float32, memory_format=torch.contiguous_format)
+
+
+def _layout_attention(q, k, v, mask, q_offset, causal, kv_layout, prefix_k,
+                      prefix_v, prefix_mask):
+    """:func:`xla_attention` over a cache window (``ospo_tpu/ops/attention.py
+    :84-186``): k / v plain tensors or ``{"q", "s"}`` / ``{"q4", "s"}`` dicts
+    in ``kv_layout``, scales ``[B, KVH | H, S]``; ``q_offset`` an int or a
+    per-row ``[B]`` tensor.  Scores ``(q . k) * Dh^-0.5`` in fp32 with the k
+    scale folded in; the v scale folds into the probabilities; an int4
+    payload scores heads ``[0, H/2)`` against its low nibbles and
+    ``[H/2, H)`` against its high ones.  Each chunk of batch rows (their
+    scores under ``PREFIX_SCORE_ELEMS``) converts its keys and values to
+    fp32 ``[b, H, S, Dh]`` once, for batched products."""
+    B, T, H, Dh = q.shape
+    int4 = isinstance(k, dict) and "q4" in k
+    if isinstance(k, dict):
+        kq, ks = k["q4" if int4 else "q"], k["s"]
+        vq, vs = v["q4" if int4 else "q"], v["s"]
+    else:
+        kq, ks, vq, vs = k, None, v, None
+    hax, bax = HEAD_AXIS[kv_layout], BATCH_AXIS[kv_layout]
+    S = kq.shape[POS_AXIS[kv_layout]]
+    if int4:
+        if kq.shape[hax] * 2 != H:
+            raise ValueError("int4 KV is MHA-only (head-pair packed: cache "
+                             "head axis H/2)")
+    else:
+        kq, vq = _repeat_heads(kq, H, hax), _repeat_heads(vq, H, hax)
+    if ks is not None:
+        ks, vs = _repeat_heads(ks, H, 1), _repeat_heads(vs, H, 1)
+    C = 0 if prefix_k is None else prefix_k.shape[0]
+    if C:
+        pkf = _repeat_heads(prefix_k, H, 1).float()
+        pvf = _repeat_heads(prefix_v, H, 1).float()
+        p_ok = _prefix_allowed(prefix_mask, C, q.device)         # [1|B, C]
+    per_row = torch.is_tensor(q_offset)
+    scale = Dh ** -0.5
+    cols = torch.arange(S, device=q.device)
+    step = max(1, PREFIX_SCORE_ELEMS // (H * T * (C + S)))
+    outs = []
+    for b0 in range(0, B, step):
+        b1 = min(B, b0 + step)
+        qf = q[b0:b1].float().transpose(1, 2)                    # [b, H, T, Dh]
+        kc = kq.narrow(bax, b0, b1 - b0)
+        vc = vq.narrow(bax, b0, b1 - b0)
+        if int4:
+            h2 = H // 2
+            k_lo, k_hi = (_bhsd_f32(x, kv_layout) for x in unpack_int4(kc))
+            s_own = torch.cat([qf[:, :h2] @ k_lo.transpose(-1, -2),
+                               qf[:, h2:] @ k_hi.transpose(-1, -2)], dim=1)
+        else:
+            s_own = qf @ _bhsd_f32(kc, kv_layout).transpose(-1, -2)
+        s_own = s_own * scale                                    # [b, H, T, S]
+        if ks is not None:
+            s_own = s_own * ks[b0:b1, :, None, :]
+        ok = torch.ones((b1 - b0, 1, T, S), dtype=torch.bool, device=q.device)
+        if mask is not None:
+            ok = ok & (mask[b0:b1, None, None, :] != 0)
+        if causal:
+            if per_row:
+                rows = q_offset[b0:b1, None, None] + torch.arange(
+                    T, device=q.device)[None, :, None]           # [b, T, 1]
+            else:
+                rows = q_offset + torch.arange(T, device=q.device)[None, :, None]
+            ok = ok & (cols[None, None, :] <= rows)[:, None]
+        s_own = torch.where(ok, s_own, torch.full_like(s_own, NEG_FILL))
+        if C:
+            s_pre = torch.einsum("bhtd,chd->bhtc", qf, pkf) * scale
+            pm = p_ok if p_ok.shape[0] == 1 else p_ok[b0:b1]
+            s_pre = torch.where(pm[:, None, None, :], s_pre,
+                                torch.full_like(s_pre, NEG_FILL))
+            probs = torch.softmax(torch.cat([s_pre, s_own], dim=-1), dim=-1)
+            p_own = probs[..., C:]
+        else:
+            p_own = torch.softmax(s_own, dim=-1)
+        if vs is not None:
+            p_own = p_own * vs[b0:b1, :, None, :]
+        if int4:
+            v_lo, v_hi = (_bhsd_f32(x, kv_layout) for x in unpack_int4(vc))
+            out = torch.cat([p_own[:, :h2] @ v_lo, p_own[:, h2:] @ v_hi], dim=1)
+        else:
+            out = p_own @ _bhsd_f32(vc, kv_layout)               # [b, H, T, Dh]
+        if C:
+            out = out + torch.einsum("bhtc,chd->bhtd", probs[..., :C], pvf)
+        outs.append(out.transpose(1, 2))
+    return torch.cat(outs).to(q.dtype)
 
 
 def _prefix_chunk_attention(q, k, v, mask, q_offset, causal, pk, pv,

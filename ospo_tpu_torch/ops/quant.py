@@ -1,12 +1,14 @@
-"""Weight-only quantization — the int8 (W8A16) and int4 (W4A16) subsets of
-``ospo_tpu/ops/quant.py`` (:25-75, :205-329).
+"""Weight quantization — counterpart of ``ospo_tpu/ops/quant.py``.
 
 A quantized matrix is a dict in torch layout ``[out, in]``:
 
-- int8: ``{"q": int8 [..., F, D], "s": f32 [..., F]}``, per-output-row
-  symmetric scales;
-- int4: ``{"q4": int8 [..., F/2, D], "s": f32 [..., F]}``, two output rows
-  packed per byte;
+- int8 (W8A16): ``{"q": int8 [..., F, D], "s": f32 [..., F]}``,
+  per-output-row symmetric scales;
+- w8a8: ``{"q": int8 [..., F, D], "sa": f32 [..., F]}``, the same payload,
+  whose product quantizes the activations per token too and multiplies
+  int8 × int8 into exact int32 (:78-148);
+- int4 and int4n (W4A16): ``{"q4": int8 [..., F/2, D], "s": f32 [..., F]}``,
+  two output rows packed per byte;
 - int4g: ``{"q4": int8 [..., F/2, D], "gs": f32 [..., F, D/group]}``, the
   same packing with one scale per group of input columns.
 
@@ -16,6 +18,8 @@ the forms here serve the prefill (T > 1).
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Dict
 
 import torch
@@ -86,6 +90,114 @@ def quantized_matmul(x: torch.Tensor, qw: Dict[str, torch.Tensor]) -> torch.Tens
     if x.requires_grad and torch.is_grad_enabled():
         return _W8A16.apply(x, qw["q"], qw["s"])
     return _w8a16(x, qw["q"], qw["s"])
+
+
+# ---------------------------------------------------------------------------
+# w8a8, ``ospo_tpu/ops/quant.py:78-203``
+# ---------------------------------------------------------------------------
+
+
+def quantize_matrix_w8a8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """[..., F, D] → {"q": int8, "sa": f32 [..., F]}: the payload of
+    :func:`quantize_matrix`; the key ``"sa"`` routes the product to
+    :func:`quantized_matmul_w8a8`."""
+    out = quantize_matrix(w)
+    return {"q": out["q"], "sa": out["s"]}
+
+
+def dequantize_matrix_w8a8(qw: Dict[str, torch.Tensor],
+                           dtype=torch.bfloat16) -> torch.Tensor:
+    return (qw["q"].float() * qw["sa"][..., None]).to(dtype)
+
+
+def quantize_activations_int8(x: torch.Tensor):
+    """[..., D] → (int8 values, f32 per-row scales [..., 1]): symmetric
+    per-token abs-max in fp32, the scale floored at 1e-12 after the
+    division (:105-113)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    # divided by a tensor: by a Python number, the card multiplies by its
+    # reciprocal, a unit in the last place off the quotient the CPU (and
+    # the JAX package) rounds — enough to move an activation a step
+    sx = (amax / amax.new_full((), 127.0)).clamp_min(1e-12)
+    return torch.round(xf / sx).clamp(-127, 127).to(torch.int8), sx
+
+
+def int8_matmul(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product ``a @ qᵀ`` of int8 ``a`` [M, K] and ``q`` [N, K]
+    (``torch._int_mm``).  On the card that call takes M > 16 and K, N
+    multiples of 8: fewer rows are padded with zeros (a T == 1 decode with
+    few rows) and the result cut back; other K or N raise, as there is no
+    float product to fall back to."""
+    m, k = a.shape
+    if a.is_cuda:
+        if k % 8 or q.shape[0] % 8:
+            raise ValueError(f"w8a8 on the card needs K and N multiples of "
+                             f"8, got K={k}, N={q.shape[0]}")
+        if m <= 16:
+            a = torch.cat([a, a.new_zeros((24 - m, k))])
+    return torch._int_mm(a, q.T)[:m]
+
+
+def _w8a8_raw(x: torch.Tensor, q: torch.Tensor, sa: torch.Tensor) -> torch.Tensor:
+    """Dynamic per-token int8 activations, the int8 × int8 product in int32,
+    then ``· sx · sa`` in fp32, cast to x's dtype (:116-121)."""
+    xq, sx = quantize_activations_int8(x)
+    y = int8_matmul(xq.reshape(-1, xq.shape[-1]), q)
+    y = y.view(*x.shape[:-1], q.shape[0]).float()
+    return (y * sx * sa).to(x.dtype)
+
+
+class _W8A8(torch.autograd.Function):
+    """:func:`_w8a8_raw` with the straight-through backward of the JAX
+    package's ``custom_vjp`` (:128-148): differentiated as the dequantized
+    product, ``dx = ((g · sa) in bf16) @ q in bf16``; the frozen ``q`` and
+    ``sa`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, q, sa):
+        ctx.save_for_backward(q, sa)
+        return _w8a8_raw(x, q, sa)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, sa = ctx.saved_tensors
+        gf = (g.float() * sa).to(torch.bfloat16)
+        return (gf @ q.to(torch.bfloat16)).to(g.dtype), None, None
+
+
+def quantized_matmul_w8a8(x: torch.Tensor, qw: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """y = x @ Wᵀ with both sides int8; where x needs a gradient it runs as
+    :class:`_W8A8` (a w8a8 frozen trunk under LoRA training)."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _W8A8.apply(x, qw["q"], qw["sa"])
+    return _w8a8_raw(x, qw["q"], qw["sa"])
+
+
+# Inside w8a16_override() a w8a8 weight runs weight-only (the same int8
+# payload, no activation quantization): the scoring engine's question
+# suffixes under ``readout_w8a16`` (:151-203).  A flag of the calling
+# thread, read at call time (the JAX package's is read at trace time).
+_OVERRIDE = threading.local()
+
+
+@contextlib.contextmanager
+def w8a16_override():
+    prev = w8a16_active()
+    _OVERRIDE.w8a16 = True
+    try:
+        yield
+    finally:
+        _OVERRIDE.w8a16 = prev
+
+
+def w8a16_active() -> bool:
+    return getattr(_OVERRIDE, "w8a16", False)
+
+
+def quantized_matmul_w8a16(x: torch.Tensor, qw: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Weight-only product over a w8a8 payload: (x @ qᵀ) · sa."""
+    return quantized_matmul(x, {"q": qw["q"], "s": qw["sa"]})
 
 
 # ---------------------------------------------------------------------------
@@ -183,15 +295,21 @@ def quantized_matmul_int4_group(x: torch.Tensor,
 
 _QUANT_FNS = {
     "int8": quantize_matrix,
+    "w8a8": quantize_matrix_w8a8,
     "int4": quantize_matrix_int4,
     "int4g": quantize_matrix_int4_group,
+    # the JAX package stores int4n as jnp.int4 {"q", "s"} (:332-350): the
+    # same values as int4 (scale in fp32, round(w / s in w's dtype), ±7).
+    # torch has no int4 tensor a product reads, so the port packs them as
+    # int4 does and serves them on the same paths
+    "int4n": quantize_matrix_int4,
 }
 
 
 def quant_mode(value) -> str:
-    """A ``quantize`` argument → "" (model dtype) | "int8" | "int4" |
-    "int4g"; True means int8.  int4n and w8a8 are not ported; anything
-    else is an error."""
+    """A ``quantize`` argument → "" (model dtype) | "int8" | "w8a8" |
+    "int4" | "int4g" | "int4n"; True means int8; anything else is an
+    error."""
     if value is None or value is False:
         return ""
     if value is True:
@@ -199,10 +317,6 @@ def quant_mode(value) -> str:
     mode = str(value).strip().lower()
     if mode in ("", "none", "false", "bf16"):
         return ""
-    if mode in ("int4n", "w8a8"):
-        raise NotImplementedError(
-            f"quantize: {mode} is queued in ROADMAP.md (the missing modules); "
-            "the port serves int8, int4, int4g or unquantized weights")
     if mode not in _QUANT_FNS:
         raise ValueError(f"unrecognized quantize value {value!r}: use int8, "
                          "w8a8, int4, int4g, int4n, or unset/none/bf16")
@@ -210,7 +324,7 @@ def quant_mode(value) -> str:
 
 
 def quant_fn(mode):
-    """The per-matrix quantize function of ``mode`` (int8 | int4 | int4g)."""
+    """The per-matrix quantize function of ``mode`` (:func:`quant_mode`)."""
     return _QUANT_FNS[quant_mode(mode)]
 
 

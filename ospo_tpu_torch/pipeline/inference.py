@@ -83,9 +83,10 @@ def generate_all(config, engine: ImageGenEngine, prompts: List[str]) -> None:
 
 
 def build_engine(config, model, processor) -> ImageGenEngine:
-    """The engine ``main`` serves with.  ``decode_kernel`` and
-    ``decode_segments`` select nothing in the port (the decode kernel
-    always runs) and are not read; ``speculative`` > 0 raises."""
+    """The engine ``main`` serves with (``ospo_tpu/pipeline/inference.py
+    :86-102``).  The port has no ``decode_kernel`` key: an ``shbd``
+    model-dtype or int8 cache runs the decode kernel, and
+    ``decode_segments`` bounds the other caches' plain reads."""
     gen_cfg = config.get("generation_config") or {}
     return ImageGenEngine(
         model, processor,
@@ -95,6 +96,10 @@ def build_engine(config, model, processor) -> ImageGenEngine:
         img_size=model.cfg.gen_image_size,
         patch_size=model.cfg.vq.downsample_factor,
         kv_quant=config.get("kv_quant"),
+        # growing windows of the plain cache reads (no-op on the kernel's
+        # shbd cache and for SJD); only unset falls back to 8
+        decode_segments=(8 if config.get("decode_segments") is None
+                         else int(config.get("decode_segments"))),
         speculative=int(config.get("speculative") or 0),
         kv_layout=config.get("kv_layout"),
         batch_cap=int(config.get("batch_size") or 0) or None,

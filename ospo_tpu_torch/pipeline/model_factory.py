@@ -11,9 +11,9 @@ Resolution (fail-fast, as in the JAX package):
 The model lives on ``config.device`` (default ``cuda``; ``cpu`` only when
 asked).  ``ckpt_path`` (a checkpoint of step 5, from either package: LoRA
 adapters are merged into the trunk, a full fine-tune's submodules replace
-the model's) is applied before ``quantize`` (int8, int4 or int4g) quantizes
-the trunk (``ospo_tpu/pipeline/model_factory.py:154-177``); ``drop_lm_head``,
-``drop_understanding`` (SigLIP and the aligner, :216-230) and
+the model's) is applied before ``quantize`` (int8, w8a8, int4, int4g or
+int4n) quantizes the trunk (``ospo_tpu/pipeline/model_factory.py:154-177``);
+``drop_lm_head``, ``drop_understanding`` (SigLIP and the aligner, :216-230) and
 ``drop_vision`` (the VQ model, the generation heads and the understanding
 tower, :197-214) are honoured by never building those parts.  The
 processor's image processor comes from the checkpoint's
@@ -46,9 +46,9 @@ def has_weights(model_path: Optional[str]) -> bool:
 
 
 def _validate_quantize_mode(config) -> str:
-    """'' (model dtype), 'int8', 'int4' or 'int4g'; w8a8 and int4n are not
-    ported yet, and an unknown spelling (``true`` included, as in the JAX
-    package) is an error before the (long) model build."""
+    """'' (model dtype), 'int8', 'w8a8', 'int4', 'int4g' or 'int4n'; an
+    unknown spelling (``true`` included, as in the JAX package) is an error
+    before the (long) model build."""
     return quant.quant_mode(str(config.get("quantize") or ""))
 
 
@@ -118,8 +118,8 @@ def get_model(config) -> Tuple[janus_lib.JanusModel, object, Processor]:
 
         ckpt_path = resolve_checkpoint_dir(ckpt_path)  # fail before the build
     if qmode:
-        print(f"# Quantizing language-model weights to {qmode} "
-              f"({'W8A16' if qmode == 'int8' else 'W4A16'}).")
+        kind = {"int8": "W8A16", "w8a8": "W8A8"}.get(qmode, "W4A16")
+        print(f"# Quantizing language-model weights to {qmode} ({kind}).")
     # a random-init or loaded trunk is quantized layer by layer as it is
     # built, unless adapters are merged into it first
     model = build_model(config, quantize="" if ckpt_path else qmode)

@@ -149,6 +149,10 @@ def main(config) -> dict:
         img_size=model.cfg.gen_image_size,
         patch_size=model.cfg.vq.downsample_factor,
         kv_quant=config.get("kv_quant"),
+        # growing windows of the plain cache reads (no-op on the kernel's
+        # shbd cache and for SJD); only unset falls back to 8
+        decode_segments=(8 if config.get("decode_segments") is None
+                         else int(config.get("decode_segments"))),
         speculative=int(config.get("speculative") or 0),
         kv_layout=config.get("kv_layout"),
         batch_cap=int(config.batch_size or 0) or None,

@@ -15,9 +15,10 @@ with ``use_peft: False`` the submodules the ``experiment.freeze`` matrix
 leaves unfrozen (:190-204): the model's own tensors, trained in place in
 the model's dtype with fp32 moments.  Their image tokens are data: the VQ
 encode runs without gradients and the codebook's gradient is zeroed, as in
-the JAX step (:341-346).  ``experiment.quantize_base: int8`` (LoRA mode)
-quantizes the frozen trunk's projections to int8 before the adapters are
-drawn (:149-189); their backward runs ``ops/quant._W8A16``.
+the JAX step (:341-346).  ``experiment.quantize_base: int8`` or ``w8a8``
+(LoRA mode) quantizes the frozen trunk's projections before the adapters
+are drawn (:149-189); their backward runs ``ops/quant._W8A16`` or the
+straight-through ``ops/quant._W8A8``.
 
 Text is right-padded, so the first image label is predicted from a
 zero-embedded pad position when a prompt is shorter than the bucket — a
@@ -27,8 +28,8 @@ quirk of the reference kept as it is.
 ``global_step``, saves every ``save_steps`` and at the end, and writes
 ``train_stats.json``.  Scalars go to ``scalars.jsonl`` in the log directory
 (one JSON object per logged step, the JAX package's ``train/<name>`` tags)
-instead of a TensorBoard writer.  ``quantize_base: w8a8`` and more than
-one process raise ``NotImplementedError``.
+instead of a TensorBoard writer.  More than one process raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -173,22 +174,19 @@ class SimPOTrainer:
         self.logged: List[Dict[str, float]] = []  # metrics of logged steps
 
     def _quantize_base(self, mode: str) -> None:
-        """The QLoRA-style frozen trunk: its projections to ``mode`` (int8),
-        unless already quantized, then in the same mode or an error
+        """The QLoRA-style frozen trunk: its projections to ``mode`` (int8 or
+        w8a8), unless already quantized, then in the same mode or an error
         (``ospo_tpu/train/trainer.py:149-189``)."""
         layers = self.model.params["language_model"]["layers"]
         wq = layers["wq"]
         if isinstance(wq, dict):
-            have = "int8" if set(wq) == {"q", "s"} else "int4*"
+            have = ("w8a8" if "sa" in wq
+                    else "int8" if set(wq) == {"q", "s"} else "int4*")
             if have != mode:
                 raise ValueError(
                     f"experiment.quantize_base={mode!r} but the model's "
                     f"trunk is already {have}-quantized — rebuild the model "
                     "unquantized (quantize: none) or align the two settings")
-        if mode == "w8a8":
-            raise NotImplementedError(
-                "experiment.quantize_base: w8a8 is queued in ROADMAP.md "
-                "(queue 1 item 8, opt-in modes)")
         if not isinstance(wq, dict):
             quant.quantize_layers(layers, mode)
 

@@ -605,3 +605,75 @@ def test_text_engine_greedy_on_the_card_matches_the_cpu(cuda, shared):
                          kv_quant="int8", shared_prefix=shared).generate_ids(prompts)
            for m in (cpu, gpu)]
     assert (ids[0] == ids[1]).all()
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (5, 64, 128), (16, 256, 72),
+                                   (17, 128, 64), (48, 4096, 11008),
+                                   (100, 11008, 4096), (1000, 512, 256)])
+def test_int8_product_on_the_card_is_exact(cuda, m, k, n):
+    """The w8a8 product (``torch._int_mm``; M ≤ 16 padded with zero rows)
+    equals the exact int64 product on the CPU, the 7B shapes included."""
+    from ospo_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    got = quant.int8_matmul(a.to(cuda), w.to(cuda))
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu().long(), a.long() @ w.long().T)
+
+
+def test_int8_product_refuses_unaligned_widths_on_the_card(cuda):
+    from ospo_tpu_torch.ops import quant
+
+    a = torch.zeros((32, 60), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int8_matmul(a, torch.zeros((64, 60), dtype=torch.int8, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8a8_linear_on_the_card_matches_the_cpu(cuda, dtype):
+    """A w8a8 projection at T == 1 (M = 3, padded) and at T = 40 on the
+    card against the CPU: the per-token scales equal (a quotient of two
+    tensors, correctly rounded on both), the int8 activations equal but
+    for rounding ties (≤ 1 step, on < 0.1% of them), and the result equals
+    the exact int32 product of the card's activations, scaled as
+    ``_w8a8_raw`` does, to 1e-6."""
+    from ospo_tpu_torch.models import llama
+    from ospo_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(3)
+    qw = quant.quantize_matrix_w8a8(torch.randn((256, 128), generator=g))
+    qw_card = {k: v.to(cuda) for k, v in qw.items()}
+    for t in (1, 40):
+        x = torch.randn((3, t, 128), generator=g).to(dtype)
+        xq, sx = quant.quantize_activations_int8(x)
+        xq_card, sx_card = (a.cpu() for a in quant.quantize_activations_int8(x.to(cuda)))
+        assert torch.equal(sx_card, sx)
+        diff = (xq_card.int() - xq.int()).abs()
+        assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-3
+        got = llama.linear(x.to(cuda), qw_card).cpu()
+        exact = xq_card.reshape(-1, 128).long() @ qw["q"].long().T
+        ref = (exact.view(3, t, 256).float() * sx_card * qw["sa"]).to(dtype)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), ref.float(), atol=0, rtol=1e-6)
+
+
+def test_int4n_decode_runs_the_row_kernel(cuda):
+    """int4n weights (stored as the int4 row payload) at T == 1 launch the
+    row kernel (kernel 5), within the int4 tolerances of its plain
+    version."""
+    from ospo_tpu_torch.models import llama
+    from ospo_tpu_torch.ops import int4_matmul as i4
+    from ospo_tpu_torch.ops import quant
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    w = torch.randn((4096, 4096), generator=g, device=cuda).bfloat16() * 0.02
+    qw = quant.quant_fn("int4n")(w)
+    x = torch.randn((48, 1, 4096), generator=g, device=cuda).bfloat16()
+    n0 = i4.row_launches
+    got = llama.linear(x, qw)
+    torch.cuda.synchronize()
+    assert i4.row_launches == n0 + 1
+    _assert_int4_close(got, i4.int4_matmul_decode_plain(x, qw), "int4",
+                       torch.bfloat16)

@@ -237,9 +237,10 @@ def test_kernel_error_escapes_generate_all(tmp_path):
 
 
 def test_engine_arguments_of_main(monkeypatch):
-    """``main``'s engine: the config's CFG weight, temperature, KV cache and
-    batch cap; ``decode_kernel`` and ``decode_segments`` are accepted and
-    select nothing; ``speculative`` > 0 raises as in the engine."""
+    """``main``'s engine: the config's CFG weight, temperature, KV cache,
+    segments and batch cap; ``decode_kernel`` is accepted and selects
+    nothing; ``speculative`` > 0 on the config's ``shbd`` cache raises as
+    in the JAX engine."""
     from ospo_tpu_torch.models import janus as tjanus
     from ospo_tpu_torch.pipeline.model_factory import get_model
 
@@ -255,7 +256,8 @@ def test_engine_arguments_of_main(monkeypatch):
     assert (engine.cfg_weight, engine.temperature, engine.kv_quant,
             engine.kv_layout, engine.batch_cap) == (3.0, 1.0, "int8", "shbd", 24)
     assert engine.image_token_num == model.cfg.num_gen_tokens
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert engine.decode_segments == 4 and engine.speculative == 0
+    with pytest.raises(ValueError, match="per-row offsets"):
         inference.build_engine(TConfig({**config, "speculative": 2}), model, proc)
 
 

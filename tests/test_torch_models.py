@@ -238,8 +238,8 @@ def test_random_init_quantizes_each_matrix():
     w = layers["wo"]
     deq = w["q"].float() * w["s"][..., None]
     assert float(deq.std()) == pytest.approx(0.02, rel=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tjanus.JanusModel.init(cfg, quantize="int4n", device="cpu")
+    with pytest.raises(ValueError, match="quantize"):
+        tjanus.JanusModel.init(cfg, quantize="int4_n", device="cpu")
 
 
 def test_load_janus_matches_jax_loader(tmp_path):

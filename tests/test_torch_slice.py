@@ -289,8 +289,8 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
 @pytest.mark.parametrize("override,error", [
     ({"data_parallel": 2}, NotImplementedError),
     ({"tensor_parallel": 2}, NotImplementedError),
-    ({"quantize": "int4n"}, NotImplementedError),
-    ({"quantize": "w8a8"}, NotImplementedError),
+    ({"quantize": "s4"}, ValueError),
+    ({"quantize": "w8a16"}, ValueError),
     ({"quantize": "int_8"}, ValueError),
     ({"model_path": "/does/not/exist"}, FileNotFoundError),
     ({"model_preset": None}, ValueError),
@@ -304,11 +304,17 @@ def test_get_model_rejects_what_is_not_ported(override, error):
         get_model({"model_preset": "tiny", "device": "cpu", **override})
 
 
-@pytest.mark.parametrize("kwargs", [{"kv_layout": "bshd"}, {"speculative": 4},
-                                    {"kv_quant": "int4"}])
-def test_engine_rejects_what_is_not_ported(kwargs):
+@pytest.mark.parametrize("kwargs,match", [
+    ({"kv_layout": "hbsd"}, "kv_layout"),
+    ({"speculative": 4}, "per-row offsets"),
+    ({"kv_layout": "bshd", "speculative": 4, "kv_quant": "int4"},
+     "int4 KV does not support"),
+])
+def test_engine_rejects_what_is_not_ported(kwargs, match):
+    """The combinations the JAX engine refuses (``image_engine.py:96-111``):
+    SJD on the batch-minor cache, SJD with int4 KV; and an unknown layout."""
     model = tjanus.JanusModel(None, {}, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=match):
         TEngine(model, _processors()[1], **kwargs)
 
 

@@ -329,10 +329,11 @@ def test_prefix_kv_is_refused_off_the_serving_path():
     with pytest.raises(NotImplementedError):
         tllama.forward(tp, cfg, x, mask, mask, kv_cache=kv,
                        prefix_kv=pre, remat=True)
-    kv["length"] = torch.tensor([2])  # per-row offsets (speculative Jacobi)
-    with pytest.raises(NotImplementedError):
+    kv = tllama.init_kv_cache(cfg, 1, 8, layout="bshd")
+    with pytest.raises(ValueError, match="prefix_kv"):  # as the JAX assert
         tllama.forward(tp, cfg, x, torch.ones((1, 8), dtype=torch.int32), mask,
-                       kv_cache=kv, prefix_kv=pre)
+                       kv_cache=kv, prefix_kv=pre,
+                       cache_positions=torch.tensor([2]))
 
 
 # ---------------------------------------------------------------------------

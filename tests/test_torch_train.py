@@ -569,14 +569,15 @@ def test_trainer_step_matches_jax(jax_step, tmp_path, attn_impl):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """``quantize_base: w8a8`` names ROADMAP.md, an unknown spelling is a
-    ValueError, and more than one process is refused."""
+    """``quantize_base: int4`` (not offered by the JAX trainer) and an
+    unknown spelling are ValueErrors, and more than one process is
+    refused."""
     model = tjanus.JanusModel.init(tjanus.tiny_janus_config(), seed=0,
                                    device="cpu")
     base = _trainer_config(tmp_path, "flash")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="quantize_base"):
         SimPOTrainer(Config.from_nested({**base, "experiment": {
-            **base["experiment"], "quantize_base": "w8a8"}}), model,
+            **base["experiment"], "quantize_base": "int4"}}), model,
             _port_processor())
     with pytest.raises(ValueError, match="quantize_base"):
         SimPOTrainer(Config.from_nested({**base, "experiment": {
