@@ -94,9 +94,14 @@ fails):
     the flash forward 30 times and the decode kernel never; (a)'s model
     also runs the teacher-forced CFG probe (``PROBE_PROMPTS`` prompts,
     ``PROBE_TOKENS`` tokens) through a ``bshd`` engine and through the
-    ``shbd`` engine of the decode kernel: logits within 1e-2 max|ref|;
+    ``shbd`` engine of the decode kernel: on an fp32-activation model of
+    the same width and depth the logits are within 1e-2 max|ref|; on (a)'s
+    bf16 model the ``bshd`` read is within twice the distance of the
+    kernel's own plain version (the control) from the kernel;
 14. the weight modes: (a) step 3 as phase 7 with ``quantize: int4n`` (the
-    row kernel); (b) step 4b as phase 9 with ``quantize: w8a8`` over the
+    row kernel; the port stores int4n as int4 rows, so this runs phase
+    7's path again, and it is the first phase to cut when the script
+    nears its time limit); (b) step 4b as phase 9 with ``quantize: w8a8`` over the
     ``W8A8_SCORE_ITEMS`` first items (2 chunks), once with the w8a8 readout
     and once with ``readout_w8a16``: images/s for each and the share of
     yes/no answers on which the two agree; (c) step 5 as phase 12 with
@@ -2252,8 +2257,11 @@ class Smoke:
               f"{PROBE_TOKENS} tokens): bshd plain read vs shbd decode kernel "
               f"max|d|={err:.3g}; the kernel's plain version vs the kernel "
               f"max|d|={err_ctl:.3g}; max|ref|={scale:.3g}")
-        self.check(np.isfinite(got).all() and np.isfinite(ctl).all(),
-                   "bf16 forced CFG logits finite (bshd and the control)")
+        self.check(np.isfinite(got).all() and np.isfinite(ctl).all()
+                   and err <= 2 * err_ctl,
+                   f"bf16 forced CFG logits finite (bshd and the control), "
+                   f"bshd plain read within twice the control's distance "
+                   f"from the kernel: {err:.3g} <= 2 x {err_ctl:.3g}")
 
         b = self.step3_group("bshd sjd4", {**base, "speculative": 4})
         plain_counts("bshd sjd4", b["counts"])

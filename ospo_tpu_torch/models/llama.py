@@ -13,12 +13,12 @@ too) and updated in place (PyTorch tensors are mutable; the JAX package
 threads a new cache through its scan instead).  Prefill
 (``self_attn=True``) writes the prompt rows and attends over them with the
 flash kernel; on an ``shbd`` model-dtype or int8 cache a cached T=1 step
-writes its row and reads the cache with the decode-attention kernel, a
-cached T > 1 step its rows with the plain ``cached_attention``.  With a
+writes its row and reads the cache with the decode-attention kernel.  With a
 batch-shared prefix segment (``prefix_kv``, the text engine's shared-prefix
 decode and step 4b's pre-image segment) prefill and T = 1 take the plain
-prefix forms of ``ops/attention.py`` instead.  Other layouts, int4 caches
-and per-row offsets read through the plain ``xla_attention``.  Numerics
+prefix forms of ``ops/attention.py`` instead.  Every other cached read (a
+T > 1 step, other layouts, int4 caches, per-row offsets) goes through the
+plain ``xla_attention``.  Numerics
 follow the reference: weights in the model dtype, RMSNorm / RoPE / softmax
 / SiLU in fp32.
 
@@ -38,7 +38,6 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ospo_tpu_torch.ops.attention import (HEAD_AXIS, POS_AXIS, attention,
-                                          cached_attention,
                                           prefix_decode_attention,
                                           xla_attention)
 from ospo_tpu_torch.ops.decode_attention import decode_attention
@@ -386,12 +385,13 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     every row) and reads positions ``[0, length + T)`` of the cache,
     causally; ``attention_mask`` covers the whole cache window
     ``[B, S_max]`` (int32).  On a model-dtype or int8 ``shbd`` cache T = 1
-    runs the decode-attention kernel (MHA) and T > 1 (step 4b's question
-    suffixes) the plain ``cached_attention``.  Every other cached read (the
-    ``bshd`` and ``bhsd`` layouts, an int4 cache, per-row offsets) takes
-    the plain ``xla_attention`` over the layer's cache, the path of the
-    JAX package without its decode kernel; ``attn_window`` truncates that
-    read to the first ``attn_window`` positions (and the mask with it).
+    runs the decode-attention kernel (MHA).  Every other cached read (T > 1
+    — step 4b's question suffixes —, the ``bshd`` and ``bhsd`` layouts, an
+    int4 cache, per-row offsets) takes the plain ``xla_attention`` over the
+    layer's cache, the path of the JAX package without its decode kernel;
+    ``attn_window`` truncates that read to the first ``attn_window``
+    positions (and the mask with it), and an ``shbd`` T > 1 step reads only
+    the ``length + T`` rows its causality reaches.
 
     ``cache_positions`` ``[B]`` (``bshd`` / ``bhsd`` caches) writes each
     row's T rows at its own offset and makes the causal offset per row —
@@ -465,16 +465,14 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     if self_attn and cache_len != 0 and not per_row:
         raise ValueError("self_attn prefill needs an empty cache")
     # the batch-minor model-dtype / int8 cache has the kernel and the
-    # cached forms; everything else reads through xla_attention
-    # (T == 1 forms: MHA only)
+    # T == 1 prefix form (MHA only); everything else reads through
+    # xla_attention
     shbd_read = layout == "shbd" and not int4 and not per_row
     mha = cfg.kv_heads == cfg.num_heads
     kernel = shbd_read and T == 1 and mha and prefix_kv is None
     prefix_decode = shbd_read and T == 1 and mha and prefix_kv is not None
-    cached = shbd_read and T > 1
-    mask_w = attention_mask
-    if attn_window is not None:
-        mask_w = attention_mask[:, :attn_window]
+    window = cache_len + T if shbd_read and T > 1 else attn_window
+    mask_w = attention_mask if window is None else attention_mask[:, :window]
 
     pm = None if prefix_kv is None else prefix_kv["mask"]
     for li in range(cfg.num_layers):
@@ -496,18 +494,13 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
                                     cache_len + 1, attention_mask,
                                     k_scale=kv_cache.get("k_s"),
                                     v_scale=kv_cache.get("v_s"))
-        elif cached:
-            attn = cached_attention(
-                q, kv_cache["k"], kv_cache["v"], li, cache_len,
-                attention_mask, pk, pv, pm, k_scale=kv_cache.get("k_s"),
-                v_scale=kv_cache.get("v_s"))
         elif prefix_decode:
             attn = prefix_decode_attention(
                 q, kv_cache["k"], kv_cache["v"], li, cache_len + 1,
                 attention_mask, pk, pv, pm, k_scale=kv_cache.get("k_s"),
                 v_scale=kv_cache.get("v_s"))
         else:
-            k_att, v_att = _cache_window(kv_cache, li, layout, attn_window)
+            k_att, v_att = _cache_window(kv_cache, li, layout, window)
             attn = xla_attention(
                 q, k_att, v_att, mask_w,
                 cache_positions if per_row else cache_len, True, pk, pv, pm,

@@ -16,8 +16,8 @@ byte tokenizer, the int8 prefix cache) and runs it through the engine's
 2. once under ``torch.profiler``: kernel time by part and, inside each
    part, by class — the W8A16 products (their int8 → bf16 weight copies
    apart from the cuBLAS products), the plain attention forms (the ViT's,
-   the prefix form of the image prefill, ``cached_attention`` of the
-   suffixes), the flash kernel, ``lm_head`` — the largest kernels by name,
+   the prefix form of the image prefill, ``xla_attention``'s cache read
+   for the suffixes), the flash kernel, ``lm_head`` — the largest kernels by name,
    and the device's busy share (kernel time over the unprofiled slice).
 
 Also timed on the host: ``prepare_shared_multi`` for a chunk of 16 images
@@ -59,7 +59,7 @@ OUTER = {"_encode_images": "vit", "_prefill_pre": "pre_image_prefill",
 INNER = (("w8a16", llama, "quantized_matmul"),
          ("vit_attention", vit, "attention"),
          ("prefix_attention", attention, "_prefix_chunk_attention"),
-         ("cached_attention", llama, "cached_attention"),
+         ("suffix_attention", llama, "xla_attention"),
          ("lm_head", janus, "lm_logits"))
 
 

@@ -153,6 +153,8 @@ def test_int4n_values_equal_jax_int4():
     w = np.random.default_rng(3).standard_normal((2, 8, 16)).astype(np.float32)
     jw = jnp.asarray(w, jnp.bfloat16)
     ref = jquant.quantize_matrix_int4_native(jw)
+    # int4n is int4's quantizer: the same payload, the same kernel path
+    assert tquant.quant_fn("int4n") is tquant.quant_fn("int4")
     got = tquant.quant_fn("int4n")(torch.from_numpy(w).bfloat16())
     assert set(got) == {"q4", "s"} and got["q4"].shape == (2, 4, 16)
     lo, hi = tquant.unpack_int4_halves(got["q4"])
@@ -276,7 +278,10 @@ def test_w8a8_trunk_step_matches_jax(jax_w8a8_step, tmp_path):
     backwards round ``g · sa`` and each product to bf16 (the JAX
     ``custom_vjp``), so float-order noise upstream flips a few of those
     roundings: the worst leaf reads 1.7e-3·max|g| here, where the int8
-    trunk's fp32 backward stays under 2e-6."""
+    trunk's fp32 backward stays under 2e-6
+    (``test_w8a8_trunk_step_gap_is_the_roundings`` takes the sources off
+    one at a time).  A backward without ``sa`` reads 0.38·max|g|, one that
+    rounds only the product and not ``g · sa`` 4.0e-3: both fail."""
     model = _port_model(jax_w8a8_step["params"])
     trainer = SimPOTrainer(Config.from_nested(_trainer_config(
         tmp_path, "flash", quantize_base="w8a8")), model, _port_processor())
@@ -290,6 +295,80 @@ def test_w8a8_trunk_step_matches_jax(jax_w8a8_step, tmp_path):
         np.testing.assert_allclose(float(metrics[k]), ref, rtol=1e-4,
                                    atol=1e-5, err_msg=k)
     _close_trees(grads, jax_w8a8_step["grads"], 2 ** -8)
+
+
+def _fp32_ste_jax():
+    """JAX's w8a8 product with the straight-through backward in fp32: no
+    bf16 rounding of ``g · sa`` or of the product."""
+    @jax.custom_vjp
+    def matmul(x, q, sa):
+        return jquant._w8a8_raw(x, q, sa)
+
+    def fwd(x, q, sa):
+        return jquant._w8a8_raw(x, q, sa), (q, sa)
+
+    def bwd(res, g):
+        q, sa = res
+        dx = jnp.einsum("btf,fd->btd", g.astype(jnp.float32) * sa,
+                        q.astype(jnp.float32))
+        return (dx.astype(g.dtype), np.zeros(q.shape, jax.dtypes.float0),
+                jnp.zeros_like(sa))
+
+    matmul.defvjp(fwd, bwd)
+    return matmul
+
+
+class _Fp32Ste(torch.autograd.Function):
+    """The port's counterpart of :func:`_fp32_ste_jax`."""
+
+    @staticmethod
+    def forward(ctx, x, q, sa):
+        ctx.save_for_backward(q, sa)
+        return tquant._w8a8_raw(x, q, sa)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, sa = ctx.saved_tensors
+        return ((g.float() * sa) @ q.float()).to(g.dtype), None, None
+
+
+def _dequantized_jax(x, q, sa):
+    w = q.astype(jnp.float32) * sa[..., None]
+    return jnp.einsum("btd,fd->btf", x.astype(jnp.float32), w).astype(x.dtype)
+
+
+def _dequantized_torch(x, q, sa):
+    return (x.float() @ (q.float() * sa[:, None]).T).to(x.dtype)
+
+
+@pytest.mark.parametrize("variant,rel", [("fp32_backward", 1e-3),
+                                         ("dequantized", 1e-5)])
+def test_w8a8_trunk_step_gap_is_the_roundings(tmp_path, monkeypatch, variant,
+                                              rel):
+    """Where the w8a8 step's gradient gap comes from, by switching its
+    sources off in both packages at once.  ``fp32_backward``: both
+    straight-through backwards in fp32 (no bf16 rounding of ``g · sa`` or
+    of the product), activations still quantized: the leaves agree within
+    the int8 trunk's 1e-3·max|g| (3.7e-4 here, against 1.7e-3 with the
+    bf16 backwards; JAX's own bf16 backward sits 4.3e-3·max|g| from its
+    fp32 one).  ``dequantized``: both forwards the fp32 product
+    ``x @ (q · sa)ᵀ`` as well: within 1e-5 (2.2e-6 here), so what the
+    fp32 backward leaves is the per-token activation rounding, whose
+    codes float-order noise flips by one step."""
+    jstep = _fp32_ste_jax() if variant == "fp32_backward" else _dequantized_jax
+    with monkeypatch.context() as m:
+        m.setattr(jquant, "_w8a8_matmul", jstep)
+        ref = _jax_lora_step(tmp_path / "j", quantize_base="w8a8")
+    jax.clear_caches()
+    monkeypatch.setattr(tquant, "_W8A8", _Fp32Ste)
+    if variant == "dequantized":
+        monkeypatch.setattr(tquant, "_w8a8_raw", _dequantized_torch)
+    model = _port_model(ref["params"])
+    trainer = SimPOTrainer(Config.from_nested(_trainer_config(
+        tmp_path, "flash", quantize_base="w8a8")), model, _port_processor())
+    trainer._set_trainable(ref["lora"])
+    _, _, grads = trainer.loss_and_grads(*_batch())
+    _close_trees(grads, ref["grads"], rel)
 
 
 @pytest.mark.parametrize("built,asked", [("int8", "w8a8"), ("w8a8", "int8")])

@@ -24,6 +24,7 @@ from ospo_tpu.processing import Processor as JProcessor
 from ospo_tpu.tokenizer import ByteTokenizer as JByteTokenizer
 from ospo_tpu_torch.image_processing import ImageProcessor, pil_bicubic_resize
 from ospo_tpu_torch.models import janus as tjanus
+from ospo_tpu_torch.models import llama as tllama
 from ospo_tpu_torch.models import vit as tvit
 from ospo_tpu_torch.models.weights import from_jax_params
 from ospo_tpu_torch.ops import attention as tattn
@@ -448,8 +449,10 @@ def _shbd_case(dtype, quantized, prefix, seed=0):
 @pytest.mark.parametrize("prefix", [False, True], ids=["own", "prefix"])
 @pytest.mark.parametrize("cache", ["bf16", "int8"])
 def test_cached_multi_token_step_matches_xla_attention(cache, prefix):
-    """``cached_attention`` (T > 1 at offset ``cache_len`` over rows
-    ``[0, cache_len + T)``) against ``ospo_tpu``'s ``xla_attention`` with
+    """A cached T > 1 step on the ``shbd`` cache as ``llama.forward`` reads
+    it (``_cache_window`` over rows ``[0, cache_len + T)``, then
+    ``xla_attention`` with ``kv_layout="shbd"`` at offset ``cache_len``)
+    against ``ospo_tpu``'s ``xla_attention`` with
     ``kv_layout="shbd"`` over the whole window, layer 1: a bf16 cache with
     bf16 queries (tolerance one bf16 step, 2^-7 |ref| + 1e-6) and an int8
     ``{q, s}`` cache with fp32 queries (1e-5), each without and with a
@@ -478,20 +481,25 @@ def test_cached_multi_token_step_matches_xla_attention(cache, prefix):
     ref = np.asarray(jxla_attention(jq, jk, jv, mask, cache_len, True,
                                          kv_layout="shbd", **jpre),
                      dtype=np.float32)
-    out = tattn.cached_attention(
-        tq, tk, tv, li, cache_len, torch.as_tensor(mask),
-        k_scale=None if ks is None else torch.as_tensor(ks),
-        v_scale=None if vs is None else torch.as_tensor(vs), **tpre)
+    cache = {"k": tk, "v": tv}
+    if ks is not None:
+        cache.update(k_s=torch.as_tensor(ks), v_s=torch.as_tensor(vs))
+    cur = cache_len + q.shape[1]
+    tk_w, tv_w = tllama._cache_window(cache, li, "shbd", cur)
+    tmask = torch.as_tensor(mask)[:, :cur]
+
+    def read():
+        return tattn.xla_attention(tq, tk_w, tv_w, tmask, cache_len, True,
+                                   kv_layout="shbd", **tpre)
+
+    out = read()
     assert out.dtype == tq.dtype and out.shape == q.shape
     np.testing.assert_allclose(out.float().numpy(), ref, **tol)
     # row chunks change nothing but the memory held
     old = tattn.PREFIX_SCORE_ELEMS
     try:
         tattn.PREFIX_SCORE_ELEMS = 1
-        again = tattn.cached_attention(
-            tq, tk, tv, li, cache_len, torch.as_tensor(mask),
-            k_scale=None if ks is None else torch.as_tensor(ks),
-            v_scale=None if vs is None else torch.as_tensor(vs), **tpre)
+        again = read()
     finally:
         tattn.PREFIX_SCORE_ELEMS = old
     torch.testing.assert_close(again, out, atol=0, rtol=0)
