@@ -43,7 +43,8 @@ fails):
    tokens), then ``combine_prompt`` over the fixture element files; step 2
    (2a and 2b, seeds 0, 1, 2) over the fixture's template-pure group of 10
    complex base prompts, ``max_new_tokens`` cut to ``STEP2_NEW_TOKENS``;
-   step 4a over the 40 fixture long prompts.  Per stage it prints tokens
+   step 4a over the 40 fixture long prompts, ``max_new_tokens`` cut to
+   ``STEP4A_NEW_TOKENS``.  Per stage it prints tokens
    per second, batch, prefix and tail buckets, the mid-decode step time,
    peak memory and the flash and decode launches; every shared-prefix call
    must launch the flash forward 30 times (its B = 1 prefix prefill), and
@@ -85,8 +86,9 @@ fails):
     trunk's seven projections must be int8, the flash counters 60/30/30 a
     micro-step, and the checkpoint must land; it prints the step seconds
     and peak memory beside phase 5's;
-13. step 3's opt-in decode modes, each over one group of 24 CFG pairs as
-    phases 6 and 7 (int8 weights): (a) ``kv_layout: bshd`` with the int8
+13. step 3's opt-in decode modes, each over one group of
+    ``DECODE_MODE_ITEMS`` (12) CFG pairs (cut from 24 for time),
+    as phases 6 and 7 otherwise (int8 weights): (a) ``kv_layout: bshd`` with the int8
     cache and ``decode_segments: 8``, the plain cache read; (b) the same
     with ``speculative: 4`` (speculative Jacobi decoding), printing
     ``last_sjd_iters`` and the tokens an iteration; (c) ``kv_quant: int4``
@@ -98,15 +100,38 @@ fails):
     the same width and depth the logits are within 1e-2 max|ref|; on (a)'s
     bf16 model the ``bshd`` read is within twice the distance of the
     kernel's own plain version (the control) from the kernel;
-14. the weight modes: (a) step 3 as phase 7 with ``quantize: int4n`` (the
-    row kernel; the port stores int4n as int4 rows, so this runs phase
-    7's path again, and it is the first phase to cut when the script
-    nears its time limit); (b) step 4b as phase 9 with ``quantize: w8a8`` over the
+14. the weight modes: (a) ``quantize: int4n`` is no longer driven here
+    (the port stores int4n as int4 rows, so it reran phase 7's path; cut
+    for time); (b) step 4b as phase 9 with ``quantize: w8a8`` over the
     ``W8A8_SCORE_ITEMS`` first items (2 chunks), once with the w8a8 readout
     and once with ``readout_w8a16``: images/s for each and the share of
     yes/no answers on which the two agree; (c) step 5 as phase 12 with
     ``quantize_base: w8a8``, the step seconds and peak memory beside
-    phase 12's.
+    phase 12's;
+15. a checkpoint directory and two processes, at the Janus-Pro-1B width:
+    (a) ``ospo_tpu_torch.models.synthetic.write_synthetic_checkpoint``
+    writes the 1B directory (seed ``SYNTH_SEED``) through the port's
+    safetensors writer, with its seconds and GB, in a process of its own
+    that starts before phase 11, so that its host draws run beside the
+    card-bound phases 11 and 12; 15a waits for it; (b) ``get_model`` loads it
+    on the card (seconds, peak memory) beside the preset's random init, a
+    second ``load_janus`` must be bit-equal, four sampled tensors must
+    equal the writer's values recomputed on the host, and the forced CFG
+    probe must be finite; (c) ``scripts/run_multihost_torch.sh 2
+    ospo_tpu_torch.pipeline.step3`` on ``configs/step3.yaml`` from the
+    directory (int8 weights), ``DP_STEP3_ITEMS`` items with one prompt
+    each (one group of 24 CFG pairs a rank, M = 48): both ranks on
+    ``cuda:0`` with gloo, each image exactly once, each rank's flash and
+    decode launches, img-tok/s a rank and for the pair; (d) ``step5`` (1B
+    LoRA from the directory, ``attn_impl: flash``, no dropout, no gradient
+    clip, global batch ``DP_STEP5_BATCH``, ``DP_STEP5_STEPS`` steps over
+    that many of phase 4's records, one batch an epoch) in two ranks
+    through the launcher against one rank on NCCL over the same
+    micro-batches (batch 8, 2 accumulation steps): the first moments after
+    step 1 (0.1 x the mean gradient) within 2^-16 max|ref| per tensor, the
+    final adapters A and B within 2^-7 max|ref|, rank 0 alone writing
+    checkpoints and scalars, and each run's mean seconds a step after the
+    first.
 
 Phase 2 also holds the flash forward at the step-2 prefix prefill (B = 1,
 H = 32, T = S = the prefix bucket, left-padded) and the decode kernel at
@@ -249,13 +274,16 @@ TRAIN_KEYS = {"item_id", "category", "sub_category", "question", "prompt",
 TRAIN_META_KEYS = {"score_metadata", "base_meatadata", "negative_metadata"}
 # phase 8's cut of step 2's new tokens (512 in configs/step2.yaml), so that
 # its six calls fit the phase's time (PERF.md §4)
-STEP2_NEW_TOKENS = 128
+STEP2_NEW_TOKENS = 64
+# and of step 4a's (256 in configs/step4.yaml), cut for time
+STEP4A_NEW_TOKENS = 64
 BASE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "examples", "step1",
                             "base_prompt.json")
 
 
 # phase 13's plain-read probe: prompts and image tokens (two segments of
-# growing windows)
+# growing windows); its groups' items (12 CFG pairs, cut from 24 for time)
+DECODE_MODE_ITEMS = 12
 PROBE_PROMPTS = 4
 PROBE_TOKENS = 192
 # phase 14b's items: 6 images each, 30 images = 2 chunks of 16
@@ -264,6 +292,17 @@ W8A8_SCORE_ITEMS = 5
 # phase 11's 1B full checkpoint: the bf16 language model (lm_head included,
 # ~1.65B parameters) and its fp32 first and second moments, with room
 FULL_CKPT_GB = 20
+
+# phase 15: the seed of the synthetic Janus-Pro-1B directory's values, the
+# room it and its runs need (4.2 GB of shards), step 3's items (one a
+# prompt of the first 16 fixture items: two ranks, one group of 24 CFG
+# pairs each, as configs/step3.yaml's batch) and step 5's global batch (as
+# configs/step5.yaml's) and steps, one global batch an epoch
+SYNTH_SEED = 0
+SYNTH_FREE_GB = 8
+DP_STEP3_ITEMS = 48
+DP_STEP5_BATCH = 16
+DP_STEP5_STEPS = 3
 
 
 def step5_overrides(data_path: str, image_root: str, save_path: str) -> dict:
@@ -383,6 +422,11 @@ class Smoke:
         print(f"nvidia-smi: {smi.stdout.strip()}")
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"device {torch.cuda.get_device_name(0)}")
+        import importlib.util
+
+        print("safetensors package installed: "
+              f"{importlib.util.find_spec('safetensors') is not None} (the port "
+              "reads and writes the format itself)")
         from ospo_tpu_torch.ops import build
 
         t0 = time.time()
@@ -1005,8 +1049,21 @@ class Smoke:
         del args, got, exact, plain
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, mask), 10)
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, mask), 2, 1)
-        print(f"flash_fwd {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        del q, k, v, out, ref
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        allowed = (mask[:, None, None, :] > 0) & torch.ones(
+            (T, T), dtype=torch.bool, device=dev).tril()[None, None]
+        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=allowed), 10)
+        # the valid rows' causal products, each input read and output written
+        # once (q, k, v, the mask, O, and m and l in fp32)
+        flops = 4.0 * H * D * common * (common + 1) / 2
+        nbytes = 4 * T * H * D * 2 + T * 4 + 2 * H * T * 4
+        bound_ms = max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+        print(f"flash_fwd {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({flops / 1e9:.2f}"
+              f" GFLOP, {nbytes / 1e6:.1f} MB, bound by "
+              f"{'operations' if flops / PEAK_BF16 > nbytes / PEAK_BYTES else 'bytes'})")
+        del q, k, v, out, ref, qt, kt, vt, allowed
         torch.cuda.empty_cache()
 
         # decode: the step-1 prompt on the plain program, int8 cache
@@ -1584,12 +1641,14 @@ class Smoke:
 
 
     # -- phases 6, 7, 13 and 14a -------------------------------------------
-    def step3_group(self, tag: str, overrides: dict) -> dict:
+    def step3_group(self, tag: str, overrides: dict,
+                    items: int = N_ITEMS) -> dict:
         """Step 3 (``step3.main``) at the 7B width and depth with
-        ``overrides`` on ``configs/step3.yaml``, over one group of 24 CFG
-        pairs (M = 48 in every decode projection): the first prompt of each
-        of the first 24 fixture items, their other prompts left empty (step 3
-        skips an empty prompt), so the tree holds 24 images; checks them.
+        ``overrides`` on ``configs/step3.yaml``, over one group of ``items``
+        CFG pairs (24: M = 48 in every decode projection): the first prompt
+        of each of the first ``items`` fixture items, their other prompts
+        left empty (step 3 skips an empty prompt), so the tree holds
+        ``items`` images; checks them.
         → the run's statistics, its kernel launches, its peak memory and the
         engine ``main`` built (its model kept alive)."""
         import gc
@@ -1606,7 +1665,7 @@ class Smoke:
         torch.cuda.empty_cache()
         print(f"device memory before step 3 ({tag}): "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
-        data = read_json(FIXTURE)[:N_ITEMS]
+        data = read_json(FIXTURE)[:items]
         for sample in data:
             sample["long_prompt"] = [sample["long_prompt"][0], "", ""]
             sample["negative_long_prompt"] = ["", "", ""]
@@ -1617,7 +1676,7 @@ class Smoke:
             json.dump(data, f)
         config = Config.from_nested({
             **STEP3_CONFIG, "model_path": None, "model_preset": "7b",
-            **overrides, "data_path": data_path, "e_idx": N_ITEMS,
+            **overrides, "data_path": data_path, "e_idx": items,
             "save_path": os.path.join(root, "out")})
         engines, peaks = [], {"init": 0.0, "tokens": 0.0, "vq": 0.0}
         engine_cls = step3.ImageGenEngine
@@ -1686,7 +1745,7 @@ class Smoke:
             if img.shape != (384, 384, 3) or img.dtype.name != "uint8" \
                     or int(img.max()) == int(img.min()):
                 bad.append(f"{sample['item_id']}/00.png {img.shape}")
-        self.check(not bad and n_png == N_ITEMS and stats["images"] == N_ITEMS
+        self.check(not bad and n_png == items and stats["images"] == items
                    and stats["groups"] == 1,
                    f"step 3 {tag}: one group, {n_png} PNGs (384x384x3 uint8, "
                    f"non-constant) + metadata.json; bad: {bad[:3]}")
@@ -1749,6 +1808,8 @@ class Smoke:
                 "save_path": os.path.join(root, "step2")})),
             ("step 4a", step4, Config.from_nested({
                 **STEP4_CONFIG, **model7b, "image_path": None,
+                "generation_config": {**STEP4_CONFIG["generation_config"],
+                                      "max_new_tokens": STEP4A_NEW_TOKENS},
                 "data_path": FIXTURE, "save_path": os.path.join(root, "step4")})),
         )
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2188,7 +2249,7 @@ class Smoke:
                        f"step 3 {tag}: launches {counts} == flash_fwd {layers}"
                        f" (the prefill) and no decode kernel (plain read)")
 
-        a = self.step3_group("bshd", base)
+        a = self.step3_group("bshd", base, DECODE_MODE_ITEMS)
         plain_counts("bshd", a["counts"])
         # the plain read against the decode kernel: teacher-forced CFG
         # logits of a bshd engine and of the shbd engine (the kernel) on
@@ -2263,7 +2324,8 @@ class Smoke:
                    f"bshd plain read within twice the control's distance "
                    f"from the kernel: {err:.3g} <= 2 x {err_ctl:.3g}")
 
-        b = self.step3_group("bshd sjd4", {**base, "speculative": 4})
+        b = self.step3_group("bshd sjd4", {**base, "speculative": 4},
+                             DECODE_MODE_ITEMS)
         plain_counts("bshd sjd4", b["counts"])
         iters = b.pop("engine").last_sjd_iters
         per_iter = (n_img - 1) / iters if iters else float("nan")
@@ -2275,19 +2337,21 @@ class Smoke:
                    f"SJD: {iters} Jacobi iterations for {n_img - 1} tokens "
                    f"(never more than sequential)")
 
-        c = self.step3_group("bshd int4 kv", {**base, "kv_quant": "int4"})
+        c = self.step3_group("bshd int4 kv", {**base, "kv_quant": "int4"},
+                             DECODE_MODE_ITEMS)
         plain_counts("bshd int4 kv", c["counts"])
         cache_gb = {}
         for tag, run in (("int8", a), ("int4", c)):
             kv = llama.init_kv_cache(
-                janus.JANUS_PRO_7B.language, 48, 384 + n_img,
+                janus.JANUS_PRO_7B.language, 2 * DECODE_MODE_ITEMS, 384 + n_img,
                 quantized=tag, layout="bshd", device="meta")
             cache_gb[tag] = sum(t.numel() * t.element_size()
                                 for t in kv.values() if torch.is_tensor(t)) / 1e9
         c.pop("engine")
         print(f"step 3 bshd: peak memory of token generation int4 KV "
               f"{c['tokens_gb']:.2f} GB, int8 KV {a['tokens_gb']:.2f} GB "
-              f"(a cache of 48 rows x {384 + n_img}: int4 {cache_gb['int4']:.2f}"
+              f"(a cache of {2 * DECODE_MODE_ITEMS} rows x {384 + n_img}: int4 "
+              f"{cache_gb['int4']:.2f}"
               f" GB, int8 {cache_gb['int8']:.2f} GB); whole run {c['peak_gb']:.2f}"
               f" and {a['peak_gb']:.2f} GB; {c['rate']:.1f} against "
               f"{a['rate']:.1f} img-tok/s")
@@ -2374,6 +2438,363 @@ class Smoke:
               f"{peak_gb:.2f} GB")
         self.check(len(keys) > 0, f"step 4b w8a8: {len(keys)} answers compared")
         del model
+
+    # -- phase 15 --------------------------------------------------------
+    def start_synthetic_write(self):
+        """Start 15a's writer in a process of its own (no card), so that its
+        host draws overlap the card-bound phases instead of adding to the
+        script's time; 15a waits for it."""
+        free_gb = shutil.disk_usage(self.workdir).free / 1e9
+        self.check(free_gb >= SYNTH_FREE_GB,
+                   f"{free_gb:.1f} GB free under the temp directory for the 1B "
+                   f"directory and its runs (needs {SYNTH_FREE_GB} GB)")
+        path = os.path.join(self.workdir, "janus_pro_1b")
+        code = ("import json, sys, time\n"
+                f"sys.path.insert(0, {ROOT!r})\n"
+                "from ospo_tpu_torch.models import janus, synthetic\n"
+                "t0 = time.time()\n"
+                f"synthetic.write_synthetic_checkpoint({path!r}, "
+                f"janus.JANUS_PRO_1B, seed={SYNTH_SEED})\n"
+                "print(json.dumps({'seconds': time.time() - t0}))\n")
+        log = os.path.join(self.workdir, "synthetic_write.log")
+        with open(log, "w") as f:
+            proc = subprocess.Popen([sys.executable, "-c", code], stdout=f,
+                                    stderr=subprocess.STDOUT,
+                                    env=dict(os.environ,
+                                             CUDA_VISIBLE_DEVICES=""))
+        self.writer = {"proc": proc, "path": path, "log": log,
+                       "t0": time.time()}
+        print(f"synthetic 1B directory: writer started (pid {proc.pid})")
+
+    def close(self):
+        """Stop what the script started and has not waited for."""
+        proc = getattr(self, "writer", {}).get("proc")
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    def synthetic_write(self):
+        """15a: the port's writer, started before phase 11, has put a
+        Janus-Pro-1B directory on disk."""
+        from ospo_tpu_torch.models import janus, synthetic
+
+        w = self.writer
+        t0 = time.time()
+        rc = w["proc"].wait(timeout=900)
+        waited = time.time() - t0
+        out = open(w["log"]).read()
+        if rc != 0:
+            print(f"--- writer output (last 6000 bytes) ---\n{out[-6000:]}")
+        self.check(rc == 0, f"the writer process exits 0 (rc {rc})")
+        seconds = json.loads(out.strip().splitlines()[-1])["seconds"]
+        path = w["path"]
+        shards = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+        gb = sum(os.path.getsize(os.path.join(path, f)) for f in shards) / 1e9
+        n_params = sum(int(torch.Size(s).numel())
+                       for _, s, _ in synthetic.janus_key_shapes(janus.JANUS_PRO_1B))
+        print(f"synthetic Janus-Pro-1B directory: {len(shards)} shards, "
+              f"{gb:.3f} GB ({n_params} bf16 parameters) written in "
+              f"{seconds:.1f} s ({gb / seconds:.3f} GB/s) by its own process "
+              f"beside phases 11 on; 15a waited {waited:.1f} s for it")
+        self.check(abs(gb * 1e9 - 2 * n_params) < 1e6 * len(shards)
+                   and os.path.exists(os.path.join(path, "config.json")),
+                   f"the directory holds {gb:.3f} GB of shards (2 bytes x "
+                   f"{n_params} parameters, and headers) and config.json")
+        self.synth = {"path": path, "write_s": seconds, "gb": gb}
+
+    def synthetic_load(self):
+        """15b: ``get_model`` from the directory on the card beside the same
+        preset's random init; a second ``load_janus`` bit-equal; sampled
+        tensors equal to the writer's, recomputed on the host; the forced
+        CFG probe finite."""
+        import gc
+
+        import numpy as np
+
+        from ospo_tpu_torch.config import Config
+        from ospo_tpu_torch.engine.image_engine import ImageGenEngine
+        from ospo_tpu_torch.io import read_json
+        from ospo_tpu_torch.models import janus, synthetic, weights
+        from ospo_tpu_torch.pipeline.model_factory import get_model
+        from ospo_tpu_torch.processing import t2i_prompt
+        from ospo_tpu_torch.train.optim import leaves
+
+        gc.collect()  # the previous phase's model goes first
+        torch.cuda.empty_cache()
+        path = self.synth["path"]
+
+        def timed(cfg):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.time()
+            model, _, proc = get_model(Config.from_nested(cfg))
+            torch.cuda.synchronize()
+            return (model, proc, time.time() - t0,
+                    (torch.cuda.max_memory_allocated() - base) / 1e9)
+
+        model, _, init_s, init_gb = timed({"model_preset": "1b",
+                                           "seed": SYNTH_SEED})
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, proc, load_s, load_gb = timed({"model_path": path})
+        print(f"1B set-up on the card: get_model from the directory "
+              f"{load_s:.1f} s, peak {load_gb:.2f} GB ({self.synth['gb'] / load_s:.3f}"
+              f" GB/s); random init of the preset {init_s:.1f} s, peak "
+              f"{init_gb:.2f} GB")
+        again = weights.load_janus(path, device="cuda", lm_head=True)
+        first, second = leaves(model.params), leaves(again.params)
+        same = [p for p, _ in first] == [p for p, _ in second] and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for (_, a), (_, b) in zip(first, second))
+        self.check(same and len(first) > 100,
+                   f"a second load_janus of the directory is bit-equal to "
+                   f"get_model's ({len(first)} tensors)")
+        del again, first, second
+        lm = model.params["language_model"]
+        sampled = {
+            "language_model.model.embed_tokens.weight": lm["embed"],
+            "language_model.model.layers.0.self_attn.q_proj.weight":
+                lm["layers"]["wq"][0],
+            "language_model.model.layers.0.mlp.gate_proj.weight":
+                lm["layers"]["w_gate"][0],
+            "language_model.model.layers.1.mlp.down_proj.weight":
+                lm["layers"]["w_down"][1],
+        }
+        t0 = time.time()
+        equal = {}
+        for key, t in synthetic.synthetic_tensors(janus.JANUS_PRO_1B, SYNTH_SEED):
+            if key in sampled:
+                equal[key] = bool(torch.equal(sampled[key].cpu(), t))
+                if len(equal) == len(sampled):
+                    break
+        self.check(len(equal) == 4 and all(equal.values()),
+                   f"4 sampled tensors on the card equal the writer's values "
+                   f"recomputed on the host from seed {SYNTH_SEED} "
+                   f"({time.time() - t0:.1f} s): {equal}")
+        prompts = [t2i_prompt(proc, s["long_prompt"][0])
+                   for s in read_json(FIXTURE)[:PROBE_PROMPTS]]
+        forced = torch.randint(0, model.cfg.image_token_size,
+                               (len(prompts), PROBE_TOKENS),
+                               generator=torch.Generator().manual_seed(0)).numpy()
+        eng = ImageGenEngine(model, proc, image_token_num=PROBE_TOKENS,
+                             img_size=model.cfg.gen_image_size,
+                             patch_size=model.cfg.vq.downsample_factor,
+                             kv_quant="int8", decode_segments=8)
+        logits = eng.forced_cfg_logits(prompts, forced)
+        self.check(np.isfinite(logits).all()
+                   and logits.shape[:2] == (len(prompts), PROBE_TOKENS),
+                   f"forced CFG logits of the loaded 1B model, {len(prompts)} "
+                   f"prompts x {PROBE_TOKENS} tokens: shape {logits.shape}, "
+                   f"finite, max|logit| {float(np.abs(logits).max()):.3g}")
+        del model, eng
+
+    def _launch(self, tag: str, nproc: int, module: str, args: list,
+                timeout: float) -> dict:
+        """``scripts/run_multihost_torch.sh nproc module args``; its output
+        goes to ``<workdir>/<tag>.log``.  → the output, the wall seconds and
+        each rank's ``# distributed runtime`` line and summary line."""
+        import re
+
+        env = dict(os.environ, PYTHON=sys.executable,
+                   PYTHONPATH=os.pathsep.join([ROOT, os.environ.get(
+                       "PYTHONPATH", "")]))
+        log = os.path.join(self.workdir, f"{tag}.log")
+        t0 = time.time()
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                ["bash", os.path.join(ROOT, "scripts", "run_multihost_torch.sh"),
+                 str(nproc), module, *args], cwd=ROOT, env=env, stdout=f,
+                stderr=subprocess.STDOUT, start_new_session=True)
+            try:
+                rc = proc.wait(timeout=timeout)
+            finally:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, 9)
+                    proc.wait()
+        wall = time.time() - t0
+        out = open(log).read()
+        # the ranks share one output, so read each record where it starts
+        # and no further than it goes, whatever surrounds it
+        runtime = dict(re.findall(
+            r"# distributed runtime: process (\d+)/\d+ @ \S+ (backend \w+ "
+            r"device (?:cuda:\d+|cpu))", out))
+        decoder = json.JSONDecoder()
+        summary = {int(m.group(1)): decoder.raw_decode(out, m.end())[0]
+                   for m in re.finditer(r"# \w+ process (\d+)/\d+: ", out)}
+        print(f"{tag}: {nproc} process(es), rc {rc}, {wall:.1f} s; "
+              f"{ {int(k): v for k, v in runtime.items()} }")
+        if rc != 0 or len(summary) != nproc:
+            print(f"--- {tag} output (last 6000 bytes) ---\n{out[-6000:]}")
+        self.check(rc == 0 and len(summary) == nproc,
+                   f"{tag}: the launcher exits 0 and every rank reports")
+        return {"out": out, "wall": wall, "runtime": runtime,
+                "summary": summary}
+
+    def synthetic_step3(self):
+        """15c: step 3 from the 1B directory in two ranks on the one card
+        (int8 weights): gloo, each (item, kind, seed) image exactly once,
+        each rank's kernels launched."""
+        from ospo_tpu_torch.io import read_json
+        from ospo_tpu_torch.utils.png import read_png
+
+        root = os.path.join(self.workdir, "dp_step3")
+        os.makedirs(root)
+        data = [   # an item a prompt: one group of 24 pairs a rank
+            {**sample, "item_id": f"{sample['item_id']}{j}",
+             "long_prompt": [prompt, "", ""],
+             "negative_long_prompt": ["", "", ""]}
+            for sample in read_json(FIXTURE)[:DP_STEP3_ITEMS // 3]
+            for j, prompt in enumerate(sample["long_prompt"])]
+        self.check(len(data) == DP_STEP3_ITEMS and all(
+            s["long_prompt"][0] for s in data),
+            f"{len(data)} one-prompt items (want {DP_STEP3_ITEMS})")
+        data_path = os.path.join(root, "long_prompt.json")
+        with open(data_path, "w") as f:
+            json.dump(data, f)
+        out = os.path.join(root, "out")
+        run = self._launch("dp_step3", 2, "ospo_tpu_torch.pipeline.step3", [
+            "--cfg_path", os.path.join(ROOT, "configs", "step3.yaml"),
+            f"model_path={self.synth['path']}", f"data_path={data_path}",
+            f"e_idx={DP_STEP3_ITEMS}", f"save_path={out}"], timeout=400)
+        self.check(sorted(run["runtime"].values()) == [
+            "backend gloo device cuda:0"] * 2,
+            f"both ranks on the one card take gloo: {run['runtime']}")
+        layers, steps = 24, 575
+        per, rates, tokens, secs = DP_STEP3_ITEMS // 2, {}, 0, 0.0
+        for rank, s in sorted(run["summary"].items()):
+            n = s["launches"]
+            rates[rank] = s["image_tokens"] / s["seconds"]
+            tokens += s["image_tokens"]
+            secs = max(secs, s["seconds"])
+            for name in ("flash_fwd", "decode_attention"):
+                self.launches[name] = self.launches.get(name, 0) + n[name]
+            self.check(s["images"] == per and s["groups"] == 1
+                       and n["flash_fwd"] == layers
+                       and n["decode_attention"] == layers * steps,
+                       f"step 3 rank {rank}: {s['images']} images in "
+                       f"{s['groups']} group, launches flash_fwd "
+                       f"{n['flash_fwd']} == {layers}, decode_attention "
+                       f"{n['decode_attention']} == {layers} x {steps}")
+        print(f"step 3, 1B from the directory, 2 ranks on one card, a group of "
+              f"{per} CFG pairs a rank: img-tok/s "
+              f"{ {r: round(v, 1) for r, v in rates.items()} } per rank, "
+              f"{tokens / secs:.1f} for the pair ({tokens} image tokens over "
+              f"the longer rank's {secs:.1f} s of serving); card {_smi()}")
+        pngs = sorted(os.path.relpath(os.path.join(d, f), out)
+                      for d, _, files in os.walk(out) for f in files
+                      if f.endswith(".png"))
+        want = sorted(os.path.join("base", s["category"], s["item_id"], "00.png")
+                      for s in data)
+        bad = [p for p in want if p in pngs and not _real_png(
+            read_png(os.path.join(out, p)))]
+        self.check(pngs == want and not bad,
+                   f"step 3 tree: {len(pngs)} PNGs, each (item, kind, seed) "
+                   f"of the {len(want)} asked for exactly once, real images "
+                   f"(bad: {bad[:3]})")
+
+    def synthetic_step5(self):
+        """15d: step 5 (1B LoRA from the directory, global batch 16, 3
+        optimizer steps, no gradient clip) in two ranks on the one card
+        against one rank on NCCL over the same micro-batches (batch 8, 2
+        accumulation steps)."""
+        import numpy as np
+
+        root = os.path.join(self.workdir, "dp_step5")
+        os.makedirs(root)
+        data_path = os.path.join(root, "train.json")
+        records = train_records()[:DP_STEP5_BATCH]   # a batch an epoch
+        self.check(len(records) == DP_STEP5_BATCH,
+                   f"{len(records)} training records (want {DP_STEP5_BATCH})")
+        with open(data_path, "w") as f:
+            json.dump(records, f)
+        # no clip: a clipped gradient hides its scale from the moments
+        common = [
+            "--cfg_path", os.path.join(ROOT, "configs", "step5.yaml"),
+            f"model.model_path={self.synth['path']}",
+            f"dataset.train.data_path={data_path}",
+            f"image_root={os.path.join(self.workdir, 'step3')}",
+            f"experiment.max_training_steps={DP_STEP5_STEPS}",
+            f"experiment.max_epochs={DP_STEP5_STEPS}",
+            "experiment.attn_impl=flash", "experiment.save_steps=1",
+            "experiment.log_steps=1", "experiment.gradient_clip_val=null",
+            "lora.lora_dropout=0"]
+        half = DP_STEP5_BATCH // 2
+        variants = {   # name → processes, batch, accumulation steps
+            "two": (2, DP_STEP5_BATCH, 1), "one": (1, half, 2)}
+        runs, layers = {}, 24
+        for name, (n, batch, accum) in variants.items():
+            runs[name] = self._launch(
+                f"dp_step5_{name}", n, "ospo_tpu_torch.pipeline.step5",
+                common + [f"model.data_parallel={n}",
+                          f"dataset.train.batch_size={batch}",
+                          f"experiment.gradient_accumulation_steps={accum}",
+                          f"base.save_path={os.path.join(root, name)}"],
+                timeout=400)
+            for rank, st in sorted(runs[name]["summary"].items()):
+                c = st["launches"]
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                    self.launches[k] = self.launches.get(k, 0) + c[k]
+                micro = accum * DP_STEP5_STEPS
+                want = {"flash_fwd": 2 * layers * micro,
+                        "flash_bwd_dq": layers * micro,
+                        "flash_bwd_dkv": layers * micro}
+                got = {k: c[k] for k in want}
+                print(f"step 5 {name} (processes {n}, batch {batch}, "
+                      f"accumulation {accum}), rank {rank}: seconds a step "
+                      f"{[round(x, 3) for x in st['update_seconds']]}")
+                self.check(st["global_step"] == DP_STEP5_STEPS and got == want,
+                           f"step 5 {name} rank {rank}: {st['global_step']} "
+                           f"steps, launches {got} == {want}")
+        self.check(sorted(runs["two"]["runtime"].values()) == [
+            "backend gloo device cuda:0"] * 2
+            and list(runs["one"]["runtime"].values())
+            == ["backend nccl device cuda:0"],
+            f"two ranks on one card take gloo, one rank NCCL: "
+            f"{ {k: r['runtime'] for k, r in runs.items()} }")
+        saved = [runs[k]["out"].count("# Saved checkpoint:") for k in runs]
+        log = {k: os.path.join(root, k, "ospo") for k in runs}
+        lines = len(open(os.path.join(log["two"], "scalars.jsonl")).readlines())
+        self.check(saved[0] == saved[1] >= DP_STEP5_STEPS
+                   and lines == DP_STEP5_STEPS,
+                   f"two ranks: rank 0 alone wrote checkpoints ({saved[0]} "
+                   f"times, as one rank {saved[1]}) and {lines} scalar lines")
+
+        def distance(name, key_filter):
+            """Per tensor of ``name`` in the two runs: (key, max|two -
+            one|, max|one|)."""
+            x, y = (np.load(os.path.join(log[r], name)) for r in ("two", "one"))
+            return [(k, float(np.abs(x[k].astype(np.float64) - y[k]).max()),
+                     float(np.abs(y[k].astype(np.float64)).max()))
+                    for k in sorted(k for k in y.files if key_filter(k))]
+
+        def held(rows, tol, what):
+            w = max(rows, key=lambda r: r[1] / r[2] if r[2] else r[1])
+            self.check(rows and all(d <= tol * sc for _, d, sc in rows),
+                       f"step 5 {what}, two ranks vs one, per tensor within "
+                       f"{tol:.3g} max|ref|: worst {w[0]} max|d| {w[1]:.3g} "
+                       f"of max|ref| {w[2]:.3g}")
+
+        # the first moment after step 1 is 0.1 x the unclipped mean gradient
+        # of the global batch (A's is 0: B starts at zero); the two runs sum
+        # the same micro-batch gradients, so they differ by the fp32
+        # rounding of the mean alone
+        held(distance("step_000001/opt.npz", lambda k: k.startswith("mu/")),
+             2 ** -16, "gradient of step 1 (first moments)")
+        final = f"step_{DP_STEP5_STEPS:06d}/lora.npz"
+        for part in ("a", "b"):
+            held(distance(final, lambda k: k.endswith("/" + part)), 2 ** -7,
+                 f"final adapters {part.upper()}")
+        # the first step builds the kernels' launch plans and allocator
+        # pools; the mean of the later steps, over the ranks
+        steps = {k: np.mean([np.mean(st["update_seconds"][1:]) for st in
+                             runs[k]["summary"].values()]) for k in runs}
+        print(f"step 5 1B LoRA, global batch {DP_STEP5_BATCH}: steps 2-"
+              f"{DP_STEP5_STEPS} {steps['two']:.3f} s a step in two ranks on "
+              f"one card, {steps['one']:.3f} s in one rank (two micro-batches "
+              f"of {half}); card {_smi()}")
+        shutil.rmtree(self.synth["path"], ignore_errors=True)
 
 class _Timed:
     """Times the named module functions while active (host clock around a
@@ -2673,6 +3094,19 @@ def _dominant_last_key(q, kc, vc, ks, vs, layer, cur):
         vc[layer, last] = 3.0
 
 
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+
+
+def _real_png(img) -> bool:
+    """A 384x384 RGB uint8 image that is not one colour."""
+    return (img.shape == (384, 384, 3) and img.dtype.name == "uint8"
+            and int(img.max()) != int(img.min()))
+
+
 def _tree_map(tree, fn):
     if isinstance(tree, dict):
         return {k: _tree_map(v, fn) for k, v in tree.items()}
@@ -2699,6 +3133,7 @@ def main() -> int:
         traceback.print_exc()
         return 3
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    smoke = None
     try:
         smoke = Smoke(workdir)
         smoke.phase("environment and kernel build", smoke.environment)
@@ -2733,19 +3168,29 @@ def main() -> int:
             smoke.phase("main path: step 4b at 7B width", smoke.score_path)
             smoke.phase("main path: inference CLI at 7B width from phase 5's "
                         "LoRA checkpoint", smoke.inference_path)
+            smoke.phase("synthetic 1B directory, start its writer",
+                        smoke.start_synthetic_write)
             smoke.phase("main path: step 5 full fine-tune at 1B width",
                         smoke.full_finetune_path)
             smoke.phase("main path: step 5 at 7B width on an int8 trunk",
                         lambda: smoke.trunk_path("int8"))
             smoke.phase("main path: step 3 at 7B width, decode modes (bshd "
                         "plain read, SJD, int4 KV)", smoke.decode_modes_path)
-            smoke.phase("main path: step 3 at 7B width, quantize int4n",
-                        lambda: smoke.int4_path("int4n"))
             smoke.phase("main path: step 4b at 7B width, quantize w8a8",
                         smoke.w8a8_score_path)
             smoke.phase("main path: step 5 at 7B width on a w8a8 trunk",
                         lambda: smoke.trunk_path("w8a8"))
+            smoke.phase("main path: synthetic 1B directory, write",
+                        smoke.synthetic_write)
+            smoke.phase("main path: synthetic 1B directory, load on the card",
+                        smoke.synthetic_load)
+            smoke.phase("main path: step 3 at 1B width from the directory, "
+                        "two ranks on one card", smoke.synthetic_step3)
+            smoke.phase("main path: step 5 at 1B width from the directory, "
+                        "two ranks against one", smoke.synthetic_step5)
     finally:
+        if smoke is not None:
+            smoke.close()
         shutil.rmtree(workdir, ignore_errors=True)
     if smoke.failures or args.skip_main:
         print(f"FAILED: {smoke.failures}")

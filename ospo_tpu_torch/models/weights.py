@@ -15,7 +15,8 @@
   understanding tower (SigLIP and the aligner) and the generation side
   unless dropped.  Every key it reads is recorded, and a key-coverage audit
   (``check_key_coverage`` :96) fails the load on any key neither read nor
-  skipped by name.
+  skipped by name.  The shards are read by the port's own safetensors
+  reader (``utils/safetensors_io.py``), a tensor at a time.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from ospo_tpu_torch.models import janus as janus_lib
 from ospo_tpu_torch.models import llama as llama_lib
 from ospo_tpu_torch.models import vit as vit_lib
 from ospo_tpu_torch.models import vqgan as vqgan_lib
+from ospo_tpu_torch.utils.safetensors_io import SafeOpen
 
 Params = Dict[str, Any]
 
@@ -157,12 +159,10 @@ class _Checkpoint:
     the keys read (an ``in`` test reads nothing) for the coverage audit."""
 
     def __init__(self, model_path: str, device):
-        from safetensors import safe_open
-
         shards = sorted(glob.glob(os.path.join(model_path, "*.safetensors")))
         if not shards:
             raise FileNotFoundError(f"no *.safetensors under {model_path}")
-        self._files = [safe_open(s, framework="pt") for s in shards]
+        self._files = [SafeOpen(s) for s in shards]
         self._where = {k: f for f in self._files for k in f.keys()}
         self.device = device
         self.consumed: set = set()

@@ -8,7 +8,7 @@ from __future__ import annotations
 import itertools
 import os
 import random
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -119,9 +119,20 @@ class PreferenceDataset:
                    for ex in self.dataset)
 
     def iter_batches(self, batch_size: int, shuffle: bool = True,
-                     seed: int = 0):
+                     seed: int = 0, part: Tuple[int, int] = (0, 1)):
+        """Global batches of ``batch_size`` records in a seeded order; with
+        ``part = (rank, n)`` only the rank's contiguous rows
+        ``[rank·b/n, (rank+1)·b/n)`` of each, loaded (a data-parallel
+        process).  A batch that ``n`` does not divide is a ValueError."""
+        rank, n = part
         order = list(range(len(self.dataset)))
         if shuffle:
             random.Random(seed).shuffle(order)
         for i in range(0, len(order), batch_size):
-            yield [self[j] for j in order[i : i + batch_size]]
+            rows = order[i : i + batch_size]
+            if len(rows) % n:
+                raise ValueError(
+                    f"a global batch of {len(rows)} records does not split "
+                    f"over {n} processes")
+            k = len(rows) // n
+            yield [self[j] for j in rows[rank * k : (rank + 1) * k]]

@@ -29,6 +29,7 @@ from ospo_tpu_torch.io import read_json, save_json, shard_for_process
 from ospo_tpu_torch.ops.build import KernelError
 from ospo_tpu_torch.pipeline.datasets import batched
 from ospo_tpu_torch.pipeline.model_factory import get_model
+from ospo_tpu_torch.platform import maybe_init_distributed
 from ospo_tpu_torch.utils.png import write_png
 
 
@@ -125,4 +126,5 @@ if __name__ == "__main__":
         cfg = build_config(cfg_path=args.cfg_path)
     else:
         cfg = compose_config(args.config_dir, args.config_name)
+    maybe_init_distributed(cfg.get("device"))
     main(cfg)

@@ -28,6 +28,7 @@ import os
 from typing import Optional, Tuple
 
 from ospo_tpu_torch.image_processing import load_image_processor
+from ospo_tpu_torch.io import process_count
 from ospo_tpu_torch.models import janus as janus_lib
 from ospo_tpu_torch.ops import quant
 from ospo_tpu_torch.platform import resolve_device
@@ -53,16 +54,23 @@ def _validate_quantize_mode(config) -> str:
 
 
 def _reject_unported(config) -> None:
-    if int(config.get("tensor_parallel") or 1) > 1 \
-            or int(config.get("data_parallel") or 0) > 1:
+    """Tensor parallel is not ported; data parallel is one process a card,
+    so ``data_parallel`` must match the world the launcher started."""
+    if int(config.get("tensor_parallel") or 1) > 1:
         raise NotImplementedError(
-            "tensor_parallel / data_parallel (multi-GPU) are queued in "
-            "ROADMAP.md (slice 5, scale-out)")
-    # one device: a 'local' or 'global' mesh (step 5 sets global) is that
-    # device alone
+            "tensor_parallel is queued in ROADMAP.md (queue 1 item 4, tensor "
+            "parallel)")
     scope = config.get("mesh_scope") or "local"
     if scope not in ("local", "global"):
         raise ValueError(f"mesh_scope must be local|global, got {scope!r}")
+    dp = int(config.get("data_parallel") or 0)
+    # a global scope spans every process's card, a local one this card
+    span = process_count() if scope == "global" else 1
+    if dp not in (0, span):
+        raise ValueError(
+            f"data_parallel={dp} with mesh_scope {scope}: each process drives "
+            f"one card, so it must be 0 or {span}; start one process a card "
+            "with scripts/run_multihost_torch.sh <nprocs> <module> ...")
 
 
 def build_model(config, quantize: str = "") -> janus_lib.JanusModel:

@@ -26,6 +26,7 @@ from ospo_tpu_torch.io import (merge_element_sets, process_index, read_json,
 from ospo_tpu_torch.models.llama import fold_seed
 from ospo_tpu_torch.pipeline.model_factory import get_model
 from ospo_tpu_torch.pipeline.templates import get_element_conversation
+from ospo_tpu_torch.platform import maybe_init_distributed
 from ospo_tpu_torch.utils.english import number_to_words, plural
 
 DEFAULT_MAX_LEN = {"object": 120, "spatial": 40, "non-spatial": 4000, "complex": 4000}
@@ -252,6 +253,7 @@ if __name__ == "__main__":
     parser.add_argument("--category", type=str, default="object")
     args, _ = parser.parse_known_args()
     config = build_config(cfg_path=args.cfg_path)
+    maybe_init_distributed(config.get("device"))
     if config.category is None:
         config.category = args.category
     print("# Category:", config.category)

@@ -28,6 +28,7 @@ from ospo_tpu_torch.pipeline.datasets import batched_grouped, load_base_dataset
 from ospo_tpu_torch.pipeline.model_factory import get_model
 from ospo_tpu_torch.pipeline.templates import (get_dense_conversation,
                                                get_negative_conversation)
+from ospo_tpu_torch.platform import maybe_init_distributed
 
 
 def render(system: str, conversation) -> str:
@@ -199,4 +200,6 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser()
     parser.add_argument("--cfg_path", type=str, default="configs/step2.yaml")
     args, _ = parser.parse_known_args()
-    main(build_config(cfg_path=args.cfg_path))
+    config = build_config(cfg_path=args.cfg_path)
+    maybe_init_distributed(config.get("device"))
+    main(config)

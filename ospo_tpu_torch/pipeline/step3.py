@@ -28,9 +28,10 @@ from ospo_tpu_torch.engine.image_engine import ImageGenEngine
 from ospo_tpu_torch.io import save_json, shard_for_process
 from ospo_tpu_torch.pipeline.datasets import batched, load_base_dataset
 from ospo_tpu_torch.pipeline.model_factory import get_model
+from ospo_tpu_torch.platform import maybe_init_distributed
 from ospo_tpu_torch.processing import t2i_prompt
 from ospo_tpu_torch.utils.png import write_png
-from ospo_tpu_torch.utils.profiling import ThroughputMeter
+from ospo_tpu_torch.utils.profiling import ThroughputMeter, print_process_summary
 
 
 def save_images(images, paths: List[str]) -> None:
@@ -163,6 +164,7 @@ def main(config) -> dict:
         load_base_dataset(data_path, config.get("s_idx"), config.get("e_idx")))
     stats = run_step3(config, engine, processor, data)
     print("(Step 3) Image generation completed.")
+    print_process_summary("step3", stats)
     return stats
 
 
@@ -170,4 +172,6 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser()
     parser.add_argument("--cfg_path", type=str, default="configs/step3.yaml")
     args, _ = parser.parse_known_args()
-    main(build_config(cfg_path=args.cfg_path))
+    config = build_config(cfg_path=args.cfg_path)
+    maybe_init_distributed(config.get("device"))
+    main(config)

@@ -23,12 +23,14 @@ from ospo_tpu_torch import chat
 from ospo_tpu_torch.config import build_config
 from ospo_tpu_torch.engine.scoring import ScoringEngine, compute_preference_strength
 from ospo_tpu_torch.engine.text_engine import TextGenEngine
-from ospo_tpu_torch.io import (read_json, save_json, save_json_sharded, set_seed,
+from ospo_tpu_torch.io import (gather_objects, process_index, read_json,
+                               save_json, save_json_sharded, set_seed,
                                shard_for_process)
 from ospo_tpu_torch.ops.build import KernelError
 from ospo_tpu_torch.pipeline.datasets import batched_grouped
 from ospo_tpu_torch.pipeline.model_factory import get_model
 from ospo_tpu_torch.pipeline.templates import get_vqa_conversation
+from ospo_tpu_torch.platform import maybe_init_distributed
 from ospo_tpu_torch.utils.png import read_png
 from ospo_tpu_torch.utils.prefetch import prefetch_iter
 
@@ -287,7 +289,15 @@ def main(config) -> None:
                            kv_quant=config.get("score_kv_quant") or False)
     pairs, score_summary = run_scoring(config, scorer, scored_input)
     save_json_sharded(config.save_path, "train", pairs)
-    save_json(config.save_path, "score_summary", score_summary)
+    # every process's per-category counts, summed on rank 0
+    merged: dict = {}
+    for part in gather_objects(score_summary):
+        for cat, counts in part.items():
+            total = merged.setdefault(cat, dict.fromkeys(counts, 0))
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    if process_index() == 0:
+        save_json(config.save_path, "score_summary", merged)
     print("(Step 4) Scoring and Train dataset generation completed.")
 
 
@@ -295,4 +305,6 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser()
     parser.add_argument("--cfg_path", type=str, default="configs/step4.yaml")
     args, _ = parser.parse_known_args()
-    main(build_config(cfg_path=args.cfg_path))
+    config = build_config(cfg_path=args.cfg_path)
+    maybe_init_distributed(config.get("device"))
+    main(config)

@@ -20,7 +20,9 @@ from ospo_tpu_torch.config import Config, build_config
 from ospo_tpu_torch.io import set_seed
 from ospo_tpu_torch.pipeline.datasets import PreferenceDataset
 from ospo_tpu_torch.pipeline.model_factory import get_model
+from ospo_tpu_torch.platform import maybe_init_distributed
 from ospo_tpu_torch.train.trainer import SimPOTrainer
+from ospo_tpu_torch.utils.profiling import print_process_summary
 
 
 def main(config) -> SimPOTrainer:
@@ -65,6 +67,8 @@ def main(config) -> SimPOTrainer:
     trainer.fit(dataset, batch_size=int(train_cfg.get("batch_size") or 16),
                 max_epochs=int(exp.get("max_epochs") or 1))
     print("Training END.")
+    print_process_summary("step5", {"global_step": trainer.global_step,
+                                    "update_seconds": trainer.update_seconds})
     return trainer
 
 
@@ -72,4 +76,6 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser()
     parser.add_argument("--cfg_path", type=str, default="configs/step5.yaml")
     args, _ = parser.parse_known_args()
-    main(build_config(cfg_path=args.cfg_path))
+    config = build_config(cfg_path=args.cfg_path)
+    maybe_init_distributed(config.get("device"))
+    main(config)

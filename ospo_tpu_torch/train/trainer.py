@@ -28,8 +28,20 @@ quirk of the reference kept as it is.
 ``global_step``, saves every ``save_steps`` and at the end, and writes
 ``train_stats.json``.  Scalars go to ``scalars.jsonl`` in the log directory
 (one JSON object per logged step, the JAX package's ``train/<name>`` tags)
-instead of a TensorBoard writer.  More than one process raises
-``NotImplementedError``.
+instead of a TensorBoard writer.
+
+Data parallel (``ospo_tpu/train/trainer.py:218-240``; launch with
+``scripts/run_multihost_torch.sh``, ``model.data_parallel`` = the number of
+processes): every process walks the same seeded global batches and takes
+its contiguous rows; the gradients of each micro-batch are averaged over
+the group (one flat fp32 buffer, ``all_reduce``, ÷ n) before ``grad_norm``
+and the clip, so both see the global gradient — exact because the SimPO loss
+is a batch mean and every row has the same 576 image labels.  Logged
+metrics are averaged over the group; rank 0 alone writes checkpoints,
+``scalars.jsonl``, ``train_stats.json`` and the saved config.  Each rank
+folds its rank into the LoRA dropout seed, so with dropout its masks are
+independent of the other ranks' but not those a single process draws for
+the same rows.
 """
 
 from __future__ import annotations
@@ -37,13 +49,15 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ospo_tpu_torch.config import save_config
 from ospo_tpu_torch.constants import IGNORE_ID
+from ospo_tpu_torch.io import process_count, process_index
 from ospo_tpu_torch.models import janus as janus_lib
 from ospo_tpu_torch.models import llama as llama_lib
 from ospo_tpu_torch.models import vqgan
@@ -51,6 +65,7 @@ from ospo_tpu_torch.models.weights import map_tree
 from ospo_tpu_torch.ops import quant
 from ospo_tpu_torch.ops.pixels import normalize_pixels
 from ospo_tpu_torch.pipeline.datasets import PreferenceDataset
+from ospo_tpu_torch.platform import object_group
 from ospo_tpu_torch.train import checkpoint as ckpt_lib
 from ospo_tpu_torch.train import lora as lora_lib
 from ospo_tpu_torch.train.optim import AdamW, global_norm, leaves, make_schedule
@@ -79,14 +94,6 @@ def _parse_quantize_base(value):
     raise ValueError(
         f"unrecognized quantize_base value {value!r}: use int8, w8a8, "
         "true (= int8), or false/unset (bf16 trunk)")
-
-
-def _world_size() -> int:
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return int(os.environ.get("WORLD_SIZE") or 1)
 
 
 class SimPOTrainer:
@@ -118,10 +125,22 @@ class SimPOTrainer:
         exp = config.get("experiment") or {}
         opt_cfg = config.get("optimizer") or {}
         qb_mode = _parse_quantize_base(exp.get("quantize_base"))
-        if _world_size() > 1:
-            raise NotImplementedError(
-                "training in more than one process is queued in ROADMAP.md "
-                "(slice 5, scale-out)")
+        # a group of any size, 1 included, averages the gradients
+        self.grouped = dist.is_available() and dist.is_initialized()
+        self.n_proc, self.rank = process_count(), process_index()
+        self.is_main = self.rank == 0
+        mcfg = config.get("model") or {}
+        if self.n_proc > 1 and not int(mcfg.get("data_parallel") or 0):
+            raise ValueError(
+                f"training in {self.n_proc} processes needs "
+                f"model.data_parallel={self.n_proc}: each process takes its "
+                "rows of the global batch (scripts/run_multihost_torch.sh)")
+        if self.n_proc > 1 and (mcfg.get("mesh_scope") or "global") != "global":
+            raise ValueError(
+                f"training in {self.n_proc} processes needs model.mesh_scope:"
+                f" global (one batch over every process), got "
+                f"{mcfg.get('mesh_scope')!r}: a local scope would train the "
+                "whole batch in every process")
         self.max_steps = int(exp.get("max_training_steps") or 1000)
         self.save_steps = exp.get("save_steps")
         self.log_steps = int(exp.get("log_steps") or 10)
@@ -273,9 +292,32 @@ class SimPOTrainer:
         optimizer (an update every ``gradient_accumulation_steps``)."""
         _, metrics, grads = self.loss_and_grads(
             text_ids, text_mask, chosen_pixels, rejected_pixels, dropout_seed)
+        if self.grouped:
+            grads = self._group_mean(grads)
         metrics["grad_norm"] = global_norm(grads)
         self.opt.step(self.trainable, grads)
         return metrics
+
+    def _group_mean(self, grads):
+        """The gradient tree averaged over the process group: one flat fp32
+        buffer, ``all_reduce`` (sum), ÷ n, each leaf back in its dtype."""
+        flat = [g for _, g in leaves(grads)]
+        buf = torch.cat([g.reshape(-1).float() for g in flat])
+        dist.all_reduce(buf)
+        buf /= self.n_proc
+        parts = iter(torch.split(buf, [g.numel() for g in flat]))
+        return map_tree(grads, lambda _, g: next(parts).view_as(g).to(g.dtype))
+
+    def _group_metrics(self, metrics: Dict[str, torch.Tensor]
+                       ) -> Dict[str, float]:
+        """The logged metrics, averaged over the process group."""
+        names = sorted(metrics)
+        vals = torch.stack([metrics[k].detach().float().reshape(())
+                            for k in names])
+        if self.grouped:
+            dist.all_reduce(vals)
+            vals /= self.n_proc
+        return dict(zip(names, vals.tolist()))
 
     # ------------------------------------------------------------------
     # host loop
@@ -301,40 +343,53 @@ class SimPOTrainer:
         self.global_step = step
         print(f"# Resumed from {ckpt_path} at step {step}.")
 
-    def save(self) -> str:
-        path = ckpt_lib.save_checkpoint(
-            self.log_dir, self.global_step, self.trainable, self.lora_cfg,
-            opt_state=self.opt.state_dict(),
-            mode="lora" if self.use_peft else "full")
-        print(f"# Saved checkpoint: {path}")
+    def save(self) -> Optional[str]:
+        """Rank 0 writes the checkpoint and returns its path (the other
+        ranks None); every rank leaves after a barrier, so none reads a
+        step directory before it exists."""
+        path = None
+        if self.is_main:
+            path = ckpt_lib.save_checkpoint(
+                self.log_dir, self.global_step, self.trainable, self.lora_cfg,
+                opt_state=self.opt.state_dict(),
+                mode="lora" if self.use_peft else "full")
+            print(f"# Saved checkpoint: {path}")
+        if self.grouped:
+            dist.barrier(group=object_group())
         return path
 
     def fit(self, dataset: PreferenceDataset, batch_size: int,
             max_epochs: int = 1) -> Dict[str, float]:
-        save_config(self.log_dir, self.config)
+        if self.is_main:
+            save_config(self.log_dir, self.config)
         self._t_pad = _bucket(dataset.max_text_len())
         t0 = time.time()
         samples = 0
         first_update_s = None
         first_update_samples = 0
         # dropout seeds fold in the MICRO-batch index, so accumulation
-        # micro-batches draw different masks
+        # micro-batches draw different masks, and in a world of several
+        # processes the rank, so ranks draw independent masks
         micro = self.global_step * self.grad_accum
         for epoch in range(max_epochs):
             if self.global_step >= self.max_steps:
                 break
             for batch_items, batch in prefetch_iter(dataset.iter_batches(
-                    batch_size, shuffle=True, seed=self.seed + epoch),
-                    self.collate):
+                    batch_size, shuffle=True, seed=self.seed + epoch,
+                    part=(self.rank, self.n_proc)), self.collate):
                 if self.global_step >= self.max_steps:
                     break
-                t_step = time.time()
+                if micro % self.grad_accum == 0:  # an update's first micro-batch
+                    t_step = time.time()
+                seed = llama_lib.fold_seed(self.seed, micro)
+                if self.n_proc > 1:
+                    seed = llama_lib.fold_seed(seed, self.rank)
                 metrics = self._step(
                     batch["text_ids"], batch["text_mask"],
                     batch["chosen_pixels"], batch["rejected_pixels"],
-                    dropout_seed=llama_lib.fold_seed(self.seed, micro))
+                    dropout_seed=seed)
                 micro += 1
-                samples += len(batch_items)
+                samples += len(batch_items) * self.n_proc  # global rows
                 if micro % self.grad_accum:
                     continue  # accumulation micro-batch — no update yet
                 self.global_step += 1
@@ -344,18 +399,20 @@ class SimPOTrainer:
 
                 if self.global_step % self.log_steps == 0 \
                         or self.global_step == 1:
-                    metrics = {k: float(v) for k, v in metrics.items()}
+                    metrics = self._group_metrics(metrics)
                     if first_update_s is None:
                         first_update_s = time.time() - t0
                         first_update_samples = samples
                     metrics["lr"] = self._lr_fn(self.global_step)
                     metrics["samples_per_sec"] = samples / (time.time() - t0)
-                    self._log_scalars(metrics)
                     self.logged.append(metrics)
-                    print(f"step {self.global_step}: loss={metrics['loss']:.4f} "
-                          f"acc={metrics['rewards/accuracies']:.3f} "
-                          f"margin={metrics['rewards/margins']:.4f} "
-                          f"{metrics['samples_per_sec']:.2f} samples/s")
+                    if self.is_main:
+                        self._log_scalars(metrics)
+                        print(f"step {self.global_step}: loss="
+                              f"{metrics['loss']:.4f} acc="
+                              f"{metrics['rewards/accuracies']:.3f} margin="
+                              f"{metrics['rewards/margins']:.4f} "
+                              f"{metrics['samples_per_sec']:.2f} samples/s")
 
                 if self.save_steps and self.global_step % int(self.save_steps) == 0:
                     self.save()
@@ -372,9 +429,11 @@ class SimPOTrainer:
             "samples_per_s_steady": round(steady_n / steady_s, 3)
             if steady_s > 0 and steady_n > 0 else None,
         }
-        try:
-            with open(os.path.join(self.log_dir, "train_stats.json"), "w") as f:
-                json.dump(self.stats, f, indent=1)
-        except OSError as e:  # diagnostics, never fail training
-            print(f"# train_stats.json not written: {e}")
+        if self.is_main:
+            try:
+                with open(os.path.join(self.log_dir, "train_stats.json"),
+                          "w") as f:
+                    json.dump(self.stats, f, indent=1)
+            except OSError as e:  # diagnostics, never fail training
+                print(f"# train_stats.json not written: {e}")
         return self.logged[-1] if self.logged else {}

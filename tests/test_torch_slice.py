@@ -287,7 +287,7 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("override,error", [
-    ({"data_parallel": 2}, NotImplementedError),
+    ({"data_parallel": 2}, ValueError),
     ({"tensor_parallel": 2}, NotImplementedError),
     ({"quantize": "s4"}, ValueError),
     ({"quantize": "w8a16"}, ValueError),

@@ -45,6 +45,7 @@ from ospo_tpu_torch.train import checkpoint as tckpt
 from ospo_tpu_torch.train import lora as tlora
 from ospo_tpu_torch.train import optim as toptim
 from ospo_tpu_torch.train import simpo as tsimpo
+from ospo_tpu_torch.train import trainer as trainer_mod
 from ospo_tpu_torch.train.trainer import SimPOTrainer
 from ospo_tpu_torch.utils.png import decode_png, write_png
 from test_torch_models import np_janus_params
@@ -570,8 +571,8 @@ def test_trainer_step_matches_jax(jax_step, tmp_path, attn_impl):
 
 def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
     """``quantize_base: int4`` (not offered by the JAX trainer) and an
-    unknown spelling are ValueErrors, and more than one process is
-    refused."""
+    unknown spelling are ValueErrors, and so is more than one process
+    without ``model.data_parallel``."""
     model = tjanus.JanusModel.init(tjanus.tiny_janus_config(), seed=0,
                                    device="cpu")
     base = _trainer_config(tmp_path, "flash")
@@ -583,8 +584,8 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
         SimPOTrainer(Config.from_nested({**base, "experiment": {
             **base["experiment"], "quantize_base": "int_8"}}), model,
             _port_processor())
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="more than one process"):
+    monkeypatch.setattr(trainer_mod, "process_count", lambda: 2)
+    with pytest.raises(ValueError, match="data_parallel"):
         SimPOTrainer(Config.from_nested(base), model, _port_processor())
 
 
