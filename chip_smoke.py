@@ -69,9 +69,10 @@ fails):
     must yield one real PNG under its own name or, for a name over 255
     bytes, ``longprompt_0_NNNN.png``, with no ``error_sample.json``; the
     flash forward must launch 30 times and decode attention 30 x 575; a
-    second ``main`` on the same tree must ask for none of the prompts whose
-    own names exist.  It prints img-tok/s over ``generate_all``, the merge
-    and quantize seconds and peak memory;
+    second ``generate_all`` on the same tree and engine (its draws replaced
+    by the first pass's images) must ask for the fallback prompts alone,
+    none whose own names exist.  It prints img-tok/s over
+    ``generate_all``, the merge and quantize seconds and peak memory;
 11. full fine-tune: ``step5.main`` on ``configs/step5.yaml`` with
     ``use_peft: False`` (the yaml's freeze matrix: ``language_model``
     trains) at the Janus-Pro-1B width (bf16), ``attn_impl: flash``, 3
@@ -131,7 +132,29 @@ fails):
     step 1 (0.1 x the mean gradient) within 2^-16 max|ref| per tensor, the
     final adapters A and B within 2^-7 max|ref|, rank 0 alone writing
     checkpoints and scalars, and each run's mean seconds a step after the
-    first.
+    first;
+16. tensor parallel at the Janus-Pro-1B width from that directory:
+    ``scripts/run_multihost_torch.sh 2 chip_smoke --tp-worker DIR`` runs two
+    ranks on the one card (gloo), ``tensor_parallel: 2``, each holding 8 of
+    the 16 heads (:func:`tp_worker`): (a) step 3 on ``configs/step3.yaml``
+    (int8 weights, int8 ``shbd`` KV) over ``TP_STEP3_ITEMS`` one-prompt
+    items, one group of 24 CFG pairs: each image written once (by model
+    rank 0) and real, each rank's flash and decode launches with a KV cache
+    of 8 heads, img-tok/s a rank and for the pair; the forced CFG probe of
+    the pair against this process's one-process kernel engine, within twice
+    the distance of the kernel's plain version from the kernel (phase 13's
+    bf16 control); (b) step 4b over phase 4's PNGs of the first
+    ``TP_SCORE_ITEMS`` items (48 images): the yes/no answers equal one
+    process's, with ``max|dp_yes|``; (c) greedy text ids (int8, the text
+    steps' model) equal one process's;
+17. the weights gate: ``python -m ospo_tpu_torch.validate_weights`` on the
+    1B directory (``--phases port,modules,divergence,samples --quantize
+    none --weight-divergence --tokens 576 --batch 2``), then its scoring
+    reference exported in bf16 and compared in int8, in a process of their
+    own started after phase 12 (when 15a's writer is done), beside phases
+    13-16; the reports must be finite and carry the JAX script's keys, the
+    three sample PNGs be real; it prints KL and top-1 agreement for the
+    int8 and int4 KV caches and the int8, w8a8, int4 and int4g weights.
 
 Phase 2 also holds the flash forward at the step-2 prefix prefill (B = 1,
 H = 32, T = S = the prefix bucket, left-padded) and the decode kernel at
@@ -142,7 +165,8 @@ and at the 640-row remainder bucket); phase 3 also runs a small model's
 text decode on the GPU and the CPU (greedy ids of the shared-prefix and
 plain programs identical, first logits within 1e-2 max|ref|) and its step-4b
 scoring (p_yes and p_no within 1e-3 relative, both programs, int8 and fp32
-caches).
+caches); phase 2 also holds the int4 row and group kernels at the 7B
+trunk's tp = 2 shard shapes (``TP2_SHARD_SHAPES``).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -152,6 +176,7 @@ from __future__ import annotations
 
 import json
 import os
+import shlex
 import shutil
 import subprocess
 import sys
@@ -281,11 +306,12 @@ BASE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "examples", "step1",
                             "base_prompt.json")
 
 
-# phase 13's plain-read probe: prompts and image tokens (two segments of
-# growing windows); its groups' items (12 CFG pairs, cut from 24 for time)
+# phase 13's plain-read probe: prompts and image tokens (129, the fewest
+# that keep two segments of growing windows; 192 before a cut for time);
+# its groups' items (12 CFG pairs, cut from 24 for time)
 DECODE_MODE_ITEMS = 12
 PROBE_PROMPTS = 4
-PROBE_TOKENS = 192
+PROBE_TOKENS = 129
 # phase 14b's items: 6 images each, 30 images = 2 chunks of 16
 W8A8_SCORE_ITEMS = 5
 
@@ -303,6 +329,18 @@ SYNTH_FREE_GB = 8
 DP_STEP3_ITEMS = 48
 DP_STEP5_BATCH = 16
 DP_STEP5_STEPS = 3
+
+# phase 16: tensor parallel, tp = 2, from phase 15's directory: step 3's
+# items (one prompt each: one group of 24 CFG pairs, the config's batch),
+# step 4b's items of phase 4's tree (6 PNGs each: 48 images), the greedy
+# text probe's prompts and new tokens
+TP_STEP3_ITEMS = 24
+TP_SCORE_ITEMS = 8
+TP_TEXT_PROMPTS = 4
+TP_TEXT_TOKENS = 32
+# phase 2: the 7B trunk's int4 matrices as tp = 2 shards them (F x D): qkv
+# and gate/up by rows, o and down by columns
+TP2_SHARD_SHAPES = ((2048, 4096), (5504, 4096), (4096, 5504), (4096, 2048))
 
 
 def step5_overrides(data_path: str, image_root: str, save_path: str) -> dict:
@@ -969,10 +1007,13 @@ class Smoke:
                 del qw, x, got, ref
             print(f"{kname}: the 7 projections x 30 layers of one 7B decode "
                   f"step at these (cold) times: {step_ms:.3f} ms")
-            # ragged: F/2 no multiple of the 64-row tile, M = 2 and 40; fp32 x
+            # ragged: F/2 no multiple of the 64-row tile, M = 2 and 40; fp32
+            # x; the tp = 2 shards of phase 16's layout at M = 48
             for m, F, D, dtype in ((2, 200, 4096, torch.bfloat16),
                                    (40, 1000, 4096, torch.bfloat16),
-                                   (8, 4096, 4096, torch.float32)):
+                                   (8, 4096, 4096, torch.float32),
+                                   *((M, F, D, torch.bfloat16)
+                                     for F, D in TP2_SHARD_SHAPES)):
                 w = torch.randn((F, D), generator=g, device=dev) * 0.02
                 qw = quant.quant_fn(mode)(w.to(dtype))
                 x = torch.randn((m, 1, D), generator=g, device=dev).to(dtype)
@@ -1992,11 +2033,22 @@ class Smoke:
                    f"{config.kv_quant}, {config.kv_layout}")
         torch.cuda.reset_peak_memory_stats()
         fa.launches = da.launches = 0
+        engines = []
+        build = inference.build_engine
+
+        def keep_engine(*a, **k):
+            engines.append(build(*a, **k))
+            return engines[-1]
+
         t0 = time.time()
-        with _Timed([(inference, "generate_all"),
-                     (ckpt_lib, "merge_lora_checkpoint"),
-                     (quant, "quantize_layers")]) as timed:
-            inference.main(config)
+        inference.build_engine = keep_engine
+        try:
+            with _Timed([(inference, "generate_all"),
+                         (ckpt_lib, "merge_lora_checkpoint"),
+                         (quant, "quantize_layers")]) as timed:
+                inference.main(config)
+        finally:
+            inference.build_engine = build
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = {"flash_fwd": fa.launches, "decode_attention": da.launches}
@@ -2038,24 +2090,35 @@ class Smoke:
                    f"error_sample.json, each 384x384x3 uint8 and non-constant; "
                    f"bad: {bad[:3]}")
 
+        # the resume pass: generate_all again on the first pass's engine (no
+        # second 7B build), the engine's draws replaced by the first pass's
+        # images of the prompts asked (cut for time: the pass checks what is
+        # asked, not the draws)
         asked = []
         real = ImageGenEngine.generate_from_raw_prompts
+        drawn = {p: read_png(os.path.join(out, f"longprompt_0_{i:04d}.png"))
+                 for i, p in enumerate(p for p, n in zip(prompts, own)
+                                       if n in long_names)}
 
         def record(engine, raw_prompts, seed=0):
             asked.extend(raw_prompts)
-            return real(engine, raw_prompts, seed=seed)
+            return [drawn[p] for p in raw_prompts]
 
         ImageGenEngine.generate_from_raw_prompts = record
         try:
-            inference.main(config)
+            inference.generate_all(config, engines[0], inference.shard_for_process(
+                inference.read_json(config.data_path)))
         finally:
             ImageGenEngine.generate_from_raw_prompts = real
+        engines.clear()
         own_exist = [p for p, n in zip(prompts, own) if n not in long_names]
         self.check(not set(asked) & set(own_exist)
+                   and sorted(asked) == sorted(drawn)
                    and sorted(os.listdir(out)) == files,
-                   f"a second inference.main generated {len(asked)} prompt(s), "
-                   f"none of the {len(own_exist)} whose own names exist; the "
-                   "tree is unchanged")
+                   f"a second generate_all asked for {len(asked)} prompt(s), "
+                   f"the {len(drawn)} under the fallback name and none of the "
+                   f"{len(own_exist)} whose own names exist; the tree is "
+                   "unchanged")
 
     # -- phase 11 --------------------------------------------------------
     def full_finetune_path(self):
@@ -2306,8 +2369,8 @@ class Smoke:
                    f"3's); decode launches {n_kernel} (shbd) and {n_plain} "
                    f"(bshd)")
         # on (a)'s bf16 model the same comparison reads bf16 rounding that
-        # 30 layers and 191 steps carry forward; the kernel against its own
-        # plain version is the control for that noise
+        # 30 layers and PROBE_TOKENS - 1 steps carry forward; the kernel
+        # against its own plain version is the control for that noise
         ref, _ = probe(model, "shbd")
         got, _ = probe(model, "bshd")
         ctl, _ = probe(model, "shbd", plain_kernel=True)
@@ -2471,6 +2534,10 @@ class Smoke:
         proc = getattr(self, "writer", {}).get("proc")
         if proc is not None and proc.poll() is None:
             proc.kill()
+            proc.wait()
+        proc = getattr(self, "gate", {}).get("proc")
+        if proc is not None and proc.poll() is None:
+            os.killpg(proc.pid, 9)
             proc.wait()
 
     def synthetic_write(self):
@@ -2794,7 +2861,263 @@ class Smoke:
               f"{DP_STEP5_STEPS} {steps['two']:.3f} s a step in two ranks on "
               f"one card, {steps['one']:.3f} s in one rank (two micro-batches "
               f"of {half}); card {_smi()}")
+
+    # -- phase 16 --------------------------------------------------------
+    def tp_path(self):
+        """16: tensor parallel at the 1B width from phase 15's directory,
+        tp = 2 in two ranks on the one card (gloo), each rank a
+        ``chip_smoke --tp-worker`` process (:func:`tp_worker`) under
+        ``scripts/run_multihost_torch.sh``; this process runs the same
+        probes on the whole model and compares."""
+        import gc
+
+        import numpy as np
+
+        from ospo_tpu_torch.config import Config
+        from ospo_tpu_torch.engine.image_engine import ImageGenEngine
+        from ospo_tpu_torch.io import read_json
+        from ospo_tpu_torch.models import llama
+        from ospo_tpu_torch.ops import decode_attention as da
+        from ospo_tpu_torch.pipeline import step4
+        from ospo_tpu_torch.pipeline.model_factory import get_model
+        from ospo_tpu_torch.utils.png import read_png
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        root = os.path.join(self.workdir, "tp")
+        os.makedirs(os.path.join(root, "step4"))
+        spec = tp_spec(root, self.synth["path"],
+                       os.path.join(self.workdir, "step3"))
+        with open(os.path.join(root, "step4", "vqa_prompt.json"), "w") as f:
+            json.dump(score_items()[:TP_SCORE_ITEMS], f)
+        run = self._launch("tp16", 2, "chip_smoke", ["--tp-worker", root],
+                           timeout=900)
+        self.check(sorted(run["runtime"].values()) == [
+            "backend gloo device cuda:0"] * 2,
+            f"both ranks on the one card take gloo: {run['runtime']}")
+        ranks = [read_json(os.path.join(root, f"rank{r}.json"))
+                 for r in range(2)]
+
+        # (a) step 3: one group of 24 CFG pairs in each rank, H = 8 of 16
+        layers, steps = 24, 575
+        rates = {}
+        for rank, r in enumerate(ranks):
+            st, n = r["step3"], r["step3"]["launches"]
+            rates[rank] = st["image_tokens"] / st["seconds"]
+            for name in ("flash_fwd", "decode_attention"):
+                self.launches[name] = self.launches.get(name, 0) + n[name]
+            self.check(st["images"] == TP_STEP3_ITEMS and st["groups"] == 1
+                       and st["written"] == (TP_STEP3_ITEMS if rank == 0 else 0)
+                       and n["flash_fwd"] == layers
+                       and n["decode_attention"] == layers * steps
+                       and r["cache_heads"] == [8],
+                       f"tp step 3 rank {rank}: {st['images']} images in "
+                       f"{st['groups']} group, {st['written']} written, "
+                       f"launches flash_fwd {n['flash_fwd']} == {layers}, "
+                       f"decode_attention {n['decode_attention']} == {layers} "
+                       f"x {steps}, KV cache heads {r['cache_heads']} == [8]")
+        tokens = ranks[0]["step3"]["image_tokens"]
+        secs = max(r["step3"]["seconds"] for r in ranks)
+        print(f"tp step 3, 1B from the directory, tp = 2 on one card (function, "
+              f"not scaling), a group of {TP_STEP3_ITEMS} CFG pairs: img-tok/s "
+              f"{ {r: round(v, 1) for r, v in rates.items()} } per rank, "
+              f"{tokens / secs:.1f} for the pair ({tokens} image tokens over "
+              f"the longer rank's {secs:.1f} s of serving); card {_smi()}")
+        out = spec["step3"]["save_path"]
+        pngs = sorted(os.path.relpath(os.path.join(d, f), out)
+                      for d, _, files in os.walk(out) for f in files
+                      if f.endswith(".png"))
+        want = sorted(os.path.join("base", s["category"], s["item_id"], "00.png")
+                      for s in read_json(spec["step3"]["data_path"]))
+        bad = [p for p in want if p in pngs and not _real_png(
+            read_png(os.path.join(out, p)))]
+        self.check(pngs == want and not bad,
+                   f"tp step 3 tree: {len(pngs)} PNGs, each of the {len(want)} "
+                   f"asked for exactly once, real images (bad: {bad[:3]})")
+
+        # the forced CFG probe: one process, the kernel and (the control)
+        # its plain version, against the pair
+        model, _, proc = get_model(Config.from_nested(spec["step3"]))
+        prompts, forced = tp_probe_inputs(proc, model.cfg.image_token_size)
+        eng = ImageGenEngine(model, proc, image_token_num=PROBE_TOKENS,
+                             img_size=model.cfg.gen_image_size,
+                             patch_size=model.cfg.vq.downsample_factor,
+                             kv_quant="int8", decode_segments=8)
+        ref = eng.forced_cfg_logits(prompts, forced)
+        kernel = llama.decode_attention
+        llama.decode_attention = da.decode_attention_plain
+        try:
+            ctl = eng.forced_cfg_logits(prompts, forced)
+        finally:
+            llama.decode_attention = kernel
+        del model, eng
+        got = np.load(os.path.join(root, "forced.npy"))
+        err = float(np.abs(got - ref).max())
+        err_ctl = float(np.abs(ctl - ref).max())
+        print(f"tp forced CFG logits (1B, int8, {len(prompts)} prompts, "
+              f"{PROBE_TOKENS} tokens): tp = 2 vs one process max|d|={err:.3g};"
+              f" the kernel's plain version vs the kernel max|d|={err_ctl:.3g};"
+              f" max|ref|={float(np.abs(ref).max()):.3g}")
+        self.check(np.isfinite(got).all() and got.shape == ref.shape
+                   and err <= 2 * err_ctl,
+                   f"tp forced CFG logits finite, within twice the control's "
+                   f"distance from one process: {err:.3g} <= 2 x {err_ctl:.3g}")
+
+        # (b) step 4b over 48 of phase 4's PNGs, one process
+        one = os.path.join(self.workdir, "tp_one_step4")
+        os.makedirs(one)
+        shutil.copy(os.path.join(spec["step4"]["save_path"], "vqa_prompt.json"),
+                    one)
+        scored, answers = step4.score_prepared_chunk, {}
+        step4.score_prepared_chunk = lambda e, c: _keep_scores(scored, e, c,
+                                                               answers)
+        try:
+            step4.main(Config.from_nested({**spec["step4"], "save_path": one}))
+        finally:
+            step4.score_prepared_chunk = scored
+        theirs = ranks[0]["scores"]
+        keys = sorted(answers)
+        d_yes = max((abs(a[0] - b[0]) for k in keys
+                     for a, b in zip(theirs.get(k, []), answers[k])),
+                    default=float("nan"))
+        agree = sum(np.sign(a[0] - a[1]) == np.sign(b[0] - b[1])
+                    for k in keys for a, b in zip(theirs.get(k, []), answers[k]))
+        total = sum(len(answers[k]) for k in keys)
+        p_max = max(b[0] for k in keys for b in answers[k])
+        print(f"tp step 4b (1B, int8, {len(keys)} images): {agree} of {total} "
+              f"yes/no answers agree with one process; max|dp_yes|={d_yes:.3g} "
+              f"(max p_yes {p_max:.3g}); tp scoring loop "
+              f"{ranks[0]['step4_s']:.1f} s")
+        self.check(len(keys) == 6 * TP_SCORE_ITEMS and sorted(theirs) == keys
+                   and agree == total,
+                   f"tp step 4b: {len(theirs)} images scored by the pair, "
+                   f"{len(keys)} by one process; answers agree {agree}/{total}")
+
+        # (c) the greedy text probe
+        ids = tp_text_ids()
+        same = np.asarray(ranks[0]["text_ids"]) == ids
+        print(f"tp greedy text (1B, fp32 activations, int8 weights and KV, "
+              f"{ids.shape[0]} prompts x "
+              f"{TP_TEXT_TOKENS} tokens): {int(same.sum())} of {same.size} ids "
+              f"equal one process's")
+        self.check(bool(same.all()), "tp greedy text ids equal one process's")
+
+    # -- phase 17 --------------------------------------------------------
+    def start_weights_gate(self):
+        """17's start: once 15a's writer has put the 1B directory down, the
+        weights gate runs on it in a process of its own beside phases 13-16
+        (``python -m ospo_tpu_torch.validate_weights``: port, modules,
+        divergence with ``--weight-divergence``, samples; then the scoring
+        reference exported in bf16 and compared in int8)."""
+        rc = self.writer["proc"].wait(timeout=900)
+        self.check(rc == 0, f"the 1B directory's writer exits 0 (rc {rc})")
+        out = os.path.join(self.workdir, "gate")
+        os.makedirs(out)
+        gate = [sys.executable, "-m", "ospo_tpu_torch.validate_weights",
+                "--model_path", self.writer["path"]]
+        cmds = [gate + ["--out", os.path.join(out, "val"), "--phases",
+                        "port,modules,divergence,samples", "--quantize", "none",
+                        "--weight-divergence", "--tokens", "576", "--batch", "2"],
+                gate + ["--out", os.path.join(out, "export"), "--phases",
+                        "scoring", "--quantize", "none", "--export-reference",
+                        os.path.join(out, "ref")],
+                gate + ["--out", os.path.join(out, "compare"), "--phases",
+                        "scoring", "--quantize", "int8", "--compare-reference",
+                        os.path.join(out, "ref")]]
+        log = os.path.join(out, "gate.log")
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                ["bash", "-c", " && ".join(shlex.join(c) for c in cmds)],
+                cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+                start_new_session=True, env=dict(
+                    os.environ, PYTHONPATH=os.pathsep.join(
+                        [ROOT, os.environ.get("PYTHONPATH", "")])))
+        self.gate = {"proc": proc, "out": out, "log": log, "t0": time.time()}
+        print(f"weights gate: started (pid {proc.pid}) on {self.writer['path']}")
+
+    def weights_gate(self):
+        """17: the gate's reports — finite, with the JAX script's keys — and
+        its KL and top-1 agreement for each KV and weight mode."""
+        import re
+
+        import numpy as np
+
+        from ospo_tpu_torch.io import read_json
+        from ospo_tpu_torch.utils.png import read_png
+
+        g = self.gate
+        t0 = time.time()
+        rc = g["proc"].wait(timeout=600)
+        log = open(g["log"]).read()
+        print(f"weights gate: rc {rc}, {time.time() - g['t0']:.1f} s since its "
+              f"start, waited {time.time() - t0:.1f} s")
+        if rc != 0:
+            print(f"--- weights gate output (last 6000 bytes) ---\n{log[-6000:]}")
+        self.check(rc == 0, "the weights gate's three runs exit 0")
+        rep = read_json(os.path.join(g["out"], "val", "validation_report.json"))
+        div = rep["divergence"]
+        modes = ["kv_int8_vs_bf16", "kv_int4_vs_bf16", "w_int8_vs_bf16",
+                 "w_w8a8_vs_bf16", "w_int4_vs_bf16", "w_int4g_vs_bf16"]
+        metric_keys = {"kl_mean", "kl_max", "top1_agree", "by_quarter"}
+
+        def finite(m):
+            vals = [m["kl_mean"], m["kl_max"], m["top1_agree"]] + [
+                q[k] for q in m["by_quarter"] for k in q]
+            return bool(np.isfinite(vals).all())
+
+        for key in modes:
+            m = div[key]
+            print(f"weights gate (1B, random weights, bf16 reference, 2 "
+                  f"prompts x {div['n_tokens']} tokens) {key}: KL mean "
+                  f"{m['kl_mean']:.5g}, max {m['kl_max']:.5g}, top-1 "
+                  f"{m['top1_agree']:.4f}; by quarter KL "
+                  f"{[round(q['kl_mean'], 5) for q in m['by_quarter']]}, top-1 "
+                  f"{[round(q['top1_agree'], 4) for q in m['by_quarter']]}")
+        ok = (set(rep) == {"model_path", "phases", "quantize", "port",
+                           "modules", "divergence", "samples", "elapsed_s"}
+              and set(div) == set(modes) | {"n_tokens", "batch"}
+              and div["n_tokens"] == 576 and div["batch"] == 2
+              and all(set(div[k]) == metric_keys and len(div[k]["by_quarter"])
+                      == 4 and finite(div[k]) for k in modes))
+        self.check(ok, "validation_report.json: the JAX script's keys, six "
+                       "finite divergence entries of 576 tokens by quarter")
+        samples = rep["samples"]["samples"]
+        real = [_real_png(read_png(s["path"])) for s in samples]
+        self.check(rep["port"]["ok"] and rep["modules"]["ok"]
+                   and set(rep["modules"]) == {"vit_embeds", "vq_roundtrip",
+                                               "trunk", "ok"}
+                   and rep["samples"]["ok"] and len(samples) == 3 and all(real),
+                   f"weights gate: port ok ({len(rep['port']['modules'])} "
+                   f"modules), modules ok, 3 real sample PNGs {real}; "
+                   f"{rep['elapsed_s']} s")
+        # each run's kernel launches, from its summary line
+        decoder = json.JSONDecoder()
+        runs = [decoder.raw_decode(log, m.end())[0]["launches"] for m in
+                re.finditer(r"# validate_weights process 0/1: ", log)]
+        total = {k: sum(r[k] for r in runs) for k in runs[0]} if runs else {}
+        for name, n in total.items():
+            self.launches[name] = self.launches.get(name, 0) + n
+        print(f"weights gate: launches of its {len(runs)} runs {runs}")
+        self.check(len(runs) == 3 and total["flash_fwd"] > 0
+                   and total["decode_attention"] > 0
+                   and total["int4_matmul_row"] > 0
+                   and total["int4_matmul_group"] > 0,
+                   f"the gate's runs launched the flash, decode and int4 "
+                   f"kernels: {total}")
+        sc = read_json(os.path.join(g["out"], "compare",
+                                    "validation_report.json"))["scoring"]
+        m = sc["scoring_int8_vs_bf16"]
+        print(f"weights gate scoring (1B, {sc['n_readouts']} readouts of "
+              f"{sc['n_items']} items), int8 shared prefix vs bf16 unshared: "
+              f"mean|dp_yes| {m['mean_abs_dp_yes']:.4g}, max "
+              f"{m['max_abs_dp_yes']:.4g}, answers {m['answer_agree']:.4f}, "
+              f"pairs {m['pair_agree']:.4f}; card {_smi()}")
+        self.check(set(m) == {"mean_abs_dp_yes", "max_abs_dp_yes",
+                              "answer_agree", "pair_agree"}
+                   and bool(np.isfinite(list(m.values())).all()),
+                   "the scoring comparison's four finite keys")
         shutil.rmtree(self.synth["path"], ignore_errors=True)
+
 
 class _Timed:
     """Times the named module functions while active (host clock around a
@@ -3094,6 +3417,162 @@ def _dominant_last_key(q, kc, vc, ks, vs, layer, cur):
         vc[layer, last] = 3.0
 
 
+def tp_spec(root: str, model_path: str, image_root: str) -> dict:
+    """Phase 16's inputs, written to ``<root>/spec.json`` for its ranks:
+    step 3's configuration and items (the first prompt-kind of the first
+    ``TP_STEP3_ITEMS // 3`` fixture items, one prompt an item) and step
+    4b's configuration over ``image_root``."""
+    from ospo_tpu_torch.io import read_json
+
+    data = [{**sample, "item_id": f"{sample['item_id']}{j}",
+             "long_prompt": [prompt, "", ""],
+             "negative_long_prompt": ["", "", ""]}
+            for sample in read_json(FIXTURE)[:TP_STEP3_ITEMS // 3]
+            for j, prompt in enumerate(sample["long_prompt"])]
+    data_path = os.path.join(root, "long_prompt.json")
+    with open(data_path, "w") as f:
+        json.dump(data, f)
+    spec = {"model_path": model_path,
+            "step3": {**STEP3_CONFIG, "model_path": model_path,
+                      "data_path": data_path, "e_idx": TP_STEP3_ITEMS,
+                      "save_path": os.path.join(root, "step3")},
+            "step4": {**STEP4_CONFIG, "model_path": model_path,
+                      "image_path": image_root,
+                      "save_path": os.path.join(root, "step4")}}
+    with open(os.path.join(root, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    return spec
+
+
+def tp_probe_inputs(proc, vocab: int):
+    """Phase 16's forced CFG probe: ``PROBE_PROMPTS`` fixture prompts and
+    ``PROBE_TOKENS`` seeded image tokens."""
+    from ospo_tpu_torch.io import read_json
+    from ospo_tpu_torch.processing import t2i_prompt
+
+    prompts = [t2i_prompt(proc, s["long_prompt"][0])
+               for s in read_json(FIXTURE)[:PROBE_PROMPTS]]
+    forced = torch.randint(0, vocab, (len(prompts), PROBE_TOKENS),
+                           generator=torch.Generator().manual_seed(0)).numpy()
+    return prompts, forced
+
+
+def tp_text_ids(tensor_parallel: int = 1):
+    """Phase 16's greedy text probe: ``TP_TEXT_TOKENS`` ids of the first
+    ``TP_TEXT_PROMPTS`` step-1 fixture prompts from a Janus-Pro-1B trunk
+    with fp32 activations (random int8 weights, seed ``SYNTH_SEED``, the
+    text steps' int8 cache), sharded at ``tensor_parallel`` > 1.  The
+    argmax of random weights' bf16 logits ties too often for two
+    computations to agree, so the probe runs in fp32 (phase 13's fp32
+    probe, for the same reason)."""
+    import dataclasses
+
+    from ospo_tpu_torch.engine.text_engine import TextGenEngine
+    from ospo_tpu_torch.io import read_json
+    from ospo_tpu_torch.models import janus
+    from ospo_tpu_torch.parallel import mesh as mesh_lib
+    from ospo_tpu_torch.platform import resolve_device
+    from ospo_tpu_torch.processing import Processor
+    from ospo_tpu_torch.tokenizer import load_tokenizer
+
+    cfg = janus.JANUS_PRO_1B
+    f32 = dataclasses.replace(cfg, dtype=torch.float32, language=dataclasses.replace(
+        cfg.language, dtype=torch.float32))
+    model = janus.JanusModel.init(f32, seed=SYNTH_SEED, quantize="int8",
+                                  device=resolve_device(None), vision=False)
+    if tensor_parallel > 1:
+        model.params = mesh_lib.shard_janus_params(
+            model.params, mesh_lib.create_mesh(tensor_parallel))
+    proc = Processor(load_tokenizer(None, vocab_size=cfg.language.vocab_size))
+    prompts = [r["prompt"] for r in read_json(BASE_FIXTURE)[:TP_TEXT_PROMPTS]]
+    return TextGenEngine(model, proc, max_new_tokens=TP_TEXT_TOKENS,
+                         do_sample=False, kv_quant="int8").generate_ids(prompts)
+
+
+def _keep_scores(scored, engine, chunk, answers: dict):
+    """``step4.score_prepared_chunk`` that also keeps each image's (p_yes,
+    p_no) per question in ``answers`` by path."""
+    out = scored(engine, chunk)
+    for job, res in zip(chunk["jobs"], out):
+        if res is not None:
+            answers[job["path"]] = [[a["p_yes"], a["p_no"]]
+                                    for a in res["answer_metadata"]]
+    return out
+
+
+def tp_worker(workdir: str) -> int:
+    """One rank of phase 16 (``python3 -m chip_smoke --tp-worker DIR``,
+    started by ``scripts/run_multihost_torch.sh 2``): step 3 at tp = 2 with
+    the KV cache's head count recorded, the forced CFG probe, step 4b with
+    each image's readouts, the greedy text probe.  Rank 0 saves the probe's
+    logits as ``forced.npy``; each rank writes ``rank<r>.json``."""
+    import gc
+
+    import numpy as np
+
+    from ospo_tpu_torch.config import Config
+    from ospo_tpu_torch.engine.image_engine import ImageGenEngine
+    from ospo_tpu_torch.io import process_index, read_json
+    from ospo_tpu_torch.models import llama
+    from ospo_tpu_torch.ops import decode_attention as da
+    from ospo_tpu_torch.ops import flash_attention as fa
+    from ospo_tpu_torch.pipeline import step3, step4
+    from ospo_tpu_torch.pipeline.model_factory import get_model
+    from ospo_tpu_torch.platform import maybe_init_distributed
+
+    maybe_init_distributed()
+    rank = process_index()
+    spec = read_json(os.path.join(workdir, "spec.json"))
+    res = {}
+    heads, init = [], llama.init_kv_cache
+
+    def init_kv_cache(cfg, *a, **k):
+        heads.append(cfg.num_heads)
+        return init(cfg, *a, **k)
+
+    llama.init_kv_cache = init_kv_cache
+    fa.launches = da.launches = 0
+    try:
+        stats = step3.main(Config.from_nested({**spec["step3"],
+                                               "tensor_parallel": 2}))
+    finally:
+        llama.init_kv_cache = init
+    res["step3"] = {**stats, "launches": {"flash_fwd": fa.launches,
+                                          "decode_attention": da.launches}}
+    res["cache_heads"] = sorted(set(heads))
+    gc.collect()
+
+    model, _, proc = get_model(Config.from_nested({**spec["step3"],
+                                                   "tensor_parallel": 2}))
+    prompts, forced = tp_probe_inputs(proc, model.cfg.image_token_size)
+    logits = ImageGenEngine(
+        model, proc, image_token_num=PROBE_TOKENS,
+        img_size=model.cfg.gen_image_size,
+        patch_size=model.cfg.vq.downsample_factor, kv_quant="int8",
+        decode_segments=8).forced_cfg_logits(prompts, forced)
+    if rank == 0:
+        np.save(os.path.join(workdir, "forced.npy"), logits)
+    del model
+    gc.collect()
+
+    scored, answers = step4.score_prepared_chunk, {}
+    step4.score_prepared_chunk = lambda e, c: _keep_scores(scored, e, c,
+                                                           answers)
+    t0 = time.time()
+    try:
+        step4.main(Config.from_nested({**spec["step4"], "tensor_parallel": 2}))
+    finally:
+        step4.score_prepared_chunk = scored
+    res["step4_s"] = time.time() - t0
+    res["scores"] = answers
+    gc.collect()
+
+    res["text_ids"] = tp_text_ids(2).tolist()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
 def _smi() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3122,6 +3601,9 @@ def main() -> int:
     parser.add_argument("--skip-main", action="store_true",
                         help="stop after phase 3 (kernel and small-model "
                              "checks only)")
+    parser.add_argument("--tp-worker", metavar="DIR",
+                        help="run one rank of phase 16 on the inputs in DIR "
+                             "(started by the script itself)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3132,6 +3614,8 @@ def main() -> int:
     except ImportError:
         traceback.print_exc()
         return 3
+    if args.tp_worker:
+        return tp_worker(args.tp_worker)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     smoke = None
     try:
@@ -3174,6 +3658,8 @@ def main() -> int:
                         smoke.full_finetune_path)
             smoke.phase("main path: step 5 at 7B width on an int8 trunk",
                         lambda: smoke.trunk_path("int8"))
+            smoke.phase("weights gate at 1B width, start it beside phases "
+                        "13-16", smoke.start_weights_gate)
             smoke.phase("main path: step 3 at 7B width, decode modes (bshd "
                         "plain read, SJD, int4 KV)", smoke.decode_modes_path)
             smoke.phase("main path: step 4b at 7B width, quantize w8a8",
@@ -3188,6 +3674,11 @@ def main() -> int:
                         "two ranks on one card", smoke.synthetic_step3)
             smoke.phase("main path: step 5 at 1B width from the directory, "
                         "two ranks against one", smoke.synthetic_step5)
+            smoke.phase("main path: tensor parallel at 1B width from the "
+                        "directory, tp = 2 in two ranks on one card",
+                        smoke.tp_path)
+            smoke.phase("main path: the weights gate at 1B width from the "
+                        "directory", smoke.weights_gate)
     finally:
         if smoke is not None:
             smoke.close()

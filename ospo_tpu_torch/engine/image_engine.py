@@ -17,6 +17,11 @@ cache — the JAX engine with ``decode_kernel: true``.  The ``bshd`` and
 ``xla_attention``, the JAX engine's XLA path: there ``decode_segments``
 growing windows bound each read.  ``speculative: W`` runs speculative
 Jacobi decoding (``_generate_tokens_sjd``) on a ``bshd`` / ``bhsd`` cache.
+
+Under tensor parallel (``parallel/mesh.py``) every rank of a model group
+runs the same loop on its heads; the sampled ids (and SJD's accepted state)
+are model rank 0's, broadcast to the group, so all ranks feed the same
+tokens and take the same host branches.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from ospo_tpu_torch.models import janus as janus_lib
 from ospo_tpu_torch.models import llama, vqgan
 from ospo_tpu_torch.ops.quant import parse_kv_quant
 from ospo_tpu_torch.ops.sampling import sample_categorical
+from ospo_tpu_torch.parallel import mesh as mesh_lib
 from ospo_tpu_torch.processing import Processor, t2i_prompt
 
 
@@ -142,9 +148,9 @@ class ImageGenEngine:
         if self.kernel_read:
             s_max = ((s_max + 63) // 64) * 64
 
-        kv = llama.init_kv_cache(cfg.language, two_b, s_max,
-                                 quantized=self.kv_quant, layout=self.kv_layout,
-                                 device=self.device)
+        kv = janus_lib.init_kv_cache(params, cfg, two_b, s_max,
+                                     quantized=self.kv_quant,
+                                     layout=self.kv_layout, device=self.device)
         hidden, kv = janus_lib.language_forward(
             params, cfg, janus_lib.embed_text(params, tokens), attn_mask,
             llama.positions_from_mask(attn_mask), kv_cache=kv, self_attn=True)
@@ -184,11 +190,14 @@ class ImageGenEngine:
         """Fused fp32 CFG logits of the last position ([2B, D] → [B, V]) or
         of every position ([2B, W, D] → [B, W, V])."""
         last = hidden.dim() == 2
-        logits = janus_lib.gen_logits(self.model.params,
-                                      hidden[:, None] if last else hidden)
+        params = self.model.params
+        # combined on this rank's vocab slice, then joined: half the rows
+        logits = janus_lib.gen_logits(
+            params, hidden[:, None] if last else hidden, join=False)
         b = logits.shape[0] // 2
         cond, uncond = logits[:b], logits[b:]
-        fused = (uncond + cfg_weight * (cond - uncond)).float()
+        fused = janus_lib.join_gen_vocab(
+            params, (uncond + cfg_weight * (cond - uncond)).float())
         return fused[:, 0] if last else fused
 
     def _feed(self, tok: torch.Tensor, step: int, prompt_len: torch.Tensor):
@@ -200,7 +209,8 @@ class ImageGenEngine:
     def _generate_tokens(self, tokens, attn_mask, generator: torch.Generator):
         def sample_step(hidden_last, step, prompt_len):
             fused = self._cfg_logits(hidden_last, self.cfg_weight)
-            tok = sample_categorical(fused, self.temperature, generator)
+            tok = mesh_lib.broadcast_model(
+                sample_categorical(fused, self.temperature, generator))
             return (tok, *self._feed(tok, step, prompt_len))
 
         return self._segmented_decode(tokens, attn_mask, sample_step)
@@ -225,9 +235,9 @@ class ImageGenEngine:
         n_img, W = self.image_token_num, self.speculative
         s_max = t_prompt + n_img + W          # drafts may overhang the end
 
-        kv = llama.init_kv_cache(cfg.language, two_b, s_max,
-                                 quantized=self.kv_quant, layout=self.kv_layout,
-                                 device=dev)
+        kv = janus_lib.init_kv_cache(params, cfg, two_b, s_max,
+                                     quantized=self.kv_quant,
+                                     layout=self.kv_layout, device=dev)
         hidden, kv = janus_lib.language_forward(
             params, cfg, janus_lib.embed_text(params, tokens), attn_mask,
             llama.positions_from_mask(attn_mask), kv_cache=kv, self_attn=True)
@@ -243,9 +253,9 @@ class ImageGenEngine:
 
         # bootstrap: one sequential token, W drafts iid from p0
         p0 = self._fused_probs(hidden[:, -1])            # [B, V]
-        last = draw(p0)
+        last = mesh_lib.broadcast_model(draw(p0))
         q_probs = p0[:, None].expand(b, W, p0.shape[-1])
-        drafts = draw(q_probs)
+        drafts = mesh_lib.broadcast_model(draw(q_probs))
         # W spare columns take the writes past n_img (dropped at the end)
         out = torch.zeros((b, n_img + W), dtype=torch.long, device=dev)
         out[:, 0] = last
@@ -299,6 +309,9 @@ class ImageGenEngine:
             q_probs = p[rows[:, None], (c[:, None] + wi).clamp_max(W - 1)]
             drafts = draw(q_probs)
             n_gen = (n_gen + c).clamp_max(n_img)
+            # model rank 0's state on every rank (tensor parallel)
+            for t in (out, last, drafts, n_gen):
+                mesh_lib.broadcast_model(t)
             iters += 1
         self.last_sjd_iters = iters
         return out[:, :n_img]

@@ -25,7 +25,9 @@ unshared forward's token for token:
 
 Chunks are cut into balanced slices under a row-token budget (images × cache
 rows); a CUDA out-of-memory error halves the slice (sticky) and, at one
-image, falls back for good to the unshared N·Q-row forward.
+image, falls back for good to the unshared N·Q-row forward.  Under tensor
+parallel the ranks of a model group agree on each retry (an all-reduced
+flag), so they run the same programs.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ospo_tpu_torch.models import janus as janus_lib
 from ospo_tpu_torch.models import llama
 from ospo_tpu_torch.ops import quant
 from ospo_tpu_torch.ops.pixels import normalize_pixels
+from ospo_tpu_torch.parallel import mesh as mesh_lib
 from ospo_tpu_torch.processing import Processor
 
 # per-image cache rows × images one shared-program slice may hold: the JAX
@@ -128,8 +131,8 @@ class ScoringEngine:
     def _prefill_pre(self, pre_ids: torch.Tensor, pre_mask: torch.Tensor):
         """The B = 1 pre-image prefill into a bf16 cache → prefix_kv."""
         params, cfg = self.model.params, self.model.cfg
-        pkv = llama.init_kv_cache(cfg.language, 1, pre_ids.shape[1],
-                                  device=self.device)
+        pkv = janus_lib.init_kv_cache(params, cfg, 1, pre_ids.shape[1],
+                                      device=self.device)
         _, pkv = janus_lib.language_forward(
             params, cfg, janus_lib.embed_text(params, pre_ids), pre_mask,
             llama.positions_from_mask(pre_mask), kv_cache=pkv, self_attn=True)
@@ -144,8 +147,9 @@ class ScoringEngine:
         b, p = ids.shape
         embeds = janus_lib.prepare_inputs_embeds(
             params, cfg, ids, None, seq_mask, emb_mask, img_embeds=img_embeds)
-        kv = llama.init_kv_cache(cfg.language, b, p + t_b,
-                                 quantized=self.kv_quant, device=self.device)
+        kv = janus_lib.init_kv_cache(params, cfg, b, p + t_b,
+                                     quantized=self.kv_quant,
+                                     device=self.device)
         _, kv = janus_lib.language_forward(
             params, cfg, embeds, mask, pre_len + llama.positions_from_mask(mask),
             kv_cache=kv, self_attn=True, prefix_kv=prefix)
@@ -208,10 +212,14 @@ class ScoringEngine:
             if prep is None:
                 prep = self.prepare_shared_multi(images, questions_per_image)
             while True:
+                oom = False
                 try:
-                    return self._execute_shared_multi(prep)
+                    out = self._execute_shared_multi(prep)
                 except torch.cuda.OutOfMemoryError:
                     traceback.print_exc(file=sys.stderr)
+                    oom = True
+                if not mesh_lib.any_model(oom):
+                    return out
                 # retry outside the handler, whose traceback pins the failed
                 # slice's tensors
                 gc.collect()

@@ -36,6 +36,7 @@ from ospo_tpu_torch.models import janus as janus_lib
 from ospo_tpu_torch.models import llama
 from ospo_tpu_torch.ops.quant import parse_kv_quant
 from ospo_tpu_torch.ops.sampling import sample_token
+from ospo_tpu_torch.parallel import mesh as mesh_lib
 from ospo_tpu_torch.processing import Processor
 
 
@@ -159,8 +160,10 @@ class TextGenEngine:
         """Plain program (``ospo_tpu/engine/text_engine.py:165-188``)."""
         params, cfg = self.model.params, self.model.cfg
         b, t_prompt = tokens.shape
-        kv = llama.init_kv_cache(cfg.language, b, t_prompt + self.max_new_tokens,
-                                 quantized=self.kv_quant, device=self.device)
+        kv = janus_lib.init_kv_cache(params, cfg, b,
+                                     t_prompt + self.max_new_tokens,
+                                     quantized=self.kv_quant,
+                                     device=self.device)
         hidden, kv = janus_lib.language_forward(
             params, cfg, janus_lib.embed_text(params, tokens), attn_mask,
             llama.positions_from_mask(attn_mask), kv_cache=kv, self_attn=True)
@@ -174,16 +177,18 @@ class TextGenEngine:
         holds tail + new rows; tail positions continue after the prefix."""
         params, cfg = self.model.params, self.model.cfg
         b, t_tail = tail_ids.shape
-        pkv = llama.init_kv_cache(cfg.language, 1, prefix_ids.shape[1],
-                                  device=self.device)
+        pkv = janus_lib.init_kv_cache(params, cfg, 1, prefix_ids.shape[1],
+                                      device=self.device)
         _, pkv = janus_lib.language_forward(
             params, cfg, janus_lib.embed_text(params, prefix_ids), prefix_mask,
             llama.positions_from_mask(prefix_mask), kv_cache=pkv, self_attn=True)
         prefix = {"k": pkv["k"][:, :, :, 0], "v": pkv["v"][:, :, :, 0],
                   "mask": prefix_mask}                   # [L, C, H, Dh] x2
         prefix_len = prefix_mask.sum()
-        kv = llama.init_kv_cache(cfg.language, b, t_tail + self.max_new_tokens,
-                                 quantized=self.kv_quant, device=self.device)
+        kv = janus_lib.init_kv_cache(params, cfg, b,
+                                     t_tail + self.max_new_tokens,
+                                     quantized=self.kv_quant,
+                                     device=self.device)
         hidden, kv = janus_lib.language_forward(
             params, cfg, janus_lib.embed_text(params, tail_ids), tail_mask,
             prefix_len + llama.positions_from_mask(tail_mask), kv_cache=kv,
@@ -217,6 +222,9 @@ class TextGenEngine:
             tok = sample_token(logits, generator, temperature=self.temperature,
                                top_p=self.top_p, do_sample=self.do_sample)
             tok = torch.where(done, torch.full_like(tok, eos), tok)
+            # under tensor parallel every rank feeds (and tests for eos)
+            # model rank 0's ids
+            tok = mesh_lib.broadcast_model(tok)
             out[:, step] = tok
             done = done | (tok == eos)
         return out

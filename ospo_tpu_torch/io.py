@@ -37,6 +37,25 @@ def process_count() -> int:
     return dist.get_world_size() if _world() else 1
 
 
+def data_index() -> int:
+    """This process's share of the work: its rank, or under tensor parallel
+    its model group's index (``parallel/mesh.py``: the ranks of a group
+    serve the same items)."""
+    from ospo_tpu_torch.parallel.mesh import current_mesh
+
+    mesh = current_mesh()
+    return mesh.data_index if mesh is not None else process_index()
+
+
+def data_count() -> int:
+    """The number of shares: the world size, or the number of model
+    groups under tensor parallel."""
+    from ospo_tpu_torch.parallel.mesh import current_mesh
+
+    mesh = current_mesh()
+    return mesh.data if mesh is not None else process_count()
+
+
 def read_json(path: str) -> Any:
     with open(path, "r") as f:
         return json.load(f)
@@ -82,11 +101,14 @@ def save_json_sharded(save_root: str, save_name: str,
     """Merge every process's records and write one JSON from rank 0
     (``ospo_tpu/io.py:111``, the reference's ``save_json_ddp``): rank 0
     concatenates the shards in rank order, dedups by ``item_id`` and sorts,
-    writes and returns the path; the other ranks return None.  One process
-    writes its list as given."""
+    writes and returns the path; the other ranks return None.  Under tensor
+    parallel only model rank 0 of each group contributes (its peers hold
+    the same records).  One process writes its list as given."""
     if process_count() == 1:
         return save_json(save_root, save_name, save_file)
-    gathered = gather_objects(save_file)
+    from ospo_tpu_torch.parallel.mesh import model_rank
+
+    gathered = gather_objects(save_file if model_rank() == 0 else [])
     if process_index() != 0:
         return None
     return save_json(save_root, save_name, dedup_by_item_id(
@@ -104,9 +126,11 @@ def merge_element_sets(local_elements) -> list:
 def shard_for_process(items: list, index: Optional[int] = None,
                       count: Optional[int] = None) -> list:
     """This process's strided share of a work list (``ospo_tpu/io.py:152``):
-    ``index`` and ``count`` default to this rank and the world size."""
-    index = process_index() if index is None else index
-    count = process_count() if count is None else count
+    ``index`` and ``count`` default to :func:`data_index` and
+    :func:`data_count` (this rank and the world size without tensor
+    parallel)."""
+    index = data_index() if index is None else index
+    count = data_count() if count is None else count
     return items[index::count]
 
 

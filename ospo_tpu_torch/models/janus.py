@@ -20,6 +20,7 @@ import torch
 
 from ospo_tpu_torch.models import llama, projector, vit, vqgan
 from ospo_tpu_torch.ops import quant
+from ospo_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
 
@@ -141,9 +142,22 @@ def prepare_gen_img_embeds(params: Params, cfg: JanusConfig,
                                    params["gen_embed"][image_ids])
 
 
-def gen_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    """LM hidden states → image-token logits (fp32)."""
-    return projector.vision_head(params["gen_head"], hidden)
+def gen_logits(params: Params, hidden: torch.Tensor,
+               join: bool = True) -> torch.Tensor:
+    """LM hidden states → image-token logits (fp32); a vocab-parallel head's
+    slices are joined over the model group (:func:`join_gen_vocab`) unless
+    ``join`` is False, so that CFG and sampling see whole rows."""
+    logits = projector.vision_head(params["gen_head"], hidden)
+    return join_gen_vocab(params, logits) if join else logits
+
+
+def join_gen_vocab(params: Params, logits: torch.Tensor) -> torch.Tensor:
+    """Image-token logits of this rank's vocab slice → whole rows (the
+    identity for a whole head); anything elementwise over the vocab, the
+    CFG combine, may come before."""
+    if mesh_lib.is_vocab_shard(params["gen_head"]["head"]["w"]):
+        return mesh_lib.all_gather_last(logits)
+    return logits
 
 
 def lm_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
@@ -153,6 +167,14 @@ def lm_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
 
 def language_forward(params: Params, cfg: JanusConfig, *args, **kwargs):
     return llama.forward(params["language_model"], cfg.language, *args, **kwargs)
+
+
+def init_kv_cache(params: Params, cfg: JanusConfig, *args, **kwargs):
+    """The trunk's KV cache for the heads this process holds (all of them,
+    or its tensor-parallel share): ``llama.init_kv_cache``'s arguments."""
+    return llama.init_kv_cache(
+        llama.local_config(cfg.language, params["language_model"]),
+        *args, **kwargs)
 
 
 # ---------------------------------------------------------------------------

@@ -47,6 +47,7 @@ from ospo_tpu_torch.ops.quant import (_pack_halves, quantized_matmul,
                                       quantized_matmul_int4_group,
                                       quantized_matmul_w8a8,
                                       quantized_matmul_w8a16, w8a16_active)
+from ospo_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
 
@@ -79,6 +80,27 @@ LLAMA_7B = LlamaConfig()
 # DeepSeek-LLM-1.3B — the Janus-Pro-1B language config
 LLAMA_1B = LlamaConfig(hidden_size=2048, intermediate_size=5632, num_layers=24,
                        num_heads=16)
+
+
+def _out_rows(w) -> int:
+    """Output rows of a stacked projection, plain or quantized."""
+    if isinstance(w, dict):
+        return 2 * w["q4"].shape[-2] if "q4" in w else w["q"].shape[-2]
+    return w.shape[-2]
+
+
+def local_config(cfg: LlamaConfig, params: Params) -> LlamaConfig:
+    """``cfg`` with the head counts this process's weights hold: ``cfg``
+    itself for a whole trunk, and for a tensor-parallel shard
+    (``parallel/mesh.py``) its share of the heads, with the head dim pinned
+    (``dim_head`` is ``hidden_size // num_heads`` otherwise)."""
+    heads = _out_rows(params["layers"]["wq"]) // cfg.dim_head
+    if heads == cfg.num_heads:
+        return cfg
+    return dataclasses.replace(
+        cfg, num_heads=heads,
+        num_kv_heads=_out_rows(params["layers"]["wk"]) // cfg.dim_head,
+        head_dim=cfg.dim_head)
 
 
 def tiny_config(vocab_size: int = 512, hidden_size: int = 64,
@@ -125,19 +147,23 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
-def linear(x: torch.Tensor, w) -> torch.Tensor:
+def linear(x: torch.Tensor, w, row_parallel: bool = False) -> torch.Tensor:
     """y = x @ wᵀ for a plain weight or a quantized dict: int8 ``{"q", "s"}``,
     w8a8 ``{"q", "sa"}``, int4 ``{"q4", "s"}`` (int4 and int4n) or int4
     groups ``{"q4", "gs"}``.  A w8a8 weight runs the int8 × int8 product,
     or the weight-only one under ``quant.w8a16_override()``
     (``ospo_tpu/models/llama.py:196-206``).  A T == 1 int4 product runs the
     decode-matmul kernel (its plain version on the CPU); a longer one the
-    prefill forms of ``ops/quant.py``."""
+    prefill forms of ``ops/quant.py``.  ``row_parallel``: x holds this
+    rank's columns of each row (tensor parallel), so w8a8's per-token scale
+    takes the abs-max over the model group."""
     if not isinstance(w, dict):
         return x @ w.T
     if "sa" in w:
-        return (quantized_matmul_w8a16(x, w) if w8a16_active()
-                else quantized_matmul_w8a8(x, w))
+        if w8a16_active():
+            return quantized_matmul_w8a16(x, w)
+        return quantized_matmul_w8a8(
+            x, w, mesh_lib.all_max_model if row_parallel else None)
     if "q4" not in w:
         return quantized_matmul(x, w)
     if x.shape[1] == 1:
@@ -171,14 +197,15 @@ def fold_seed(seed: int, i: int) -> int:
 
 def _maybe_lora(x: torch.Tensor, w, lora: Optional[Params], name: str,
                 scaling: float, dropout_rate: float = 0.0,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+                dropout_seed: Optional[int] = None,
+                row_parallel: bool = False) -> torch.Tensor:
     """y = x @ wᵀ (+ scaling * (x_l @ A) @ B when an adapter exists), as in
     ``ospo_tpu/models/llama.py:163-224``: A [d_in, r] and B [r, d_out] are
     cast to x's dtype; dropout (peft semantics) applies to the adapter
     input only.  The mask is drawn from a generator seeded with
     ``fold_seed(dropout_seed, PROJ_INDEX[name])`` each call, so a
     checkpointed layer's recompute redraws the same mask."""
-    y = linear(x, w)
+    y = linear(x, w, row_parallel)
     if lora is None or name not in lora:
         return y
     a, b = lora[name]["a"], lora[name]["b"]
@@ -335,17 +362,24 @@ def _cache_window(cache: Dict[str, Any], li: int, layout: str,
 # ---------------------------------------------------------------------------
 
 
+def _row_parallel(y: torch.Tensor, tp: bool) -> torch.Tensor:
+    """A row-parallel projection's output: this rank's partial product,
+    summed over the model group under tensor parallel."""
+    return mesh_lib.all_reduce_model(y) if tp else y
+
+
 def _train_layer(x: torch.Tensor, lp: Params, llora: Optional[Params],
                  cfg: LlamaConfig, cos, sin, attention_mask, scaling: float,
                  dropout_rate: float, dropout_seed: Optional[int],
-                 attn_impl: str) -> torch.Tensor:
+                 attn_impl: str, tp: bool = False) -> torch.Tensor:
     """One layer of the no-cache path (``layer_body`` at
     ``ospo_tpu/models/llama.py:751-755``)."""
     B, T = x.shape[:2]
 
     def proj(h, w, name):
         return _maybe_lora(h, w, llora, name, scaling, dropout_rate,
-                           dropout_seed)
+                           dropout_seed,
+                           tp and name in ("o_proj", "down_proj"))
 
     h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
     q = proj(h, lp["wq"], "q_proj").view(B, T, cfg.num_heads, cfg.dim_head)
@@ -353,13 +387,13 @@ def _train_layer(x: torch.Tensor, lp: Params, llora: Optional[Params],
     v = proj(h, lp["wv"], "v_proj").view(B, T, cfg.kv_heads, cfg.dim_head)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     attn = attention(q, k, v, mask=attention_mask, impl=attn_impl)
-    x = x + proj(attn.reshape(B, T, cfg.num_heads * cfg.dim_head), lp["wo"],
-                 "o_proj")
+    x = x + _row_parallel(proj(attn.reshape(B, T, cfg.num_heads * cfg.dim_head),
+                               lp["wo"], "o_proj"), tp)
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
     gate = proj(h, lp["w_gate"], "gate_proj")
     up = proj(h, lp["w_up"], "up_proj")
     act = F.silu(gate.float()).to(h.dtype) * up
-    return x + proj(act, lp["w_down"], "down_proj")
+    return x + _row_parallel(proj(act, lp["w_down"], "down_proj"), tp)
 
 
 def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
@@ -417,7 +451,15 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     prefix + own chunk, a cached step's prefix + cache, each through the
     plain forms of ``ops/attention.py``.  The caller owns the rotary
     positions, which continue after the prefix.
+
+    Tensor parallel (``parallel/mesh.py``): a trunk sharded by
+    ``shard_janus_params`` runs this rank's heads and FFN columns (the head
+    counts come from the shard, :func:`local_config`) and sums the
+    row-parallel ``wo`` and ``w_down`` products over the model group
+    (inference only: the sum is not differentiable).
     """
+    local = local_config(cfg, params)
+    tp, cfg = local is not cfg, local
     x = inputs_embeds.to(cfg.dtype)
     B, T = x.shape[:2]
     cos, sin = rope_frequencies(cfg, positions)
@@ -431,7 +473,7 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
             seed = (None if lora_dropout_seed is None
                     else fold_seed(lora_dropout_seed, li))
             args = (lp, llora, cfg, cos, sin, attention_mask, lora_scaling,
-                    lora_dropout, seed, attn_impl)
+                    lora_dropout, seed, attn_impl, tp)
             if remat:
                 # the dropout masks come from explicit per-call generators,
                 # so no global RNG state needs stashing for the recompute
@@ -505,12 +547,13 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
                 q, k_att, v_att, mask_w,
                 cache_positions if per_row else cache_len, True, pk, pv, pm,
                 kv_layout=layout)
-        x = x + linear(attn.reshape(B, T, cfg.num_heads * cfg.dim_head), lp["wo"])
+        x = x + _row_parallel(linear(
+            attn.reshape(B, T, cfg.num_heads * cfg.dim_head), lp["wo"], tp), tp)
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
         gate = linear(h, lp["w_gate"])
         up = linear(h, lp["w_up"])
         act = F.silu(gate.float()).to(h.dtype) * up
-        x = x + linear(act, lp["w_down"])
+        x = x + _row_parallel(linear(act, lp["w_down"], tp), tp)
 
     kv_cache["length"] = cache_len + T
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), kv_cache
@@ -518,12 +561,25 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
 
 def logits_from_hidden(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     """Hidden states [B, T, D] → text logits [B, T, V]: the product in the
-    model dtype, cast to fp32 (``ospo_tpu/models/llama.py:779-780``)."""
-    return (hidden @ params["lm_head"].T).float()
+    model dtype, cast to fp32 (``ospo_tpu/models/llama.py:779-780``); a
+    vocab-parallel head's slices are joined over the model group."""
+    head = params["lm_head"]
+    logits = (hidden @ head.T).float()
+    return mesh_lib.all_gather_last(logits) if mesh_lib.is_vocab_shard(
+        head) else logits
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
-    return params["embed"][input_ids]
+    """Rows of the embedding table; a vocab-parallel table looks up the ids
+    in its own rows (zeros elsewhere) and sums over the model group."""
+    table = params["embed"]
+    if not mesh_lib.is_vocab_shard(table):
+        return table[input_ids]
+    local = input_ids - mesh_lib.vocab_offset(table)
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    return mesh_lib.all_reduce_model(
+        torch.where(mine[..., None], rows, torch.zeros_like(rows)))
 
 
 def positions_from_mask(attention_mask: torch.Tensor) -> torch.Tensor:

@@ -110,12 +110,15 @@ def dequantize_matrix_w8a8(qw: Dict[str, torch.Tensor],
     return (qw["q"].float() * qw["sa"][..., None]).to(dtype)
 
 
-def quantize_activations_int8(x: torch.Tensor):
+def quantize_activations_int8(x: torch.Tensor, amax_reduce=None):
     """[..., D] → (int8 values, f32 per-row scales [..., 1]): symmetric
     per-token abs-max in fp32, the scale floored at 1e-12 after the
-    division (:105-113)."""
+    division (:105-113).  ``amax_reduce`` joins the abs-max of a row whose
+    columns are spread over ranks (tensor parallel)."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
     # divided by a tensor: by a Python number, the card multiplies by its
     # reciprocal, a unit in the last place off the quotient the CPU (and
     # the JAX package) rounds — enough to move an activation a step
@@ -139,10 +142,11 @@ def int8_matmul(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, q.T)[:m]
 
 
-def _w8a8_raw(x: torch.Tensor, q: torch.Tensor, sa: torch.Tensor) -> torch.Tensor:
+def _w8a8_raw(x: torch.Tensor, q: torch.Tensor, sa: torch.Tensor,
+              amax_reduce=None) -> torch.Tensor:
     """Dynamic per-token int8 activations, the int8 × int8 product in int32,
     then ``· sx · sa`` in fp32, cast to x's dtype (:116-121)."""
-    xq, sx = quantize_activations_int8(x)
+    xq, sx = quantize_activations_int8(x, amax_reduce)
     y = int8_matmul(xq.reshape(-1, xq.shape[-1]), q)
     y = y.view(*x.shape[:-1], q.shape[0]).float()
     return (y * sx * sa).to(x.dtype)
@@ -166,12 +170,17 @@ class _W8A8(torch.autograd.Function):
         return (gf @ q.to(torch.bfloat16)).to(g.dtype), None, None
 
 
-def quantized_matmul_w8a8(x: torch.Tensor, qw: Dict[str, torch.Tensor]) -> torch.Tensor:
+def quantized_matmul_w8a8(x: torch.Tensor, qw: Dict[str, torch.Tensor],
+                          amax_reduce=None) -> torch.Tensor:
     """y = x @ Wᵀ with both sides int8; where x needs a gradient it runs as
-    :class:`_W8A8` (a w8a8 frozen trunk under LoRA training)."""
+    :class:`_W8A8` (a w8a8 frozen trunk under LoRA training).
+    ``amax_reduce``: see :func:`quantize_activations_int8` (inference
+    only)."""
     if x.requires_grad and torch.is_grad_enabled():
         return _W8A8.apply(x, qw["q"], qw["sa"])
-    return _w8a8_raw(x, qw["q"], qw["sa"])
+    if amax_reduce is None:
+        return _w8a8_raw(x, qw["q"], qw["sa"])
+    return _w8a8_raw(x, qw["q"], qw["sa"], amax_reduce)
 
 
 # Inside w8a16_override() a w8a8 weight runs weight-only (the same int8

@@ -7,7 +7,9 @@ Reads a JSON list of prompts, generates one image per (prompt, seed) into
 disk, saves an image whose name the file system refuses (over 255 bytes)
 as ``longprompt_{seed}_{n:04d}.png``, records the prompts of failed batches
 in ``error_sample.json`` and prints the elapsed minutes.  A kernel that does
-not build or launch (``ops.build.KernelError``) fails the run instead.
+not build or launch (``ops.build.KernelError``) fails the run instead, as
+does any failed batch under tensor parallel, where model rank 0 alone
+decides what is left to draw and writes.
 PNGs are written by ``utils/png.write_png`` (no Pillow).
 
 Run: ``python -m ospo_tpu_torch.pipeline.inference [key=value ...]``
@@ -26,6 +28,7 @@ from typing import List
 from ospo_tpu_torch.config import build_config, compose_config
 from ospo_tpu_torch.engine.image_engine import ImageGenEngine
 from ospo_tpu_torch.io import read_json, save_json, shard_for_process
+from ospo_tpu_torch.parallel import mesh as mesh_lib
 from ospo_tpu_torch.ops.build import KernelError
 from ospo_tpu_torch.pipeline.datasets import batched
 from ospo_tpu_torch.pipeline.model_factory import get_model
@@ -41,6 +44,7 @@ def generate_all(config, engine: ImageGenEngine, prompts: List[str]) -> None:
     error_samples = []
     n_long = 0  # running index of the longprompt_* names over the call
     batch_size = int(config.get("batch_size") or 4)
+    writes = mesh_lib.model_rank() == 0
     for seed in seeds:
         for batch in batched(prompts, batch_size):
             paths, todo = [], []
@@ -51,6 +55,7 @@ def generate_all(config, engine: ImageGenEngine, prompts: List[str]) -> None:
                     continue
                 todo.append(p)
                 paths.append(path)
+            todo, paths = mesh_lib.broadcast_object((todo, paths))
             if not todo:
                 continue
             try:
@@ -58,9 +63,13 @@ def generate_all(config, engine: ImageGenEngine, prompts: List[str]) -> None:
             except KernelError:
                 raise  # the program is broken, not the batch
             except Exception as e:
+                if mesh_lib.model_parallel_size() > 1:
+                    raise
                 print(f"Error generating batch: {e}")
                 traceback.print_exc()
                 error_samples.extend(todo)
+                continue
+            if not writes:
                 continue
             # one image at a time: an overlong name costs that name only
             for img, path, p in zip(images, paths, todo):

@@ -15,7 +15,11 @@ the model's) is applied before ``quantize`` (int8, w8a8, int4, int4g or
 int4n) quantizes the trunk (``ospo_tpu/pipeline/model_factory.py:154-177``);
 ``drop_lm_head``, ``drop_understanding`` (SigLIP and the aligner, :216-230) and
 ``drop_vision`` (the VQ model, the generation heads and the understanding
-tower, :197-214) are honoured by never building those parts.  The
+tower, :197-214) are honoured by never building those parts.
+``tensor_parallel`` > 1 (steps 1–4 and the inference CLI, one process a
+card under ``scripts/run_multihost_torch.sh``) shards the built, merged and
+quantized model over the model groups of ``parallel/mesh.py`` (:241-257);
+each rank keeps its shard.  The
 processor's image processor comes from the checkpoint's
 ``preprocessor_config.json`` or the defaults at the model's image size, and
 its image-token count from the model's tower.
@@ -54,23 +58,25 @@ def _validate_quantize_mode(config) -> str:
 
 
 def _reject_unported(config) -> None:
-    """Tensor parallel is not ported; data parallel is one process a card,
-    so ``data_parallel`` must match the world the launcher started."""
-    if int(config.get("tensor_parallel") or 1) > 1:
-        raise NotImplementedError(
-            "tensor_parallel is queued in ROADMAP.md (queue 1 item 4, tensor "
-            "parallel)")
+    """Each process drives one card, so a mesh is a grid of processes:
+    ``data_parallel`` x ``tensor_parallel`` must equal the processes it
+    spans (``data_parallel`` 0: what the model groups leave).  A global
+    scope spans the world the launcher started; a local one this process's
+    card, or with ``tensor_parallel`` > 1 the world as well, since a model
+    group is made of processes."""
     scope = config.get("mesh_scope") or "local"
     if scope not in ("local", "global"):
         raise ValueError(f"mesh_scope must be local|global, got {scope!r}")
+    tp = int(config.get("tensor_parallel") or 1)
     dp = int(config.get("data_parallel") or 0)
-    # a global scope spans every process's card, a local one this card
-    span = process_count() if scope == "global" else 1
-    if dp not in (0, span):
+    span = process_count() if scope == "global" or tp > 1 else 1
+    if tp < 1 or span % tp or dp not in (0, span // tp):
         raise ValueError(
-            f"data_parallel={dp} with mesh_scope {scope}: each process drives "
-            f"one card, so it must be 0 or {span}; start one process a card "
-            "with scripts/run_multihost_torch.sh <nprocs> <module> ...")
+            f"data_parallel={dp} x tensor_parallel={tp} with mesh_scope "
+            f"{scope}: the mesh spans {span} process(es), one a card, so "
+            f"tensor_parallel must divide {span} and data_parallel be 0 or "
+            f"{span} // tensor_parallel; start one process a card with "
+            "scripts/run_multihost_torch.sh <nprocs> <module> ...")
 
 
 def build_model(config, quantize: str = "") -> janus_lib.JanusModel:
@@ -145,5 +151,13 @@ def get_model(config) -> Tuple[janus_lib.JanusModel, object, Processor]:
     image_processor = load_image_processor(
         model_path if has_weights(model_path) else None,
         image_size=model.cfg.image_size)
+    tp = int(config.get("tensor_parallel") or 1)
+    if tp > 1:
+        from ospo_tpu_torch.parallel import mesh as mesh_lib
+
+        mesh = mesh_lib.create_mesh(tp)
+        print(f"# Sharding params over mesh {mesh.shape} (model rank "
+              f"{mesh.model_rank} of data index {mesh.data_index}).")
+        model.params = mesh_lib.shard_janus_params(model.params, mesh)
     return model, tokenizer, Processor(
         tokenizer, image_processor, num_image_tokens=model.cfg.num_image_tokens)

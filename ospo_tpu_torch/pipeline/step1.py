@@ -21,8 +21,8 @@ from typing import Dict, List
 from ospo_tpu_torch import chat
 from ospo_tpu_torch.config import build_config
 from ospo_tpu_torch.engine.text_engine import TextGenEngine
-from ospo_tpu_torch.io import (merge_element_sets, process_index, read_json,
-                               save_json, set_seed)
+from ospo_tpu_torch.io import (data_index, merge_element_sets, process_index,
+                               read_json, save_json, set_seed)
 from ospo_tpu_torch.models.llama import fold_seed
 from ospo_tpu_torch.pipeline.model_factory import get_model
 from ospo_tpu_torch.pipeline.templates import get_element_conversation
@@ -51,7 +51,8 @@ def parse_element_answer(answer: str, category: str) -> List[str]:
 def generate_elements(config, model, processor) -> List[str]:
     """Sample ``batch_size`` answers per iteration; iteration ``it`` draws
     from a generator seeded with ``fold_seed(seed, it * 1000 +
-    process_index())`` (the reference folds the same index into its key)."""
+    data_index())`` (the reference folds the process index into its key;
+    under tensor parallel a model group's ranks share theirs)."""
     category = config.category
     max_len = config.max_len or DEFAULT_MAX_LEN.get(category, 70)
     engine = TextGenEngine.from_generation_config(
@@ -70,7 +71,7 @@ def generate_elements(config, model, processor) -> List[str]:
         if len(elements) >= max_len:
             break
         answers = engine.generate(
-            [prompt] * batch, seed=fold_seed(seed, it * 1000 + process_index()))
+            [prompt] * batch, seed=fold_seed(seed, it * 1000 + data_index()))
         for ans in answers:
             elements.update(parse_element_answer(ans, category))
     # saved untruncated, like the reference; sorted for deterministic files

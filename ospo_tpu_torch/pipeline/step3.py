@@ -6,6 +6,10 @@ index i), saved as ``{save_path}/{base|negative}/{category}/{item_id}/
 {i:02d}.png`` with ``metadata.json`` beside them; images already on disk are
 skipped (restart resume).  The decode runs on :class:`ImageGenEngine`; PNG
 fetch and encode run on two writer threads, at most three groups in flight.
+Under tensor parallel (``tensor_parallel: N`` in a world of
+``scripts/run_multihost_torch.sh``) the ranks of a model group serve the
+same items: model rank 0 decides what is left to draw and alone writes
+files, and a failed batch fails the run (its peers would wait on it).
 
 Run: ``python -m ospo_tpu_torch.pipeline.step3 --cfg_path configs/step3.yaml
 [key=value ...]`` (``device=cpu`` to run on the CPU).
@@ -26,6 +30,7 @@ import torch
 from ospo_tpu_torch.config import build_config
 from ospo_tpu_torch.engine.image_engine import ImageGenEngine
 from ospo_tpu_torch.io import save_json, shard_for_process
+from ospo_tpu_torch.parallel import mesh as mesh_lib
 from ospo_tpu_torch.pipeline.datasets import batched, load_base_dataset
 from ospo_tpu_torch.pipeline.model_factory import get_model
 from ospo_tpu_torch.platform import maybe_init_distributed
@@ -44,15 +49,18 @@ def save_images(images, paths: List[str]) -> None:
 
 def run_step3(config, engine: ImageGenEngine, processor, data: List[dict]) -> dict:
     """Generate and write the images of ``data``; returns run statistics
-    (groups, images, image tokens, seconds)."""
+    (groups, images, image tokens, images this rank handed to its writers,
+    seconds)."""
     batch_size = int(config.batch_size or 4)
     seed_list = list(config.seed_list)
-    done = failed_batches = n_batches = n_groups = n_images = 0
+    done = failed_batches = n_batches = n_groups = n_images = n_written = 0
     meter = ThroughputMeter()
     png_pool = ThreadPoolExecutor(max_workers=2)
     pending = []
     write_lock = threading.Lock()
     writer_stats = {"ok": 0, "failed": 0}
+    writes = mesh_lib.model_rank() == 0
+    tensor_parallel = mesh_lib.model_parallel_size() > 1
     if engine.device.type == "cuda":  # model set-up is not serving time
         torch.cuda.synchronize(engine.device)
     t0 = time.time()
@@ -67,8 +75,9 @@ def run_step3(config, engine: ImageGenEngine, processor, data: List[dict]) -> di
                 for prompt_type, prompts, offset in groups:
                     save_dir = os.path.join(config.save_path, prompt_type,
                                             sample["category"], sample["item_id"])
-                    os.makedirs(save_dir, exist_ok=True)
-                    save_json(save_dir, "metadata", sample)
+                    if writes:
+                        os.makedirs(save_dir, exist_ok=True)
+                        save_json(save_dir, "metadata", sample)
                     for i in range(3):
                         prompt = prompts[i]
                         if not prompt:
@@ -78,6 +87,8 @@ def run_step3(config, engine: ImageGenEngine, processor, data: List[dict]) -> di
                             continue
                         prompt_lists[i + offset].append(t2i_prompt(processor, prompt))
                         path_lists[i + offset].append(final_path)
+            prompt_lists, path_lists = mesh_lib.broadcast_object(
+                (prompt_lists, path_lists))
 
             for idx in range(6):
                 if not prompt_lists[idx]:
@@ -87,6 +98,12 @@ def run_step3(config, engine: ImageGenEngine, processor, data: List[dict]) -> di
                 device_images = engine.generate_images_device(
                     prompt_lists[idx], seed=seed_list[idx % 3])
                 n_real = len(path_lists[idx])
+                n_groups += 1
+                n_images += n_real
+                meter.update(n_real * engine.image_token_num)
+                if not writes:
+                    continue
+                n_written += n_real
 
                 def fetch_and_save(dev=device_images, paths=path_lists[idx],
                                    n=n_real):
@@ -104,10 +121,9 @@ def run_step3(config, engine: ImageGenEngine, processor, data: List[dict]) -> di
                 # backpressure: each pending group pins its device images
                 if len(pending) >= 3:
                     pending[-3].result()
-                n_groups += 1
-                n_images += n_real
-                meter.update(n_real * engine.image_token_num)
         except Exception as e:  # per-batch fault tolerance (reference parity)
+            if tensor_parallel:
+                raise
             failed_batches += 1
             print(f"Error in step3 batch: {e}")
             traceback.print_exc()
@@ -134,7 +150,8 @@ def run_step3(config, engine: ImageGenEngine, processor, data: List[dict]) -> di
                 "output tree")
     return {"groups": n_groups, "images": n_images,
             "image_tokens": n_images * engine.image_token_num,
-            "failed_batches": failed_batches, "seconds": seconds}
+            "written": n_written, "failed_batches": failed_batches,
+            "seconds": seconds}
 
 
 def main(config) -> dict:

@@ -27,6 +27,7 @@ from ospo_tpu_torch.io import (gather_objects, process_index, read_json,
                                save_json, save_json_sharded, set_seed,
                                shard_for_process)
 from ospo_tpu_torch.ops.build import KernelError
+from ospo_tpu_torch.parallel import mesh as mesh_lib
 from ospo_tpu_torch.pipeline.datasets import batched_grouped
 from ospo_tpu_torch.pipeline.model_factory import get_model
 from ospo_tpu_torch.pipeline.templates import get_vqa_conversation
@@ -132,29 +133,34 @@ def score_prepared_chunk(engine: ScoringEngine, chunk: dict) -> List[dict]:
     jobs, images, bad = chunk["jobs"], chunk["images"], chunk["bad"]
     if len(bad) == len(jobs):
         return [None] * len(jobs)
+    failed = False
     try:
         results = engine.score_images_multi(
             images, [j["questions"] for j in jobs], prep=chunk["prep"],
             share_prefix=not chunk["prep_failed"])
-        return [None if i in bad else r for i, r in enumerate(results)]
     except KernelError:
         raise
     except Exception as e:
         print(f"# chunk scoring failed ({e}); retrying per image")
         traceback.print_exc()
+        failed = True
+    # a model group retries when any of its ranks failed (tensor parallel)
+    if not mesh_lib.any_model(failed):
+        return [None if i in bad else r for i, r in enumerate(results)]
     results = []
     for i, (img, j) in enumerate(zip(images, jobs)):
         if i in bad:
             results.append(None)
             continue
         engine.counts["per_image_retries"] += 1
+        score = None
         try:
-            results.append(engine.score_images_multi([img], [j["questions"]])[0])
+            score = engine.score_images_multi([img], [j["questions"]])[0]
         except KernelError:
             raise
         except Exception as e:
             print(f"Error scoring {j['path']}: {e}")
-            results.append(None)
+        results.append(None if mesh_lib.any_model(score is None) else score)
     return results
 
 
@@ -250,7 +256,8 @@ def run_scoring(config, engine: ScoringEngine, data: List[dict]):
                     if c["images"] and not c["scored"]]
         majority = total_failed * 2 > total_images
         if blackout or majority:
-            save_json(config.save_path, "score_summary", by_cat)
+            if mesh_lib.model_rank() == 0:
+                save_json(config.save_path, "score_summary", by_cat)
             raise RuntimeError(
                 f"step4b scoring gate: "
                 f"{'categories with zero scored images: ' + str(blackout) if blackout else ''}"
@@ -289,9 +296,11 @@ def main(config) -> None:
                            kv_quant=config.get("score_kv_quant") or False)
     pairs, score_summary = run_scoring(config, scorer, scored_input)
     save_json_sharded(config.save_path, "train", pairs)
-    # every process's per-category counts, summed on rank 0
+    # every process's per-category counts, summed on rank 0 (a model
+    # group's once)
     merged: dict = {}
-    for part in gather_objects(score_summary):
+    for part in gather_objects(score_summary if mesh_lib.model_rank() == 0
+                               else {}):
         for cat, counts in part.items():
             total = merged.setdefault(cat, dict.fromkeys(counts, 0))
             for k, v in counts.items():

@@ -77,6 +77,19 @@ def _bucket(n: int, step: int = 32) -> int:
     return max(step, ((n + step - 1) // step) * step)
 
 
+def refuse_tensor_parallel(tensor_parallel) -> None:
+    """Training on a tensor-parallel shard needs collectives that autograd
+    sees, the partial gradients of sharded adapters and a global norm; it is
+    not ported yet."""
+    from ospo_tpu_torch.parallel.mesh import model_parallel_size
+
+    if int(tensor_parallel or 1) > 1 or model_parallel_size() > 1:
+        raise NotImplementedError(
+            "step 5 under tensor_parallel is queued in ROADMAP.md (queue 1 "
+            "item 4b, step 5 under tensor parallel); train with "
+            "data_parallel only")
+
+
 def _parse_quantize_base(value):
     """``experiment.quantize_base`` → None | "int8" | "w8a8"; unknown
     spellings raise (``trainer.py:48-68``)."""
@@ -130,6 +143,7 @@ class SimPOTrainer:
         self.n_proc, self.rank = process_count(), process_index()
         self.is_main = self.rank == 0
         mcfg = config.get("model") or {}
+        refuse_tensor_parallel(mcfg.get("tensor_parallel"))
         if self.n_proc > 1 and not int(mcfg.get("data_parallel") or 0):
             raise ValueError(
                 f"training in {self.n_proc} processes needs "

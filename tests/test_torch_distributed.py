@@ -300,7 +300,8 @@ def test_iter_batches_takes_each_rank_its_rows(tmp_path):
 def test_data_parallel_refusals(monkeypatch):
     """The model factory: ``data_parallel`` must be 0 or the world size
     under a global scope, 0 or 1 under a local one; ``tensor_parallel``
-    stays unported.  The trainer: more than one process needs a global
+    must divide the world (``tests/test_torch_parallel.py`` holds the
+    rest).  The trainer: more than one process needs a global
     scope (``data_parallel`` unset: ``test_trainer_refuses_what_is_not_
     ported``)."""
     from ospo_tpu_torch.models import janus as tjanus
@@ -315,8 +316,9 @@ def test_data_parallel_refusals(monkeypatch):
             model_factory._reject_unported({**base, **over})
     model_factory._reject_unported({**base, "data_parallel": 2,
                                     "mesh_scope": "global"})
-    with pytest.raises(NotImplementedError, match="tensor_parallel"):
-        model_factory._reject_unported({**base, "tensor_parallel": 2})
+    model_factory._reject_unported({**base, "tensor_parallel": 2})
+    with pytest.raises(ValueError, match="tensor_parallel must divide"):
+        model_factory._reject_unported({**base, "tensor_parallel": 3})
 
     model = tjanus.JanusModel.init(tjanus.tiny_janus_config(), seed=0,
                                    device="cpu")

@@ -288,7 +288,7 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
 
 @pytest.mark.parametrize("override,error", [
     ({"data_parallel": 2}, ValueError),
-    ({"tensor_parallel": 2}, NotImplementedError),
+    ({"tensor_parallel": 2}, ValueError),   # one process: no model group
     ({"quantize": "s4"}, ValueError),
     ({"quantize": "w8a16"}, ValueError),
     ({"quantize": "int_8"}, ValueError),
