@@ -138,13 +138,13 @@ fails):
     ranks on the one card (gloo), ``tensor_parallel: 2``, each holding 8 of
     the 16 heads (:func:`tp_worker`): (a) step 3 on ``configs/step3.yaml``
     (int8 weights, int8 ``shbd`` KV) over ``TP_STEP3_ITEMS`` one-prompt
-    items, one group of 24 CFG pairs: each image written once (by model
+    items, one group of 12 CFG pairs: each image written once (by model
     rank 0) and real, each rank's flash and decode launches with a KV cache
     of 8 heads, img-tok/s a rank and for the pair; the forced CFG probe of
     the pair against this process's one-process kernel engine, within twice
     the distance of the kernel's plain version from the kernel (phase 13's
     bf16 control); (b) step 4b over phase 4's PNGs of the first
-    ``TP_SCORE_ITEMS`` items (48 images): the yes/no answers equal one
+    ``TP_SCORE_ITEMS`` items (24 images): the yes/no answers equal one
     process's, with ``max|dp_yes|``; (c) greedy text ids (int8, the text
     steps' model) equal one process's;
 17. the weights gate: ``python -m ospo_tpu_torch.validate_weights`` on the
@@ -154,7 +154,24 @@ fails):
     own started after phase 12 (when 15a's writer is done), beside phases
     13-16; the reports must be finite and carry the JAX script's keys, the
     three sample PNGs be real; it prints KL and top-1 agreement for the
-    int8 and int4 KV caches and the int8, w8a8, int4 and int4g weights.
+    int8 and int4 KV caches and the int8, w8a8, int4 and int4g weights;
+18. step 5 under tensor parallel at the Janus-Pro-1B width from phase 15's
+    directory: ``scripts/run_multihost_torch.sh 2 chip_smoke
+    --tp-train-worker DIR`` runs ``step5.main`` (:func:`tp_train_worker`)
+    in two ranks on the one card (gloo), ``model.tensor_parallel: 2``, on
+    ``configs/step5.yaml``'s trainer (LoRA r32 / alpha 64, remat, AdamW,
+    clip 1.0) with ``attn_impl: flash``, no dropout, a global batch of
+    ``TP_STEP5_BATCH`` pairs and ``TP_STEP5_STEPS`` steps, resumed from
+    seeded adapters whose B is non-zero; this process runs ``step5.main``
+    on the whole batch and, as the control, on two micro-batches of half
+    the rows.  (a) Step 1's gradient of every adapter leaf, gathered, and
+    (b) the steps' losses are within twice the control's distance from the
+    one-process run; (c) the replicated leaves (column-parallel A,
+    row-parallel B) and their moments are bit-equal on the two ranks; (d)
+    the checkpoint, resumed in one process, equals the ranks' shards
+    joined.  Each rank launches the flash forward, dQ and dK/dV at H = 8
+    (48/24/24 a micro-batch); it prints the seconds a step, pairs/s and
+    the group's collectives.
 
 Phase 2 also holds the flash forward at the step-2 prefix prefill (B = 1,
 H = 32, T = S = the prefix bucket, left-padded) and the decode kernel at
@@ -166,7 +183,9 @@ text decode on the GPU and the CPU (greedy ids of the shared-prefix and
 plain programs identical, first logits within 1e-2 max|ref|) and its step-4b
 scoring (p_yes and p_no within 1e-3 relative, both programs, int8 and fp32
 caches); phase 2 also holds the int4 row and group kernels at the 7B
-trunk's tp = 2 shard shapes (``TP2_SHARD_SHAPES``).
+trunk's tp = 2 shard shapes (``TP2_SHARD_SHAPES``), and the flash forward,
+dQ and dK/dV at phase 18's shard (rows 8, H = 8); its 1B training shape
+(rows 32, H = 16) is also the 7B trunk's tp = 2 shard.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -174,6 +193,7 @@ The second-to-last line is the kernel table as JSON; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shlex
@@ -331,16 +351,23 @@ DP_STEP5_BATCH = 16
 DP_STEP5_STEPS = 3
 
 # phase 16: tensor parallel, tp = 2, from phase 15's directory: step 3's
-# items (one prompt each: one group of 24 CFG pairs, the config's batch),
-# step 4b's items of phase 4's tree (6 PNGs each: 48 images), the greedy
-# text probe's prompts and new tokens
-TP_STEP3_ITEMS = 24
-TP_SCORE_ITEMS = 8
+# items (one prompt each: one group of 12 CFG pairs, cut from the config's
+# 24 for time), step 4b's items of phase 4's tree (6 PNGs each: 24 images,
+# cut from 48 for time), the greedy text probe's prompts and new tokens
+TP_STEP3_ITEMS = 12
+TP_SCORE_ITEMS = 4
 TP_TEXT_PROMPTS = 4
 TP_TEXT_TOKENS = 32
 # phase 2: the 7B trunk's int4 matrices as tp = 2 shards them (F x D): qkv
 # and gate/up by rows, o and down by columns
 TP2_SHARD_SHAPES = ((2048, 4096), (5504, 4096), (4096, 5504), (4096, 2048))
+# phase 18: step 5 at tp = 2 from phase 15's directory: a global batch of 4
+# pairs (the config's 16 would gather 1.48 GB of logits through the host a
+# micro-batch), 3 steps, one batch an epoch; the seed of the starting
+# adapters, whose B is drawn non-zero so that every A has a gradient
+TP_STEP5_BATCH = 4
+TP_STEP5_STEPS = 3
+TP_STEP5_SEED = 7
 
 
 def step5_overrides(data_path: str, image_root: str, save_path: str) -> dict:
@@ -862,8 +889,10 @@ class Smoke:
         budget(2, T, H, H, 9, f"bf16 rows=2 T=S={T} H={H}")
         fwd_budget(2, T, H, H, 9, f"bf16 rows=2 T=S={T} H={H}")
         # the 1B training shape (phase 11's full fine-tune): the same rows and
-        # sequence, 16 heads
-        what_1b = f"bf16 rows={rows} T=S={T} H=16 causal (1B training shape)"
+        # sequence, 16 heads; also the 7B trunk's tp = 2 shard (16 of its 32
+        # heads)
+        what_1b = (f"bf16 rows={rows} T=S={T} H=16 causal (1B training shape; "
+                   "7B tp = 2 shard)")
         args_1b = case(rows, T, 16, 16, torch.bfloat16, False, 10, what_1b)
         check(args_1b, what_1b)
         budget(2, T, 16, 16, 11, f"bf16 rows=2 T=S={T} H=16 (1B)")
@@ -874,6 +903,18 @@ class Smoke:
               f" ms, dq {cuda_ms(lambda: fa.flash_dq(*args_1b), 10):.4f} ms, "
               f"dkv {cuda_ms(lambda: fa.flash_dkv(*args_1b), 10):.4f} ms")
         del args_1b, q1, k1, v1, mask1
+        # phase 18's shard: 4 pairs (8 rows) at tp = 2 of the 1B trunk, 8 of
+        # its 16 heads, its 4 records' text bucket + 576 image tokens
+        T18 = train_bucket(TP_STEP5_BATCH) + 576
+        what_tp = f"bf16 rows=8 T=S={T18} H=8 causal (phase 18's tp = 2 shard)"
+        args_tp = case(8, T18, 8, 8, torch.bfloat16, False, 12, what_tp)
+        check(args_tp, what_tp)
+        ms_tp, plain_tp, _, lib_tp = timed(args_tp, 20)
+        print(f"flash at phase 18's shard ({what_tp}): forward "
+              f"{ms_tp['fwd']:.4f} ms, dq {ms_tp['dq']:.4f} ms, dkv "
+              f"{ms_tp['dkv']:.4f} ms; plain dq {plain_tp['dq']:.4f} ms, dkv "
+              f"{plain_tp['dkv']:.4f} ms; sdpa backward {lib_tp:.4f} ms")
+        del args_tp
         ms, plain, sdpa_fwd_ms, lib_bwd_ms = timed(args, 10)
         pairs = rows * H * T * (T + 1) / 2
         tensor = rows * T * H * D * 2                     # one bf16 [B,T,H,D]
@@ -2898,7 +2939,8 @@ class Smoke:
         ranks = [read_json(os.path.join(root, f"rank{r}.json"))
                  for r in range(2)]
 
-        # (a) step 3: one group of 24 CFG pairs in each rank, H = 8 of 16
+        # (a) step 3: one group of TP_STEP3_ITEMS CFG pairs in each rank,
+        # H = 8 of 16
         layers, steps = 24, 575
         rates = {}
         for rank, r in enumerate(ranks):
@@ -2963,7 +3005,7 @@ class Smoke:
                    f"tp forced CFG logits finite, within twice the control's "
                    f"distance from one process: {err:.3g} <= 2 x {err_ctl:.3g}")
 
-        # (b) step 4b over 48 of phase 4's PNGs, one process
+        # (b) step 4b over phase 4's PNGs of TP_SCORE_ITEMS items, one process
         one = os.path.join(self.workdir, "tp_one_step4")
         os.makedirs(one)
         shutil.copy(os.path.join(spec["step4"]["save_path"], "vqa_prompt.json"),
@@ -3001,6 +3043,186 @@ class Smoke:
               f"{TP_TEXT_TOKENS} tokens): {int(same.sum())} of {same.size} ids "
               f"equal one process's")
         self.check(bool(same.all()), "tp greedy text ids equal one process's")
+
+    # -- phase 18 --------------------------------------------------------
+    def tp_train_path(self):
+        """18: step 5 at tp = 2 (1B LoRA from phase 15's directory) in two
+        ranks on the one card, each a ``chip_smoke --tp-train-worker``
+        process (:func:`tp_train_worker`), against ``step5.main`` in this
+        process on the whole batch and, as the control, on two
+        micro-batches of half the rows (module docstring, phase 18)."""
+        import gc
+
+        from ospo_tpu_torch.config import Config
+        from ospo_tpu_torch.parallel import mesh as mesh_lib
+        from ospo_tpu_torch.pipeline import step5
+        from ospo_tpu_torch.train import checkpoint as ckpt_lib
+        from ospo_tpu_torch.train import lora as lora_lib
+        from ospo_tpu_torch.train.optim import leaves
+        from ospo_tpu_torch.train.trainer import SimPOTrainer
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        root = os.path.join(self.workdir, "tp_step5")
+        os.makedirs(root)
+        records = train_records()[:TP_STEP5_BATCH]     # a batch an epoch
+        self.check(len(records) == TP_STEP5_BATCH,
+                   f"{len(records)} training records (want {TP_STEP5_BATCH})")
+        data_path = os.path.join(root, "train.json")
+        with open(data_path, "w") as f:
+            json.dump(records, f)
+        lcfg = lora_lib.LoraConfig(rank=32, alpha=64, dropout=0.0)
+        tree = tp_step5_adapters(lcfg)
+        init = ckpt_lib.save_checkpoint(os.path.join(root, "init"), 0, tree,
+                                        lcfg)
+        axes = dict(leaves(mesh_lib.lora_param_specs(tree)))
+        del tree
+
+        def config(name, batch, accum, tp):
+            """configs/step5.yaml from the directory, resumed from the
+            seeded adapters, no dropout, the flash path, every step
+            logged, one save at the end."""
+            model = {"model_path": self.synth["path"]}
+            if tp > 1:
+                model["tensor_parallel"] = tp
+            return merged(STEP5_CONFIG, {
+                "base": {"save_path": os.path.join(root, name),
+                         "resume": init},
+                "model": model,
+                "dataset": {"train": {"data_path": data_path,
+                                      "batch_size": batch}},
+                "image_root": os.path.join(self.workdir, "step3"),
+                "lora": {"lora_dropout": 0},
+                "experiment": {"attn_impl": "flash",
+                               "max_training_steps": TP_STEP5_STEPS,
+                               "max_epochs": TP_STEP5_STEPS,
+                               "save_steps": None, "log_steps": 1,
+                               "gradient_accumulation_steps": accum}})
+
+        with open(os.path.join(root, "spec.json"), "w") as f:
+            json.dump({"config": config("tp", TP_STEP5_BATCH, 1, 2)}, f)
+        run = self._launch("tp18", 2, "chip_smoke",
+                           ["--tp-train-worker", root], timeout=600)
+        self.check(sorted(run["runtime"].values()) == [
+            "backend gloo device cuda:0"] * 2,
+            f"both ranks on the one card take gloo: {run['runtime']}")
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"))
+                 for r in range(2)]
+        layers, micro = 24, TP_STEP5_STEPS
+        want = {"flash_fwd": 2 * layers * micro, "flash_bwd_dq": layers * micro,
+                "flash_bwd_dkv": layers * micro}
+        for rank, st in sorted(run["summary"].items()):
+            got = {k: st["launches"][k] for k in want}
+            for k, n in got.items():
+                self.launches[k] = self.launches.get(k, 0) + n
+            self.check(st["global_step"] == TP_STEP5_STEPS and got == want
+                       and ranks[rank]["heads"] == [8],
+                       f"tp step 5 rank {rank}: {st['global_step']} steps, "
+                       f"launches {got} == {want}, attention at "
+                       f"H = {ranks[rank]['heads']} == [8]")
+
+        # one process: the whole batch, and the control's two micro-batches
+        # of half the rows (bf16 products of other shapes)
+        runs = {}
+        for name, batch, accum in (("one", TP_STEP5_BATCH, 1),
+                                   ("half", TP_STEP5_BATCH // 2, 2)):
+            with record_training(accum) as rec:
+                trainer = step5.main(Config.from_nested(config(name, batch,
+                                                               accum, 1)))
+            runs[name] = {"trainer": trainer, **rec}
+            del trainer
+        half = runs.pop("half")
+        del half["trainer"]
+        gc.collect()
+        one = runs["one"]
+
+        def joined(key):
+            """The ranks' ``key`` tree joined whole by the adapters' specs
+            (opt state by its leaf's path)."""
+            out = {}
+            for k, t in ranks[0][key].items():
+                axis = axes.get(k.partition("/")[2] if key == "opt" else k)
+                out[k] = t if axis is None else torch.cat(
+                    [ranks[0][key][k], ranks[1][key][k]], dim=axis)
+            return out
+
+        def worst(got, ref):
+            """(path, max|got - ref| / max|ref|) of the worst leaf."""
+            return max(((p, float((got[p].float() - ref[p].float()).abs().max()
+                                  / ref[p].float().abs().max()))
+                        for p in ref), key=lambda r: r[1])
+
+        # (a) step 1's gradient, gathered, against one process's
+        g_tp = joined("grads")
+        g_half = {p: (half["grads"][0][p] + half["grads"][1][p]) / 2
+                  for p in one["grads"][0]}
+        err, ctl = worst(g_tp, one["grads"][0]), worst(g_half, one["grads"][0])
+        print(f"tp step 5 step-1 gradient (B non-zero): tp = 2 vs one process "
+              f"worst leaf {err[0]} {err[1]:.3g} max|ref|; control (two "
+              f"micro-batches of half the rows vs the whole batch) worst "
+              f"{ctl[0]} {ctl[1]:.3g} max|ref|")
+        self.check(set(g_tp) == set(one["grads"][0]) and err[1] <= 2 * ctl[1],
+                   f"tp step 5 gradients within twice the control: "
+                   f"{err[1]:.3g} <= 2 x {ctl[1]:.3g}")
+        del g_tp, g_half
+
+        # (b) the 3 steps' losses
+        l_tp, l_one = ranks[0]["losses"], one["losses"]
+        l_half = [(a + b) / 2 for a, b in zip(half["losses"][::2],
+                                               half["losses"][1::2])]
+        d_tp = max(abs(a - b) for a, b in zip(l_tp, l_one))
+        d_ctl = max(abs(a - b) for a, b in zip(l_half, l_one))
+        print(f"tp step 5 losses {l_tp}, one process {l_one}, control "
+              f"{l_half}: max|d| {d_tp:.3g} against the control's {d_ctl:.3g}")
+        self.check(len(l_tp) == len(l_one) == TP_STEP5_STEPS
+                   and ranks[1]["losses"] == l_tp and d_tp <= 2 * d_ctl,
+                   f"tp step 5 losses equal on both ranks and within twice "
+                   f"the control: {d_tp:.3g} <= 2 x {d_ctl:.3g}")
+
+        # (c) the replicated leaves and their moments, bit-equal
+        rep = [p for p, a in axes.items() if a is None]
+        differ = [p for p in rep if not torch.equal(
+            ranks[0]["trained"][p], ranks[1]["trained"][p])] + [
+            k for k in (f"{m}/{p}" for m in ("mu", "nu") for p in rep)
+            if not torch.equal(ranks[0]["opt"][k], ranks[1]["opt"][k])]
+        self.check(len(rep) == 7 and not differ,
+                   f"tp step 5: the {len(rep)} replicated adapter leaves and "
+                   f"their moments bit-equal on both ranks after step "
+                   f"{TP_STEP5_STEPS} (differ: {differ[:3]})")
+
+        # (d) the checkpoint, resumed in one process
+        path = os.path.join(root, "tp", "ospo", f"step_{TP_STEP5_STEPS:06d}")
+        check = SimPOTrainer(Config.from_nested(config("check", TP_STEP5_BATCH,
+                                                       1, 1)),
+                             one["trainer"].model, one["trainer"].processor)
+        check.resume(path)
+        trained, opt = joined("trained"), joined("opt")
+        bad = [p for p, t in leaves(check.trainable)
+               if not torch.equal(t.detach().cpu(), trained[p])]
+        state = check.opt.state_dict()
+        bad += [k for k, t in opt.items() if k.partition("/")[0] in (
+            "mu", "nu") and not torch.equal(state[k].cpu(), t)]
+        self.check(check.global_step == TP_STEP5_STEPS and not bad,
+                   f"tp step 5 checkpoint {path}: resumed in one process at "
+                   f"step {check.global_step}, adapters and moments equal "
+                   f"the ranks' shards joined (differ: {bad[:3]})")
+        one_steps = one["trainer"].update_seconds
+        del check, runs, one
+
+        steps = [st["update_seconds"] for _, st in sorted(run["summary"].items())]
+        later = sum(sum(s[1:]) for s in steps) / sum(len(s) - 1 for s in steps)
+        coll = ranks[0]["collectives"]
+        print(f"tp step 5, 1B LoRA r32 from the directory, tp = 2 on one card "
+              f"(function, not scaling), global batch {TP_STEP5_BATCH}: "
+              f"seconds a step {[[round(x, 3) for x in s] for s in steps]} "
+              f"per rank; steps 2-{TP_STEP5_STEPS} {later:.3f} s, "
+              f"{TP_STEP5_BATCH / later:.3f} pairs/s for the pair; one "
+              f"process {[round(x, 3) for x in one_steps]}; card {_smi()}")
+        for name, (calls, secs, nbytes) in coll.items():
+            print(f"tp step 5 rank 0 collectives {name}: {calls} calls "
+                  f"({calls / TP_STEP5_STEPS:.1f} a micro-batch), "
+                  f"{nbytes / calls / 1e6:.1f} MB mean, {secs:.3f} s in all "
+                  f"({secs / TP_STEP5_STEPS:.3f} s a micro-batch)")
 
     # -- phase 17 --------------------------------------------------------
     def start_weights_gate(self):
@@ -3391,15 +3613,16 @@ def train_records():
             if (r["category"], r["item_id"]) in items]
 
 
-def train_bucket() -> int:
-    """Phase 5's run-level text bucket, as the trainer computes it."""
+def train_bucket(n_records=None) -> int:
+    """Phase 5's run-level text bucket, as the trainer computes it (phase
+    18's over its first ``n_records``)."""
     from ospo_tpu_torch.processing import Processor, t2i_prompt
     from ospo_tpu_torch.tokenizer import load_tokenizer
     from ospo_tpu_torch.train.trainer import _bucket
 
     proc = Processor(load_tokenizer(None, vocab_size=102400))
     return _bucket(max(len(proc.tokenizer.encode(t2i_prompt(proc, r["prompt"])))
-                       for r in train_records()))
+                       for r in train_records()[:n_records]))
 
 
 def _dominant_last_key(q, kc, vc, ks, vs, layer, cur):
@@ -3573,6 +3796,110 @@ def tp_worker(workdir: str) -> int:
     return 0
 
 
+def tp_step5_adapters(lcfg):
+    """Phase 18's starting adapters: the whole 1B tree of ``init_lora``
+    (seed ``TP_STEP5_SEED``, on the host) with B drawn N(0, 0.01²), so that
+    every A has a gradient at step 1 (a zero B hides a missing sum of A's
+    partial gradients)."""
+    from ospo_tpu_torch.models import janus
+    from ospo_tpu_torch.train import lora as lora_lib
+
+    tree = lora_lib.init_lora(janus.JANUS_PRO_1B.language, lcfg, TP_STEP5_SEED)
+    gen = torch.Generator().manual_seed(TP_STEP5_SEED)
+    for ab in tree.values():
+        ab["b"].normal_(0.0, 0.01, generator=gen)
+    return tree
+
+
+@contextlib.contextmanager
+def record_training(n_grads: int):
+    """While active, every ``SimPOTrainer`` records each micro-batch's loss
+    (``losses``) and its first ``n_grads`` reduced gradients (``grads``:
+    ``{path: fp32 host tensor}``, this rank's leaves)."""
+    from ospo_tpu_torch.train.optim import leaves
+    from ospo_tpu_torch.train.trainer import SimPOTrainer
+
+    rec = {"losses": [], "grads": []}
+    step, reduce = SimPOTrainer._step, SimPOTrainer._reduce_grads
+
+    def _step(self, *args, **kw):
+        metrics = step(self, *args, **kw)
+        rec["losses"].append(float(metrics["loss"]))
+        return metrics
+
+    def _reduce_grads(self, grads):
+        out = reduce(self, grads)
+        if len(rec["grads"]) < n_grads:
+            rec["grads"].append({p: g.detach().float().cpu()
+                                 for p, g in leaves(out)})
+        return out
+
+    SimPOTrainer._step, SimPOTrainer._reduce_grads = _step, _reduce_grads
+    try:
+        yield rec
+    finally:
+        SimPOTrainer._step, SimPOTrainer._reduce_grads = step, reduce
+
+
+def tp_train_worker(workdir: str) -> int:
+    """One rank of phase 18 (``python3 -m chip_smoke --tp-train-worker
+    DIR``, started by ``scripts/run_multihost_torch.sh 2``): ``step5.main``
+    at tp = 2 on ``<DIR>/spec.json``'s configuration, recording each
+    micro-batch's loss, step 1's reduced gradient, the attention's head
+    counts and the model group's collectives (count, host seconds with the
+    card synchronised, bytes); each rank saves its own leaves, moments and
+    records as ``rank<r>.pt``."""
+    from ospo_tpu_torch.config import Config
+    from ospo_tpu_torch.io import process_index, read_json
+    from ospo_tpu_torch.models import llama
+    from ospo_tpu_torch.parallel import mesh as mesh_lib
+    from ospo_tpu_torch.pipeline import step5
+    from ospo_tpu_torch.platform import maybe_init_distributed
+    from ospo_tpu_torch.train.optim import leaves
+
+    spec = read_json(os.path.join(workdir, "spec.json"))
+    maybe_init_distributed(spec["config"].get("device"))
+    rank = process_index()
+    heads, attention = set(), llama.attention
+    coll = {}
+    real = {name: getattr(mesh_lib, name)
+            for name in ("_sum_model", "_gather_last")}
+
+    def counted_attention(q, *args, **kw):
+        heads.add(q.shape[2])
+        return attention(q, *args, **kw)
+
+    def timed(name, fn):
+        def call(x):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(x)
+            torch.cuda.synchronize()
+            calls, secs, nbytes = coll.get(name, (0, 0.0, 0))
+            coll[name] = (calls + 1, secs + time.perf_counter() - t0,
+                          nbytes + out.numel() * out.element_size())
+            return out
+        return call
+
+    llama.attention = counted_attention
+    for name, fn in real.items():
+        setattr(mesh_lib, name, timed(name, fn))
+    try:
+        with record_training(1) as rec:
+            trainer = step5.main(Config.from_nested(spec["config"]))
+    finally:
+        llama.attention = attention
+        for name, fn in real.items():
+            setattr(mesh_lib, name, fn)
+    torch.save({"grads": rec["grads"][0], "losses": rec["losses"],
+                "heads": sorted(heads), "collectives": coll,
+                "trained": {p: t.detach().cpu()
+                            for p, t in leaves(trainer.trainable)},
+                "opt": {k: v.cpu() for k, v in trainer.opt.state_dict().items()}},
+               os.path.join(workdir, f"rank{rank}.pt"))
+    return 0
+
+
 def _smi() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3604,6 +3931,9 @@ def main() -> int:
     parser.add_argument("--tp-worker", metavar="DIR",
                         help="run one rank of phase 16 on the inputs in DIR "
                              "(started by the script itself)")
+    parser.add_argument("--tp-train-worker", metavar="DIR",
+                        help="run one rank of phase 18 on the inputs in DIR "
+                             "(started by the script itself)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3616,6 +3946,8 @@ def main() -> int:
         return 3
     if args.tp_worker:
         return tp_worker(args.tp_worker)
+    if args.tp_train_worker:
+        return tp_train_worker(args.tp_train_worker)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     smoke = None
     try:
@@ -3677,6 +4009,9 @@ def main() -> int:
             smoke.phase("main path: tensor parallel at 1B width from the "
                         "directory, tp = 2 in two ranks on one card",
                         smoke.tp_path)
+            smoke.phase("main path: step 5 under tensor parallel at 1B width "
+                        "from the directory, tp = 2 in two ranks on one card",
+                        smoke.tp_train_path)
             smoke.phase("main path: the weights gate at 1B width from the "
                         "directory", smoke.weights_gate)
     finally:

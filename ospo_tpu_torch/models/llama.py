@@ -204,7 +204,12 @@ def _maybe_lora(x: torch.Tensor, w, lora: Optional[Params], name: str,
     cast to x's dtype; dropout (peft semantics) applies to the adapter
     input only.  The mask is drawn from a generator seeded with
     ``fold_seed(dropout_seed, PROJ_INDEX[name])`` each call, so a
-    checkpointed layer's recompute redraws the same mask."""
+    checkpointed layer's recompute redraws the same mask.
+
+    ``row_parallel``: x holds this rank's columns of each row (tensor
+    parallel), so the mask is this rank's columns of the whole row's mask,
+    the one a single process draws; a column-parallel input is the whole
+    row on every rank and draws that mask itself."""
     y = linear(x, w, row_parallel)
     if lora is None or name not in lora:
         return y
@@ -213,7 +218,11 @@ def _maybe_lora(x: torch.Tensor, w, lora: Optional[Params], name: str,
     if dropout_rate and dropout_seed is not None:
         gen = torch.Generator(device=x.device)
         gen.manual_seed(fold_seed(dropout_seed, PROJ_INDEX[name]))
-        keep = torch.empty_like(x).bernoulli_(1.0 - dropout_rate, generator=gen)
+        n, k, mp = x.shape[-1], 0, 1
+        if row_parallel:
+            k, mp = mesh_lib.model_rank(), mesh_lib.model_parallel_size()
+        keep = x.new_empty((*x.shape[:-1], n * mp)).bernoulli_(
+            1.0 - dropout_rate, generator=gen)[..., k * n:(k + 1) * n]
         x_l = x * keep / (1.0 - dropout_rate)
     return y + scaling * ((x_l @ a.to(x.dtype)) @ b.to(x.dtype))
 
@@ -373,7 +382,11 @@ def _train_layer(x: torch.Tensor, lp: Params, llora: Optional[Params],
                  dropout_rate: float, dropout_seed: Optional[int],
                  attn_impl: str, tp: bool = False) -> torch.Tensor:
     """One layer of the no-cache path (``layer_body`` at
-    ``ospo_tpu/models/llama.py:751-755``)."""
+    ``ospo_tpu/models/llama.py:751-755``).  Under tensor parallel the
+    normed input of the column-parallel projections (and their adapters)
+    passes ``copy_to_model``, so its gradient sums the ranks' heads and
+    FFN columns; the row-parallel outputs are summed by
+    ``all_reduce_model``."""
     B, T = x.shape[:2]
 
     def proj(h, w, name):
@@ -381,7 +394,11 @@ def _train_layer(x: torch.Tensor, lp: Params, llora: Optional[Params],
                            dropout_seed,
                            tp and name in ("o_proj", "down_proj"))
 
-    h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+    def norm(x, w):
+        h = rms_norm(x, w, cfg.rms_norm_eps)
+        return mesh_lib.copy_to_model(h) if tp else h
+
+    h = norm(x, lp["attn_norm"])
     q = proj(h, lp["wq"], "q_proj").view(B, T, cfg.num_heads, cfg.dim_head)
     k = proj(h, lp["wk"], "k_proj").view(B, T, cfg.kv_heads, cfg.dim_head)
     v = proj(h, lp["wv"], "v_proj").view(B, T, cfg.kv_heads, cfg.dim_head)
@@ -389,7 +406,7 @@ def _train_layer(x: torch.Tensor, lp: Params, llora: Optional[Params],
     attn = attention(q, k, v, mask=attention_mask, impl=attn_impl)
     x = x + _row_parallel(proj(attn.reshape(B, T, cfg.num_heads * cfg.dim_head),
                                lp["wo"], "o_proj"), tp)
-    h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    h = norm(x, lp["mlp_norm"])
     gate = proj(h, lp["w_gate"], "gate_proj")
     up = proj(h, lp["w_up"], "up_proj")
     act = F.silu(gate.float()).to(h.dtype) * up
@@ -455,8 +472,8 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     Tensor parallel (``parallel/mesh.py``): a trunk sharded by
     ``shard_janus_params`` runs this rank's heads and FFN columns (the head
     counts come from the shard, :func:`local_config`) and sums the
-    row-parallel ``wo`` and ``w_down`` products over the model group
-    (inference only: the sum is not differentiable).
+    row-parallel ``wo`` and ``w_down`` products over the model group; in
+    training the collectives carry their gradients (``_train_layer``).
     """
     local = local_config(cfg, params)
     tp, cfg = local is not cfg, local

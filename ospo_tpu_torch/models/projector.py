@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from ospo_tpu_torch.models.llama import linear
+from ospo_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
 
@@ -32,6 +33,10 @@ def mlp_projector(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def vision_head(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Hidden states → image-token logits (fp32)."""
+    """Hidden states → image-token logits (fp32).  A vocab-parallel head
+    (tensor parallel) gives this rank's vocab slice; its input's gradient
+    is summed over the model group (``mesh.copy_to_model``)."""
     x = _gelu(_linear(params["proj"], x))
+    if mesh_lib.is_vocab_shard(params["head"]["w"]):
+        x = mesh_lib.copy_to_model(x)
     return _linear(params["head"], x).float()

@@ -50,12 +50,17 @@ def parse_kv_quant(value):
         "true (= int8), or false/unset (bf16 cache)")
 
 
-def quantize_matrix(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+def quantize_matrix(w: torch.Tensor, amax_reduce=None) -> Dict[str, torch.Tensor]:
     """[..., F, D] → {q: int8, s: f32 [..., F]} per-output-row symmetric.
 
     As in the reference, the division runs in the weight's dtype (the scale
-    is cast to it first) and rounds half to even."""
-    s = w.float().abs().amax(dim=-1) / 127.0
+    is cast to it first) and rounds half to even.  ``amax_reduce`` joins
+    the abs-max of a row whose columns are spread over ranks (a
+    row-parallel shard), so its scale is the whole row's."""
+    amax = w.float().abs().amax(dim=-1)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
+    s = amax / 127.0
     s = s.clamp_min(1e-12)
     q = torch.round(w / s[..., None].to(w.dtype)).clamp(-127, 127).to(torch.int8)
     return {"q": q, "s": s}
@@ -97,11 +102,12 @@ def quantized_matmul(x: torch.Tensor, qw: Dict[str, torch.Tensor]) -> torch.Tens
 # ---------------------------------------------------------------------------
 
 
-def quantize_matrix_w8a8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+def quantize_matrix_w8a8(w: torch.Tensor, amax_reduce=None
+                         ) -> Dict[str, torch.Tensor]:
     """[..., F, D] → {"q": int8, "sa": f32 [..., F]}: the payload of
     :func:`quantize_matrix`; the key ``"sa"`` routes the product to
     :func:`quantized_matmul_w8a8`."""
-    out = quantize_matrix(w)
+    out = quantize_matrix(w, amax_reduce)
     return {"q": out["q"], "sa": out["s"]}
 
 
@@ -159,27 +165,24 @@ class _W8A8(torch.autograd.Function):
     ``sa`` get no gradient."""
 
     @staticmethod
-    def forward(ctx, x, q, sa):
+    def forward(ctx, x, q, sa, amax_reduce=None):
         ctx.save_for_backward(q, sa)
-        return _w8a8_raw(x, q, sa)
+        return _w8a8_raw(x, q, sa, amax_reduce)
 
     @staticmethod
     def backward(ctx, g):
         q, sa = ctx.saved_tensors
         gf = (g.float() * sa).to(torch.bfloat16)
-        return (gf @ q.to(torch.bfloat16)).to(g.dtype), None, None
+        return (gf @ q.to(torch.bfloat16)).to(g.dtype), None, None, None
 
 
 def quantized_matmul_w8a8(x: torch.Tensor, qw: Dict[str, torch.Tensor],
                           amax_reduce=None) -> torch.Tensor:
     """y = x @ Wᵀ with both sides int8; where x needs a gradient it runs as
     :class:`_W8A8` (a w8a8 frozen trunk under LoRA training).
-    ``amax_reduce``: see :func:`quantize_activations_int8` (inference
-    only)."""
+    ``amax_reduce``: see :func:`quantize_activations_int8`."""
     if x.requires_grad and torch.is_grad_enabled():
-        return _W8A8.apply(x, qw["q"], qw["sa"])
-    if amax_reduce is None:
-        return _w8a8_raw(x, qw["q"], qw["sa"])
+        return _W8A8.apply(x, qw["q"], qw["sa"], amax_reduce)
     return _w8a8_raw(x, qw["q"], qw["sa"], amax_reduce)
 
 
@@ -338,18 +341,28 @@ def quant_fn(mode):
 
 
 @torch.no_grad()
-def quantize_layers(layers: Dict, mode) -> Dict:
+def quantize_layers(layers: Dict, mode, amax_reduce=None) -> Dict:
     """Quantize the stacked ``QUANTIZABLE`` matrices of a trunk's ``layers``
     in place, one layer's matrix at a time: each model-dtype stack is
     dropped as its quantized replacement lands, so at most one stack and
     one layer's temporaries exist beside the quantized trunk (the JAX
-    package's ``quantize_llama_params_incremental``, ``quant.py:410-437``)."""
+    package's ``quantize_llama_params_incremental``, ``quant.py:410-437``).
+
+    ``amax_reduce`` (int8 and w8a8): the layers are a tensor-parallel
+    shard, and ``{name: fn}`` joins the row abs-max of each named matrix
+    whose columns the shard cuts, so every scale is the whole trunk's."""
     qfn = quant_fn(mode)
+    amax_reduce = amax_reduce or {}
+    if amax_reduce and quant_mode(mode) not in ("int8", "w8a8"):
+        raise ValueError(f"quantizing a tensor-parallel shard takes int8 or "
+                         f"w8a8, got {mode!r}: quantize the whole trunk")
     for name in QUANTIZABLE:
         w = layers[name]
+        reduce = ({"amax_reduce": amax_reduce[name]}
+                  if name in amax_reduce else {})
         stacked = None
         for li in range(w.shape[0]):
-            qw = qfn(w[li])
+            qw = qfn(w[li], **reduce)
             if stacked is None:
                 stacked = {k: torch.empty((w.shape[0], *t.shape), dtype=t.dtype,
                                           device=t.device)

@@ -14,7 +14,12 @@ serve the same work; the ranks of one model index form a *data group*.
   ``gen_head.head`` vocab-parallel).  A rank keeps its contiguous shard
   (:func:`shard_janus_params`); ``models/llama.forward`` runs its own heads
   and FFN columns and all-reduces after ``wo`` and ``w_down``;
-  ``models/janus`` all-gathers the vocab slices of the logits.
+  ``models/janus`` all-gathers the vocab slices of the logits.  Autograd
+  sees the collectives as Megatron's pair: the sum after a row-parallel
+  product (:func:`all_reduce_model`) is the identity backward, and the
+  replicated input of a column-parallel branch passes
+  :func:`copy_to_model`, whose backward sums the input gradient over the
+  group; the logits gather hands each rank its slice of the gradient.
 - **DP**: work lists split by data index (``io.shard_for_process``).
 
 The spec functions keep the JAX package's names and rules; a spec is the
@@ -147,10 +152,7 @@ def _model_mesh(what: str) -> Mesh:
 # ---------------------------------------------------------------------------
 
 
-def all_reduce_model(x: torch.Tensor) -> torch.Tensor:
-    """The sum of every model rank's ``x``, summed in fp32 and returned in
-    x's dtype (the row-parallel partial products, the vocab-parallel
-    embedding)."""
+def _sum_model(x: torch.Tensor) -> torch.Tensor:
     import torch.distributed as dist
 
     mesh = _model_mesh("all_reduce_model")
@@ -159,9 +161,77 @@ def all_reduce_model(x: torch.Tensor) -> torch.Tensor:
     return buf.to(x.dtype)
 
 
+def _gather_last(x: torch.Tensor) -> torch.Tensor:
+    import torch.distributed as dist
+
+    mesh = _model_mesh("all_gather_last")
+    n = x.shape[-1]
+    out = torch.zeros((*x.shape[:-1], n * mesh.model), dtype=x.dtype,
+                      device=x.device)
+    out[..., mesh.model_rank * n:(mesh.model_rank + 1) * n] = x
+    dist.all_reduce(out, group=mesh.model_group)
+    return out
+
+
+class _SumModel(torch.autograd.Function):
+    """g: the sum over the model group forward; its output is the same on
+    every rank, so is the gradient that reaches it, which passes through."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _sum_model(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy
+
+
+class _CopyToModel(torch.autograd.Function):
+    """f: the identity forward; the input gradient is each rank's partial
+    (its heads, FFN columns or vocab slice) and is summed backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _sum_model(dy)
+
+
+class _GatherLast(torch.autograd.Function):
+    """The vocab slices joined forward; backward each rank keeps the
+    gradient of its own slice."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.n = x.shape[-1]
+        return _gather_last(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        k = _CURRENT.model_rank
+        return dy[..., k * ctx.n:(k + 1) * ctx.n].contiguous()
+
+
+def all_reduce_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of every model rank's ``x``, summed in fp32 and returned in
+    x's dtype (the row-parallel partial products, the vocab-parallel
+    embedding); under autograd the gradient passes through unchanged."""
+    return _SumModel.apply(x)
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself, whose gradient is summed over the model group (fp32)
+    in the backward: the replicated input of a column-parallel or
+    vocab-parallel product."""
+    return _CopyToModel.apply(x)
+
+
 def all_max_model(x: torch.Tensor) -> torch.Tensor:
     """The elementwise max of every model rank's fp32 ``x`` (w8a8's
-    per-token abs-max over a row-parallel input)."""
+    per-token abs-max over a row-parallel input, an int8 row's weight
+    abs-max over its columns)."""
     import torch.distributed as dist
 
     mesh = _model_mesh("all_max_model")
@@ -174,16 +244,9 @@ def all_gather_last(x: torch.Tensor) -> torch.Tensor:
     """Concatenate every model rank's ``x`` on the last axis, in rank order
     (vocab slices of logits).  Each rank places its slice in a zero buffer
     and the buffers are summed: exact, and one collective that gloo also
-    runs on CUDA tensors."""
-    import torch.distributed as dist
-
-    mesh = _model_mesh("all_gather_last")
-    n = x.shape[-1]
-    out = torch.zeros((*x.shape[:-1], n * mesh.model), dtype=x.dtype,
-                      device=x.device)
-    out[..., mesh.model_rank * n:(mesh.model_rank + 1) * n] = x
-    dist.all_reduce(out, group=mesh.model_group)
-    return out
+    runs on CUDA tensors.  Under autograd each rank's gradient is its
+    slice of the joined one."""
+    return _GatherLast.apply(x)
 
 
 def broadcast_model(x: torch.Tensor) -> torch.Tensor:
@@ -479,3 +542,33 @@ def shard_janus_params(params: Dict, mesh: Mesh) -> Dict:
         if isinstance(t, torch.Tensor) and tuple(t.shape) != (1, 1):
             _VOCAB_SHARDS[id(t)] = t
     return local
+
+
+def shard_leaf(t, axis: Optional[int], mesh: Mesh, what: str = "leaf"):
+    """This rank's contiguous ``1/model`` of ``t`` on ``axis`` (``t`` itself
+    when ``axis`` is None or the group is one rank)."""
+    if axis is None or mesh.model == 1:
+        return t
+    return _cut(torch.as_tensor(t), axis, mesh.model_rank, mesh.model, what)
+
+
+# an integer type of each element size, to move a float tensor's bits
+_BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def gather_model(t: torch.Tensor, axis: Optional[int]) -> torch.Tensor:
+    """The whole tensor of which each model rank holds the shard ``t``, cut
+    on ``axis``, on the host: the shards' bits gathered over the group's
+    gloo side and joined in rank order, so the result is bit-equal to the
+    tensor that was cut (``gather_tree``'s join of one leaf).  A
+    replicated ``t`` (``axis`` None) comes back as it is."""
+    import torch.distributed as dist
+
+    local = t.detach().contiguous().cpu()
+    if axis is None:
+        return local
+    mesh = _model_mesh("gather_model")
+    bits = local.view(_BITS[local.element_size()])
+    parts = [torch.empty_like(bits) for _ in range(mesh.model)]
+    dist.all_gather(parts, bits, group=mesh.object_group)
+    return torch.cat(parts, dim=axis).view(local.dtype)

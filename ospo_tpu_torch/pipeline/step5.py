@@ -8,7 +8,9 @@ an int8 trunk with ``experiment.quantize_base``) or the submodules that
 every ``save_steps`` and at the end, and supports ``base.resume``.
 
 Run: ``python -m ospo_tpu_torch.pipeline.step5 --cfg_path configs/step5.yaml
-[key=value ...]`` (``device=cpu`` to run on the CPU).
+[key=value ...]`` (``device=cpu`` to run on the CPU).  In several processes
+(``scripts/run_multihost_torch.sh N``): ``model.data_parallel`` and
+``model.tensor_parallel``, whose product is N.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from ospo_tpu_torch.io import set_seed
 from ospo_tpu_torch.pipeline.datasets import PreferenceDataset
 from ospo_tpu_torch.pipeline.model_factory import get_model
 from ospo_tpu_torch.platform import maybe_init_distributed
-from ospo_tpu_torch.train.trainer import SimPOTrainer, refuse_tensor_parallel
+from ospo_tpu_torch.train.trainer import SimPOTrainer
 from ospo_tpu_torch.utils.profiling import print_process_summary
 
 
@@ -45,7 +47,6 @@ def main(config) -> SimPOTrainer:
     # the JAX step sets mesh_scope: global (one batch over every process);
     # the port accepts it on one device
     model_cfg.setdefault("mesh_scope", "global")
-    refuse_tensor_parallel(model_cfg.get("tensor_parallel"))
     model, _, processor = get_model(Config.from_nested(model_cfg))
 
     train_cfg = config.dataset.train

@@ -104,7 +104,9 @@ class AdamW:
     """clip → fp32 → AdamW, optionally accumulated over ``accumulation_steps``
     micro-batches.  ``step(params, grads)`` updates ``params`` (any nested
     tree of tensors; ``grads`` of the same structure) in place and returns
-    whether an update was applied.
+    whether an update was applied.  ``norm`` is the clip's global norm of a
+    flat ``{path: gradient}`` dict (:func:`global_norm`; a tensor-parallel
+    trainer's counts each sharded leaf over the model group).
 
     The moments and the update are fp32 whatever the parameter dtype, and
     the update is added in fp32 and rounded once to the parameter's dtype:
@@ -115,8 +117,10 @@ class AdamW:
     def __init__(self, params, schedule: Callable[[int], float],
                  betas=(0.9, 0.95), eps: float = 1e-8,
                  weight_decay: float = 0.0, grad_clip: Optional[float] = 1.0,
-                 accumulation_steps: int = 1):
+                 accumulation_steps: int = 1,
+                 norm: Callable[[Dict], torch.Tensor] = global_norm):
         self.schedule = schedule
+        self.norm = norm
         self.b1, self.b2 = float(betas[0]), float(betas[1])
         self.eps = float(eps)
         self.weight_decay = float(weight_decay)
@@ -145,7 +149,7 @@ class AdamW:
             grads = {k: t.clone() for k, t in self.acc.items()}
             for t in self.acc.values():
                 t.zero_()
-        norm = global_norm(grads) if self.grad_clip is not None else None
+        norm = self.norm(grads) if self.grad_clip is not None else None
         lr = float(self.schedule(self.count))
         self.count += 1
         c1 = 1 - self.b1 ** self.count

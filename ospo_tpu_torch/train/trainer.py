@@ -30,18 +30,38 @@ quirk of the reference kept as it is.
 (one JSON object per logged step, the JAX package's ``train/<name>`` tags)
 instead of a TensorBoard writer.
 
-Data parallel (``ospo_tpu/train/trainer.py:218-240``; launch with
-``scripts/run_multihost_torch.sh``, ``model.data_parallel`` = the number of
-processes): every process walks the same seeded global batches and takes
-its contiguous rows; the gradients of each micro-batch are averaged over
-the group (one flat fp32 buffer, ``all_reduce``, ÷ n) before ``grad_norm``
-and the clip, so both see the global gradient — exact because the SimPO loss
-is a batch mean and every row has the same 576 image labels.  Logged
-metrics are averaged over the group; rank 0 alone writes checkpoints,
-``scalars.jsonl``, ``train_stats.json`` and the saved config.  Each rank
-folds its rank into the LoRA dropout seed, so with dropout its masks are
-independent of the other ranks' but not those a single process draws for
-the same rows.
+Several processes (``ospo_tpu/train/trainer.py:206-240``; launch with
+``scripts/run_multihost_torch.sh``): ``model.data_parallel`` x
+``model.tensor_parallel`` = the processes, one card each, laid out by
+``parallel/mesh.py`` (model rank ``rank % tp``, data index ``rank // tp``).
+
+- Data parallel: every process walks the same seeded global batches and
+  its data index takes its contiguous rows; the gradients of each
+  micro-batch are averaged over the data group (one flat fp32 buffer,
+  ``all_reduce``, ÷ dp) before ``grad_norm`` and the clip, so both see the
+  global gradient — exact because the SimPO loss is a batch mean and every
+  row has the same 576 image labels.  Each data index folds itself into
+  the LoRA dropout seed, so with dropout its masks are independent of the
+  other indices' but not those a single process draws for the same rows.
+- Tensor parallel (the JAX trainer's ``shard_lora_params`` /
+  ``shard_trainable_params`` under GSPMD): the ranks of a model group train
+  the same rows on their shards of the model (``get_model`` cut them).  The
+  trunk's collectives carry their gradients (``models/llama._train_layer``),
+  every rank draws the whole adapter tree and keeps its shard
+  (``mesh.lora_param_specs``), the adapters that are replicated but see
+  only this rank's heads or columns (column-parallel A, row-parallel B)
+  have their gradients summed over the model group, and the global norm of
+  ``grad_norm`` and the clip sums each shard's squares over the group and
+  counts each replicated leaf once.  A full fine-tune trains the model's
+  shards in place, its moments per shard.  Model rank 0's image ids are
+  every rank's.  ``quantize_base`` scales the row-parallel rows by their
+  abs-max over the group, as the whole trunk's.
+
+Logged metrics are averaged over the data group; rank 0 alone writes
+checkpoints, ``scalars.jsonl``, ``train_stats.json`` and the saved config.
+A checkpoint holds whole tensors (the shards and their moments gathered
+over the model group), the file either package reads; ``resume`` cuts this
+rank's shards from it.
 """
 
 from __future__ import annotations
@@ -64,6 +84,7 @@ from ospo_tpu_torch.models import vqgan
 from ospo_tpu_torch.models.weights import map_tree
 from ospo_tpu_torch.ops import quant
 from ospo_tpu_torch.ops.pixels import normalize_pixels
+from ospo_tpu_torch.parallel import mesh as mesh_lib
 from ospo_tpu_torch.pipeline.datasets import PreferenceDataset
 from ospo_tpu_torch.platform import object_group
 from ospo_tpu_torch.train import checkpoint as ckpt_lib
@@ -75,19 +96,6 @@ from ospo_tpu_torch.utils.prefetch import prefetch_iter
 
 def _bucket(n: int, step: int = 32) -> int:
     return max(step, ((n + step - 1) // step) * step)
-
-
-def refuse_tensor_parallel(tensor_parallel) -> None:
-    """Training on a tensor-parallel shard needs collectives that autograd
-    sees, the partial gradients of sharded adapters and a global norm; it is
-    not ported yet."""
-    from ospo_tpu_torch.parallel.mesh import model_parallel_size
-
-    if int(tensor_parallel or 1) > 1 or model_parallel_size() > 1:
-        raise NotImplementedError(
-            "step 5 under tensor_parallel is queued in ROADMAP.md (queue 1 "
-            "item 4b, step 5 under tensor parallel); train with "
-            "data_parallel only")
 
 
 def _parse_quantize_base(value):
@@ -143,12 +151,29 @@ class SimPOTrainer:
         self.n_proc, self.rank = process_count(), process_index()
         self.is_main = self.rank == 0
         mcfg = config.get("model") or {}
-        refuse_tensor_parallel(mcfg.get("tensor_parallel"))
-        if self.n_proc > 1 and not int(mcfg.get("data_parallel") or 0):
+        self.tp = int(mcfg.get("tensor_parallel") or 1)
+        dp = int(mcfg.get("data_parallel") or 0)
+        if self.n_proc > 1 and self.tp == 1 and not dp:
             raise ValueError(
                 f"training in {self.n_proc} processes needs "
                 f"model.data_parallel={self.n_proc}: each process takes its "
                 "rows of the global batch (scripts/run_multihost_torch.sh)")
+        self.dp = dp or self.n_proc // self.tp
+        if self.dp * self.tp != self.n_proc:
+            raise ValueError(
+                f"model.data_parallel={dp} x model.tensor_parallel={self.tp} "
+                f"must equal the {self.n_proc} training process(es), one a "
+                "card (scripts/run_multihost_torch.sh)")
+        self.mesh = mesh_lib.current_mesh() if self.tp > 1 else None
+        if self.tp > 1 and mesh_lib.model_parallel_size() != self.tp:
+            raise ValueError(
+                f"model.tensor_parallel={self.tp} but the model is not "
+                "sharded over model groups of that size: build it with "
+                "get_model under the same setting")
+        self.data_index = self.rank // self.tp
+        # the data group: every rank of one model index (the world without
+        # tensor parallel)
+        self._data_group = self.mesh.data_group if self.mesh else None
         if self.n_proc > 1 and (mcfg.get("mesh_scope") or "global") != "global":
             raise ValueError(
                 f"training in {self.n_proc} processes needs model.mesh_scope:"
@@ -194,13 +219,17 @@ class SimPOTrainer:
             if not self.trainable_keys:
                 raise ValueError("full-finetune mode with everything frozen")
             self.trainable = {k: model.params[k] for k in self.trainable_keys}
+            specs = mesh_lib.janus_param_specs(model.params)
+            self._set_axes({k: specs[k] for k in self.trainable_keys},
+                           partial=False)
             for path, t in leaves(self.trainable):
                 if not t.is_floating_point():
                     raise ValueError(
                         f"full fine-tune: {path} is {t.dtype}; a quantized "
                         "trunk cannot be trained (build it unquantized)")
                 t.requires_grad_(True)
-            self.opt = AdamW(self.trainable, self._lr_fn, **self._opt_args)
+            self.opt = AdamW(self.trainable, self._lr_fn, norm=self._global_norm,
+                             **self._opt_args)
         self.global_step = 0
         self.update_seconds: List[float] = []  # wall time of each update
         self.stats: Dict[str, float] = {}      # fit()'s train_stats.json
@@ -221,16 +250,38 @@ class SimPOTrainer:
                     f"trunk is already {have}-quantized — rebuild the model "
                     "unquantized (quantize: none) or align the two settings")
         if not isinstance(wq, dict):
-            quant.quantize_layers(layers, mode)
+            # a shard's input-cut (row-parallel) rows take the group's max
+            cut = {n: mesh_lib.all_max_model for n, axis in
+                   mesh_lib.llama_param_specs()["layers"].items()
+                   if axis == 2} if self.tp > 1 else None
+            quant.quantize_layers(layers, mode, cut)
+
+    def _set_axes(self, specs, partial: bool) -> None:
+        """The sharded axis of each trained leaf by path (``leaves``' keys),
+        and the replicated leaves whose gradient is a partial sum over the
+        model group (``partial``: the adapters)."""
+        self._axes = dict(leaves(specs))
+        self._partial = [p for p, a in self._axes.items()
+                         if a is None] if partial and self.tp > 1 else []
 
     def _set_trainable(self, tree) -> None:
-        """The LoRA adapters (fp32 leaves requiring grad) and a fresh
-        optimizer over them."""
+        """The LoRA adapters (fp32 leaves requiring grad; under tensor
+        parallel this rank's shard of the whole tree) and a fresh optimizer
+        over them."""
+        self._set_axes(mesh_lib.lora_param_specs(tree), partial=True)
         self.trainable = {
-            n: {k: torch.as_tensor(t, dtype=torch.float32, device=self.device)
+            n: {k: self._shard(f"{n}/{k}", torch.as_tensor(
+                t, dtype=torch.float32, device=self.device))
                 .clone().requires_grad_(True) for k, t in ab.items()}
             for n, ab in tree.items()}
-        self.opt = AdamW(self.trainable, self._lr_fn, **self._opt_args)
+        self.opt = AdamW(self.trainable, self._lr_fn, norm=self._global_norm,
+                         **self._opt_args)
+
+    def _shard(self, path: str, t):
+        """This rank's shard of the whole leaf ``t`` at ``path``."""
+        if self.mesh is None:
+            return t
+        return mesh_lib.shard_leaf(t, self._axes[path], self.mesh, path)
 
     # ------------------------------------------------------------------
     # preprocessing (host): variable-length text → bucketed arrays
@@ -269,6 +320,9 @@ class SimPOTrainer:
             pixels = normalize_pixels(pixels, self.processor.image_processor)
             img_ids = vqgan.encode_to_ids(params["gen_vision_model"], cfg.vq,
                                           pixels)                  # [2B, N]
+            # the labels of a model group are one rank's, whatever the
+            # replicated encoders' last bits do
+            img_ids = mesh_lib.broadcast_model(img_ids.contiguous())
         text_embeds = janus_lib.embed_text(params, text_ids) * text_mask[..., None]
         text_2b = torch.cat([text_embeds, text_embeds])
         img_embeds = janus_lib.prepare_gen_img_embeds(params, cfg, img_ids)
@@ -306,21 +360,48 @@ class SimPOTrainer:
         optimizer (an update every ``gradient_accumulation_steps``)."""
         _, metrics, grads = self.loss_and_grads(
             text_ids, text_mask, chosen_pixels, rejected_pixels, dropout_seed)
-        if self.grouped:
-            grads = self._group_mean(grads)
-        metrics["grad_norm"] = global_norm(grads)
+        grads = self._reduce_grads(grads)
+        metrics["grad_norm"] = self._global_norm(grads)
         self.opt.step(self.trainable, grads)
         return metrics
 
-    def _group_mean(self, grads):
-        """The gradient tree averaged over the process group: one flat fp32
-        buffer, ``all_reduce`` (sum), ÷ n, each leaf back in its dtype."""
-        flat = [g for _, g in leaves(grads)]
-        buf = torch.cat([g.reshape(-1).float() for g in flat])
-        dist.all_reduce(buf)
-        buf /= self.n_proc
-        parts = iter(torch.split(buf, [g.numel() for g in flat]))
-        return map_tree(grads, lambda _, g: next(parts).view_as(g).to(g.dtype))
+    def _reduce_grads(self, grads):
+        """A micro-batch's gradients as the whole model's: the adapters'
+        partial sums (``_partial``) summed over the model group, then every
+        leaf averaged over the data group; each a flat fp32 buffer, each
+        leaf back in its dtype (the gradients themselves on one process)."""
+        out = dict(leaves(grads))
+
+        def reduce(paths, fn):
+            buf = fn(torch.cat([out[p].reshape(-1).float() for p in paths]))
+            for p, part in zip(paths, torch.split(
+                    buf, [out[p].numel() for p in paths])):
+                out[p] = part.view_as(out[p]).to(out[p].dtype)
+
+        if self._partial:
+            reduce(self._partial, mesh_lib.all_reduce_model)
+        if self.grouped:
+            reduce(list(out), self._data_mean)
+        it = iter(out.values())
+        return map_tree(grads, lambda *_: next(it))
+
+    def _data_mean(self, buf: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(buf, group=self._data_group)
+        return buf / self.dp
+
+    def _global_norm(self, grads) -> torch.Tensor:
+        """sqrt of the sum of squares of the whole model's gradient
+        (``optim.global_norm``): a shard's squares summed over the model
+        group, a replicated leaf's counted once; the same on every rank."""
+        if self.mesh is None:
+            return global_norm(grads)
+        sums = {True: [], False: []}
+        for path, g in leaves(grads):
+            sums[self._axes[path] is not None].append(
+                (g.float() * g.float()).sum())
+        zero = torch.zeros((), device=self.device)
+        sharded = mesh_lib.all_reduce_model(sum(sums[True], zero))
+        return torch.sqrt(sum(sums[False], zero) + sharded)
 
     def _group_metrics(self, metrics: Dict[str, torch.Tensor]
                        ) -> Dict[str, float]:
@@ -329,8 +410,7 @@ class SimPOTrainer:
         vals = torch.stack([metrics[k].detach().float().reshape(())
                             for k in names])
         if self.grouped:
-            dist.all_reduce(vals)
-            vals /= self.n_proc
+            vals = self._data_mean(vals)
         return dict(zip(names, vals.tolist()))
 
     # ------------------------------------------------------------------
@@ -342,7 +422,15 @@ class SimPOTrainer:
             f.write(json.dumps({"step": self.global_step, **{
                 f"train/{k}": v for k, v in metrics.items()}}) + "\n")
 
+    def _state_axis(self, key: str):
+        """The sharded axis of an optimizer-state entry (``mu/<path>``...;
+        None for the counters and for keys of no trained leaf)."""
+        part, _, path = key.partition("/")
+        return self._axes.get(path) if part in ("mu", "nu", "acc") else None
+
     def resume(self, ckpt_path: str) -> None:
+        """Load a checkpoint of whole tensors (either package's, written at
+        any tensor parallel) and keep this rank's shards of it."""
         tree, lora_cfg, step, opt_flat = ckpt_lib.load_checkpoint(ckpt_path)
         if self.use_peft:
             self.lora_cfg = lora_cfg
@@ -351,22 +439,36 @@ class SimPOTrainer:
             if set(tree) != set(self.trainable):
                 raise ValueError(f"{ckpt_path} trains {sorted(tree)}, this "
                                  f"run {sorted(self.trainable)}")
+            if self.mesh is not None:
+                tree = mesh_lib.shard_tree(tree, self.mesh.model_rank, self.tp)
             ckpt_lib.assign_tree(self.trainable, tree)
         if opt_flat is not None:
+            if self.mesh is not None:
+                opt_flat = {k: mesh_lib.shard_leaf(
+                    v, self._state_axis(k), self.mesh, k)
+                    for k, v in opt_flat.items()}
             self.opt.load_state_dict(opt_flat)
         self.global_step = step
         print(f"# Resumed from {ckpt_path} at step {step}.")
 
     def save(self) -> Optional[str]:
         """Rank 0 writes the checkpoint and returns its path (the other
-        ranks None); every rank leaves after a barrier, so none reads a
-        step directory before it exists."""
+        ranks None); under tensor parallel the model group of data index 0
+        first gathers the trained tree and the optimizer state to whole
+        tensors.  Every rank leaves after a barrier, so none reads a step
+        directory before it exists."""
         path = None
+        tree, opt = self.trainable, self.opt.state_dict()
+        if self.mesh is not None and self.data_index == 0:
+            whole = iter([mesh_lib.gather_model(t, self._axes[p])
+                          for p, t in leaves(tree)])
+            tree = map_tree(tree, lambda *_: next(whole))
+            opt = {k: mesh_lib.gather_model(v, self._state_axis(k))
+                   for k, v in opt.items()}
         if self.is_main:
             path = ckpt_lib.save_checkpoint(
-                self.log_dir, self.global_step, self.trainable, self.lora_cfg,
-                opt_state=self.opt.state_dict(),
-                mode="lora" if self.use_peft else "full")
+                self.log_dir, self.global_step, tree, self.lora_cfg,
+                opt_state=opt, mode="lora" if self.use_peft else "full")
             print(f"# Saved checkpoint: {path}")
         if self.grouped:
             dist.barrier(group=object_group())
@@ -382,28 +484,28 @@ class SimPOTrainer:
         first_update_s = None
         first_update_samples = 0
         # dropout seeds fold in the MICRO-batch index, so accumulation
-        # micro-batches draw different masks, and in a world of several
-        # processes the rank, so ranks draw independent masks
+        # micro-batches draw different masks, and under data parallel the
+        # data index, so data indices draw independent masks
         micro = self.global_step * self.grad_accum
         for epoch in range(max_epochs):
             if self.global_step >= self.max_steps:
                 break
             for batch_items, batch in prefetch_iter(dataset.iter_batches(
                     batch_size, shuffle=True, seed=self.seed + epoch,
-                    part=(self.rank, self.n_proc)), self.collate):
+                    part=(self.data_index, self.dp)), self.collate):
                 if self.global_step >= self.max_steps:
                     break
                 if micro % self.grad_accum == 0:  # an update's first micro-batch
                     t_step = time.time()
                 seed = llama_lib.fold_seed(self.seed, micro)
-                if self.n_proc > 1:
-                    seed = llama_lib.fold_seed(seed, self.rank)
+                if self.dp > 1:
+                    seed = llama_lib.fold_seed(seed, self.data_index)
                 metrics = self._step(
                     batch["text_ids"], batch["text_mask"],
                     batch["chosen_pixels"], batch["rejected_pixels"],
                     dropout_seed=seed)
                 micro += 1
-                samples += len(batch_items) * self.n_proc  # global rows
+                samples += len(batch_items) * self.dp  # global rows
                 if micro % self.grad_accum:
                     continue  # accumulation micro-batch — no update yet
                 self.global_step += 1

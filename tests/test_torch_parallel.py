@@ -47,10 +47,13 @@ def _env():
     return env
 
 
-def _launch(nproc: int, *args: str, timeout: float = 240) -> str:
-    proc = subprocess.Popen(["bash", LAUNCHER, str(nproc), *args], env=_env(),
+def _start(nproc: int, *args: str) -> subprocess.Popen:
+    return subprocess.Popen(["bash", LAUNCHER, str(nproc), *args], env=_env(),
                             cwd=REPO, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def _wait(proc: subprocess.Popen, timeout: float = 240) -> str:
     try:
         out, _ = proc.communicate(timeout=timeout)
     finally:
@@ -59,6 +62,10 @@ def _launch(nproc: int, *args: str, timeout: float = 240) -> str:
     out = out.decode()
     assert proc.returncode == 0, out[-6000:]
     return out
+
+
+def _launch(nproc: int, *args: str, timeout: float = 240) -> str:
+    return _wait(_start(nproc, *args), timeout)
 
 
 def _model(cfg, mode="", seed=0):
@@ -337,7 +344,9 @@ def test_step3_world_of_four(tmp_path):
 
 def test_parallel_layout_rules(monkeypatch):
     """``data_parallel`` x ``tensor_parallel`` must equal the processes the
-    mesh spans; step 5 refuses tensor parallel, naming the ROADMAP item."""
+    mesh spans, in the factory and in step 5's trainer; the trainer accepts
+    tp = 2 on a model sharded over model groups of 2, and keeps this rank's
+    shard of the whole adapter tree."""
     from ospo_tpu_torch.pipeline import model_factory
     from ospo_tpu_torch.train import trainer as trainer_mod
 
@@ -349,10 +358,359 @@ def test_parallel_layout_rules(monkeypatch):
                  {"data_parallel": 4}):
         with pytest.raises(ValueError, match="run_multihost_torch.sh"):
             model_factory._reject_unported({**base, **over})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md .*item 4b"):
-        trainer_mod.refuse_tensor_parallel(2)
+
     model = _model(tjanus.tiny_janus_config())
-    with pytest.raises(NotImplementedError, match="tensor_parallel"):
+    lora = {"lora_rank": 4, "lora_alpha": 8}
+    monkeypatch.setattr(trainer_mod, "process_count", lambda: 4)
+    for over in ({"data_parallel": 1}, {"data_parallel": 4},
+                 {"tensor_parallel": 3}):
+        with pytest.raises(ValueError, match="must equal the 4 training"):
+            trainer_mod.SimPOTrainer(
+                {"model": {"tensor_parallel": 2, **over}, "device": "cpu",
+                 "lora": lora}, model, None)
+    # dp x tp = world, but the model is whole
+    with pytest.raises(ValueError, match="not sharded"):
         trainer_mod.SimPOTrainer(
-            {"model": {"tensor_parallel": 2}, "device": "cpu",
-             "lora": {"lora_rank": 4, "lora_alpha": 8}}, model, None)
+            {"model": {"tensor_parallel": 2}, "device": "cpu", "lora": lora},
+            model, None)
+    # model rank 1 of data index 1 in a world of four: this rank's shard of
+    # the model and of the adapters
+    mesh = tmesh.Mesh(data=2, model=2, rank=3)
+    monkeypatch.setattr(tmesh, "_CURRENT", mesh)
+    monkeypatch.setattr(trainer_mod, "process_index", lambda: 3)
+    model.params = tmesh.shard_janus_params(model.params, mesh)
+    for dp in (0, 2):
+        t = trainer_mod.SimPOTrainer(
+            {"model": {"tensor_parallel": 2, "data_parallel": dp},
+             "device": "cpu", "lora": lora}, model, None)
+        assert (t.tp, t.dp, t.data_index, t.is_main) == (2, 2, 1, False)
+        whole = trainer_mod.lora_lib.init_lora(model.cfg.language, t.lora_cfg,
+                                               t.seed)
+        q, o = t.trainable["q_proj"], t.trainable["o_proj"]
+        assert torch.equal(q["a"].detach(), whole["q_proj"]["a"])
+        assert torch.equal(q["b"].detach(), whole["q_proj"]["b"][..., 32:])
+        assert torch.equal(o["a"].detach(), whole["o_proj"]["a"][:, 32:])
+        assert torch.equal(o["b"].detach(), whole["o_proj"]["b"])
+        assert sorted(t._partial) == sorted(
+            [f"{n}/a" for n in ("q_proj", "k_proj", "v_proj", "gate_proj",
+                                "up_proj")] + ["o_proj/b", "down_proj/b"])
+
+
+# ---------------------------------------------------------------------------
+# step 5 under tensor parallel (tests/test_multichip.py:40 and :248)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tp_train(tmp_path_factory):
+    """Two processes run ``torch_tp_worker.run_train_cases`` at tp = 2 while
+    this one runs them on the whole model, and the JAX package's unsharded
+    LoRA and full-fine-tune steps run on the same weights, adapters (B
+    non-zero) and batch (``tests/test_torch_train.py``'s helpers)."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    import test_torch_train as tt
+    import torch_tp_worker as worker
+    from ospo_tpu.train import checkpoint as jckpt
+    from ospo_tpu.train import lora as jlora
+    from ospo_tpu_torch.models import llama as tllama
+
+    work = str(tmp_path_factory.mktemp("tp_train"))
+    jl = tt._jax_lora_step(tmp_path_factory.mktemp("jl"))
+    jf = tt._jax_full_step(tmp_path_factory.mktemp("jf"))
+    resume = tt._np_lora(tllama.tiny_config(), 4, 18)
+    jtree = jax.tree.map(jnp.asarray, resume)
+    jpath = jckpt.save_checkpoint(
+        os.path.join(work, "jax"), 3, jtree,
+        jlora.LoraConfig(rank=4, alpha=8, dropout=0.0),
+        opt_state=optax.adamw(1e-3).init(jtree))
+    inp = {"lora_conf": tt._trainer_config(work, "flash"),
+           "full_conf": tt._full_config(work, "flash", {"gen_head": False}),
+           "lora_params": jl["params"], "full_params": jf["params"],
+           "lora": jl["lora"], "batch": tt._batch(), "batch2": tt._batch(16),
+           "jax_ckpt": jpath}
+    torch.save(inp, os.path.join(work, "train.pt"))
+    proc = _start(2, "torch_tp_worker", work, "train")
+    try:
+        one = worker.run_train_cases(inp, os.path.join(work, "one"))
+    finally:
+        out = _wait(proc)
+    assert out.count("# tp train worker") == 2
+    tp = [torch.load(os.path.join(work, f"train_out{r}.pt"), weights_only=False)
+          for r in range(2)]
+    return {"tp": tp, "one": one, "jax_lora": jl, "jax_full": jf,
+            "resume": resume}
+
+
+def _rel(got: dict, ref: dict) -> float:
+    """The worst leaf's max|got − ref| / max|ref| over ``ref``'s paths."""
+    assert set(got) == set(ref), sorted(set(got) ^ set(ref))
+    return max(float(np.abs(np.asarray(got[k], np.float64) - ref[k]).max())
+               / max(float(np.abs(ref[k]).max()), 1e-30) for k in ref)
+
+
+def _jax_flat(tree) -> dict:
+    from ospo_tpu_torch.train.optim import leaves
+
+    return {p: np.asarray(x, np.float64) for p, x in leaves(tree)}
+
+
+@pytest.mark.parametrize("case", ["lora", "lora_dropout"])
+def test_tp_lora_step_matches_one_process_and_jax(tp_train, case):
+    """A LoRA micro-batch at tp = 2 (B non-zero, so every A has a
+    gradient; the column-parallel A and row-parallel B are summed over the
+    model group): the loss and ``grad_norm`` within 1e-5 relative and every
+    gathered gradient leaf within 1e-5 max|ref| of one process — with
+    dropout too (a row-parallel adapter takes its columns of the row's
+    mask) — and, without dropout, of the JAX package's unsharded
+    ``SimPOTrainer._step`` (``tests/test_multichip.py:248``)."""
+    refs = [tp_train["one"][case]]
+    if case == "lora":
+        jm = tp_train["jax_lora"]["metrics"]
+        refs.append((jm["loss"], jm["grad_norm"],
+                     _jax_flat(tp_train["jax_lora"]["grads"])))
+    for rank, out in enumerate(tp_train["tp"]):
+        loss, norm, grads = out[case]
+        for ref_loss, ref_norm, ref_grads in refs:
+            np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
+            np.testing.assert_allclose(norm, ref_norm, rtol=1e-5)
+            err = _rel(grads, ref_grads)
+            assert err <= 1e-5, (rank, err)
+
+
+def test_tp_full_finetune_step_matches_one_process_and_jax(tp_train):
+    """A full fine-tune step at tp = 2 (the language model and the gen head
+    trained on their shards, moments per shard): the loss within 1e-5 and
+    the updated ``language_model.layers.wq``, gathered, within 2e-5 of one
+    process and of the JAX package's unsharded step
+    (``tests/test_multichip.py:40``)."""
+    jax_full = tp_train["jax_full"]
+    jax_wq = np.asarray(jax_full["updated"]["language_model"]["layers"]["wq"])
+    for out in tp_train["tp"]:
+        for loss, wq in ((tp_train["one"]["full_metrics"]["loss"],
+                          tp_train["one"]["full_wq"]),
+                         (jax_full["metrics"]["loss"], jax_wq)):
+            np.testing.assert_allclose(out["full_metrics"]["loss"], loss,
+                                       atol=1e-5, rtol=1e-5)
+            np.testing.assert_allclose(out["full_wq"], wq, atol=2e-5,
+                                       rtol=2e-5)
+        np.testing.assert_allclose(out["full_metrics"]["grad_norm"],
+                                   jax_full["metrics"]["grad_norm"], rtol=1e-5)
+
+
+def _replicated(out: dict, one: dict) -> list:
+    """The paths of ``out``'s leaves that are whole (replicated), by their
+    shape against one process's."""
+    return [p for p, t in out.items() if t.shape == one[p].shape]
+
+
+@pytest.mark.parametrize("mode", ["lora", "full"])
+def test_tp_replicas_stay_bit_equal(tp_train, mode):
+    """After two steps, every replicated leaf — the column-parallel A and
+    row-parallel B; in full fine-tune the norms and ``gen_head.proj`` — and
+    its moments are bit-equal on both ranks, and every other leaf is a
+    half."""
+    one = tp_train["one"][f"{mode}_local"]
+    r0, r1 = (out[f"{mode}_local"] for out in tp_train["tp"])
+    rep = _replicated(r0["trained"], one["trained"])
+    assert rep and len(rep) < len(one["trained"])
+    if mode == "lora":
+        assert sorted(rep) == sorted(
+            [f"{n}/a" for n in ("q_proj", "k_proj", "v_proj", "gate_proj",
+                                "up_proj")] + ["o_proj/b", "down_proj/b"])
+    else:
+        assert {"language_model/layers/attn_norm", "language_model/final_norm",
+                "gen_head/proj/w"} <= set(rep)
+    for p, t in r0["trained"].items():
+        if p in rep:
+            assert torch.equal(t, r1["trained"][p]), p
+            for part in ("mu", "nu"):
+                k = f"{part}/{p}"
+                assert torch.equal(r0["opt"][k], r1["opt"][k]), k
+        else:
+            assert 2 * t.numel() == one["trained"][p].numel(), p
+
+
+def _joined(ranks: list, one: dict) -> dict:
+    """Each leaf of the ranks' local trees joined whole: a replicated one
+    as rank 0 holds it, a half concatenated on the axis it was cut."""
+    out = {}
+    for p, ref in one.items():
+        a, b = (r[p] for r in ranks)
+        if a.shape == ref.shape:
+            out[p] = a
+            continue
+        axis = next(i for i, (x, y) in enumerate(zip(a.shape, ref.shape))
+                    if x != y)
+        out[p] = torch.cat([a, b], dim=axis)
+    return out
+
+
+@pytest.mark.parametrize("mode", ["int8", "w8a8"])
+def test_tp_quantized_trunk_step(tp_train, mode):
+    """``quantize_base`` on a tp = 2 shard: every rank's int8 payloads and
+    scales are its shard of the whole trunk's (a row-parallel row takes its
+    abs-max over the group, so its scale is the whole row's, replicated),
+    and a LoRA micro-batch on that trunk matches one process: the loss
+    within 1e-5 relative; int8 (fp32 backward) ``grad_norm`` within 1e-5
+    relative and the gradients within 1e-5·max|g|; w8a8 both within 2^-8,
+    one bf16 step, as ``test_torch_quant_modes.py::
+    test_w8a8_trunk_step_matches_jax`` holds the same step against JAX: its
+    straight-through backward rounds ``g · sa`` and each product to bf16,
+    and a rank's partial products round apart (2.3e-3–3.4e-3·max|g| here,
+    ``grad_norm`` 4.6e-4).  The whole trunk's payloads and scales are the
+    JAX package's ``quantize_matrix`` of the same weights, bit for bit."""
+    import jax.numpy as jnp
+
+    from ospo_tpu.ops import quant as jquant
+    from ospo_tpu_torch.parallel import mesh as tmesh
+
+    whole = tp_train["one"][f"{mode}_layers"]
+    scale = "s" if mode == "int8" else "sa"
+    jlayers = tp_train["jax_lora"]["params"]["language_model"]["layers"]
+    for name, w in whole.items():
+        jq = jquant.quantize_matrix(jnp.asarray(jlayers[name]))
+        np.testing.assert_array_equal(w["q"].numpy(), np.asarray(jq["q"]))
+        np.testing.assert_array_equal(w[scale].numpy(), np.asarray(jq["s"]))
+    specs = tmesh.janus_param_specs(
+        {"language_model": {"layers": whole}})["language_model"]["layers"]
+    for name in ("wo", "w_down"):
+        assert specs[name][scale] is None
+    tol = 1e-5 if mode == "int8" else 2 ** -8
+    for rank, out in enumerate(tp_train["tp"]):
+        mesh = tmesh.Mesh(data=1, model=2, rank=rank)
+        for name, w in out[f"{mode}_layers"].items():
+            for k, t in w.items():
+                want = tmesh.shard_leaf(whole[name][k], specs[name][k], mesh)
+                assert torch.equal(t, want), (rank, name, k)
+        loss, norm, grads = out[mode]
+        ref_loss, ref_norm, ref_grads = tp_train["one"][mode]
+        np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
+        np.testing.assert_allclose(norm, ref_norm, rtol=tol)
+        assert _rel(grads, ref_grads) <= tol
+
+
+def test_tp_checkpoints_both_ways(tp_train):
+    """A checkpoint written at tp = 2 holds whole tensors: the adapters and
+    their moments equal the ranks' shards joined, and read so in
+    ``ospo_tpu.train.checkpoint.load_checkpoint`` and in one port process
+    (``resume``); a full fine-tune's ``language_model`` too.  A JAX LoRA
+    checkpoint resumes at tp = 2 to its adapters and step."""
+    from ospo_tpu.train import checkpoint as jckpt
+    from ospo_tpu_torch.train import checkpoint as tckpt
+
+    tp, one = tp_train["tp"], tp_train["one"]
+    assert tp[1]["lora_ckpt"] is None and tp[1]["full_ckpt"] is None
+    for mode in ("lora", "full"):
+        path = tp[0][f"{mode}_ckpt"]
+        ranks = [out[f"{mode}_local"] for out in tp]
+        trained = _joined([r["trained"] for r in ranks],
+                          one[f"{mode}_local"]["trained"])
+        opt = _joined([r["opt"] for r in ranks], one[f"{mode}_local"]["opt"])
+        tree, _, step, opt_flat = tckpt.load_checkpoint(path)
+        assert step == 2
+        got = {p: torch.as_tensor(np.asarray(t)) for p, t in
+               __import__("ospo_tpu_torch.train.optim", fromlist=["leaves"])
+               .leaves(tree)}
+        assert set(got) == set(trained)
+        for p, t in trained.items():
+            assert torch.equal(got[p], t), (mode, p)
+        for k, t in opt.items():
+            assert torch.equal(torch.as_tensor(opt_flat[k]), t), (mode, k)
+        if mode == "lora":
+            jtree, jcfg, jstep, _ = jckpt.load_checkpoint(path)
+            assert jstep == 2 and jcfg.rank == 4
+            for p, x in _jax_flat(jtree).items():
+                np.testing.assert_array_equal(x, trained[p].numpy())
+            np.testing.assert_array_equal(  # the run's adapters, gathered
+                trained["q_proj/a"].numpy(), tp[0]["lora_after"]["q_proj/a"])
+    for out in tp:
+        assert out["resumed_step"] == 3
+        for p, x in _jax_flat(tp_train["resume"]).items():
+            np.testing.assert_array_equal(out["resumed"][p], x)
+
+
+def test_tp_checkpoint_resumes_in_one_process(tp_train, tmp_path):
+    """The tp = 2 LoRA checkpoint resumed by a one-process port trainer
+    gives its adapters and moments the joined shards, bit for bit."""
+    import test_torch_train as tt
+    from ospo_tpu_torch.config import Config
+    from ospo_tpu_torch.train.optim import leaves
+    from ospo_tpu_torch.train.trainer import SimPOTrainer
+
+    ranks = [out["lora_local"] for out in tp_train["tp"]]
+    one = tp_train["one"]["lora_local"]
+    trained = _joined([r["trained"] for r in ranks], one["trained"])
+    opt = _joined([r["opt"] for r in ranks], one["opt"])
+    trainer = SimPOTrainer(
+        Config.from_nested(tt._trainer_config(tmp_path, "flash")),
+        tt._port_model(tp_train["jax_lora"]["params"]), tt._port_processor())
+    trainer.resume(tp_train["tp"][0]["lora_ckpt"])
+    assert trainer.global_step == 2
+    for p, t in leaves(trainer.trainable):
+        assert torch.equal(t.detach(), trained[p]), p
+    state = trainer.opt.state_dict()
+    for k, t in opt.items():
+        assert torch.equal(torch.as_tensor(state[k]), t), k
+
+
+def test_step5_main_tensor_parallel_matches_one_process(tmp_path):
+    """``python -m ospo_tpu_torch.pipeline.step5`` under
+    ``run_multihost_torch.sh`` with ``model.tensor_parallel=2`` (a world of
+    two) and with ``data_parallel=2`` as well (a world of four), against
+    ``step5.main`` in one process: tiny random init, LoRA rank 4 from the
+    seed's adapters, remat and the flash path, 3 steps of a global batch of
+    2 (one row a data index at dp 2).  The final adapters agree within the
+    data-parallel test's tolerance (atol 1e-5, rtol 1e-4), so do the logged
+    loss and ``grad_norm``; rank 0 alone writes the checkpoint and the
+    scalars."""
+    from test_torch_distributed import _write_step5_data
+
+    from ospo_tpu_torch.config import build_config
+    from ospo_tpu_torch.pipeline import step5
+
+    data = _write_step5_data(tmp_path)
+    common = ["--cfg_path", os.path.join(REPO, "configs", "step5.yaml"),
+              "model.model_path=null", "model.model_preset=tiny", "device=cpu",
+              f"dataset.train.data_path={data}",
+              f"image_root={tmp_path / 'step3'}",
+              "experiment.max_training_steps=3", "experiment.max_epochs=2",
+              "experiment.log_steps=1", "experiment.save_steps=null",
+              "experiment.attn_impl=flash", "dataset.train.batch_size=2",
+              "lora.lora_rank=4", "lora.lora_alpha=8", "lora.lora_dropout=0",
+              "optimizer.init_lr=1e-3"]
+    runs = {"tp2": (2, ["model.tensor_parallel=2"]),
+            "w4": (4, ["model.tensor_parallel=2", "model.data_parallel=2"])}
+    procs = {k: _start(n, "ospo_tpu_torch.pipeline.step5", *common, *extra,
+                       f"base.save_path={tmp_path / k}")
+             for k, (n, extra) in runs.items()}
+    try:
+        step5.main(build_config(common[1], overrides=common[2:] + [
+            f"base.save_path={tmp_path / 'one'}"], use_cli=False))
+    finally:
+        outs = {k: _wait(p) for k, p in procs.items()}
+    ref = np.load(tmp_path / "one" / "ospo" / "step_000003" / "lora.npz")
+    ref_log = [json.loads(x) for x in (tmp_path / "one" / "ospo" /
+                                       "scalars.jsonl").read_text().split("\n")
+               if x]
+    for name, (n, _) in runs.items():
+        out = outs[name]
+        assert out.count("# Saved checkpoint:") == 1, out[-3000:]
+        for rank in range(n):
+            assert f"# step5 process {rank}/{n}" in out
+        got = np.load(tmp_path / name / "ospo" / "step_000003" / "lora.npz")
+        assert sorted(got.files) == sorted(ref.files)
+        for k in ref.files:
+            assert got[k].shape == ref[k].shape, (name, k)
+            np.testing.assert_allclose(got[k], ref[k], atol=1e-5, rtol=1e-4,
+                                       err_msg=f"{name}: {k}")
+        log = [json.loads(x) for x in (tmp_path / name / "ospo" /
+                                       "scalars.jsonl").read_text().split("\n")
+               if x]
+        assert [x["step"] for x in log] == [1, 2, 3]
+        for a, b in zip(log, ref_log):
+            for k in ("train/loss", "train/grad_norm"):
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-4, atol=1e-6,
+                                           err_msg=f"{name}: {k}")

@@ -322,14 +322,14 @@ class _Fp32Ste(torch.autograd.Function):
     """The port's counterpart of :func:`_fp32_ste_jax`."""
 
     @staticmethod
-    def forward(ctx, x, q, sa):
+    def forward(ctx, x, q, sa, amax_reduce=None):
         ctx.save_for_backward(q, sa)
-        return tquant._w8a8_raw(x, q, sa)
+        return tquant._w8a8_raw(x, q, sa, amax_reduce)
 
     @staticmethod
     def backward(ctx, g):
         q, sa = ctx.saved_tensors
-        return ((g.float() * sa) @ q.float()).to(g.dtype), None, None
+        return ((g.float() * sa) @ q.float()).to(g.dtype), None, None, None
 
 
 def _dequantized_jax(x, q, sa):
@@ -337,7 +337,7 @@ def _dequantized_jax(x, q, sa):
     return jnp.einsum("btd,fd->btf", x.astype(jnp.float32), w).astype(x.dtype)
 
 
-def _dequantized_torch(x, q, sa):
+def _dequantized_torch(x, q, sa, amax_reduce=None):
     return (x.float() @ (q.float() * sa[:, None]).T).to(x.dtype)
 
 

@@ -852,8 +852,7 @@ def test_full_finetune_trainable_keys_match_jax(tmp_path, freeze):
         assert all(t.requires_grad for _, t in toptim.leaves(tt.trainable[k]))
 
 
-@pytest.fixture(scope="module")
-def jax_full_step(tmp_path_factory):
+def _jax_full_step(tmp):
     """One full-mode ``SimPOTrainer._step`` of the JAX package (the language
     model and the gen head trained, XLA attention, remat): the metrics, the
     exact gradients (captured from the update chain) and the trained
@@ -866,7 +865,7 @@ def jax_full_step(tmp_path_factory):
     jproc = JProcessor(JByteTokenizer(512), JImageProcessor(image_size=32),
                        num_image_tokens=cfg.num_image_tokens)
     trainer = JTrainer(JConfig.from_nested(_full_config(
-        tmp_path_factory.mktemp("jf"), "xla", {"gen_head": False})),
+        tmp, "xla", {"gen_head": False})),
         jjanus.JanusModel(cfg, jax.tree.map(jnp.asarray, params)), jproc)
     captured = {}
 
@@ -886,6 +885,11 @@ def jax_full_step(tmp_path_factory):
     return {"params": params, "grads": grads,
             "updated": jax.tree.map(np.asarray, optax.apply_updates(jt, upd)),
             "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+@pytest.fixture(scope="module")
+def jax_full_step(tmp_path_factory):
+    return _jax_full_step(tmp_path_factory.mktemp("jf"))
 
 
 @pytest.mark.parametrize("attn_impl", ["flash", "xla"])

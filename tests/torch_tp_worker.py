@@ -1,6 +1,6 @@
 """Cases of ``tests/test_torch_parallel.py`` and their worker, started once a
-process by ``scripts/run_multihost_torch.sh 2 torch_tp_worker <workdir>``
-(``tests/`` on ``PYTHONPATH``).  It imports only the port.
+process by ``scripts/run_multihost_torch.sh 2 torch_tp_worker <workdir>
+[train]`` (``tests/`` on ``PYTHONPATH``).  It imports only the port.
 
 The test writes two trees into ``<workdir>`` with ``torch.save``:
 ``llama.pt`` (a tiny Llama trunk) and ``janus.pt`` (a Janus model at the
@@ -11,6 +11,11 @@ its shards of the two trees under the mesh that made.  Model rank 0 saves
 the results as ``<workdir>/tp_out.pt``; each rank writes its shapes to
 ``shapes<rank>.json``.  The test runs :func:`run_cases` on the whole trees
 in its own process and compares.
+
+With ``train``, each rank instead runs :func:`run_train_cases` (step 5's
+trainer at tp = 2) on the inputs the test wrote to ``<workdir>/train.pt``
+and saves what it read as ``<workdir>/train_out<rank>.pt``; the test runs
+the same cases in one process.
 """
 
 import dataclasses
@@ -118,6 +123,112 @@ def run_cases(llama_params, janus_params, shard=lambda p: p) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# step 5 under tensor parallel
+# ---------------------------------------------------------------------------
+
+
+def _whole(trainer, tree) -> dict:
+    """``{path: numpy}`` of a trained tree (or a gradient tree like it),
+    each leaf gathered whole over the model group (a collective)."""
+    from ospo_tpu_torch.parallel import mesh as mesh_lib
+    from ospo_tpu_torch.train.optim import leaves
+
+    if trainer.mesh is None:
+        return {p: t.detach().clone().numpy() for p, t in leaves(tree)}
+    return {p: mesh_lib.gather_model(t, trainer._axes[p]).numpy()
+            for p, t in leaves(tree)}
+
+
+def _local(trainer) -> dict:
+    """This rank's own leaves of the trained tree and of the optimizer
+    state, as they are (shards and replicas)."""
+    from ospo_tpu_torch.train.optim import leaves
+
+    return {"trained": {p: t.detach().clone()
+                        for p, t in leaves(trainer.trainable)},
+            "opt": {k: v.clone() for k, v in trainer.opt.state_dict().items()}}
+
+
+def run_train_cases(inp: dict, root: str, tp: int = 1,
+                    shard=lambda p: p) -> dict:
+    """Step 5's trainer on the tiny Janus at ``tp`` (the model cut by
+    ``shard``; one process at 1) → results by name.  ``inp`` holds the
+    configs (``lora_conf``, ``full_conf``), JAX-layout weights
+    (``lora_params``, ``full_params``), a LoRA tree with non-zero B
+    (``lora``), two batches and a JAX LoRA checkpoint (``jax_ckpt``); each
+    trainer writes under ``root``."""
+    import copy
+
+    from ospo_tpu_torch.config import Config
+    from ospo_tpu_torch.models.weights import from_jax_params
+    from ospo_tpu_torch.ops.quant import QUANTIZABLE
+    from ospo_tpu_torch.train.trainer import SimPOTrainer
+
+    cfg = janus_lib.tiny_janus_config()
+    proc = processor(cfg)
+    batch, batch2 = inp["batch"], inp["batch2"]
+
+    def trainer(conf, params, name, **exp):
+        conf = copy.deepcopy(conf)
+        conf["model"] = {"tensor_parallel": tp}
+        conf["base"]["save_path"] = os.path.join(root, name)
+        conf["experiment"].update(exp)
+        model = janus_lib.JanusModel(cfg, shard(from_jax_params(params)),
+                                     torch.device("cpu"))
+        return SimPOTrainer(Config.from_nested(conf), model, proc)
+
+    def micro(t, seed=None, b=batch):
+        """One micro-batch: loss, grad_norm and the whole gradient."""
+        _, m, g = t.loss_and_grads(*b, dropout_seed=seed)
+        g = t._reduce_grads(g)
+        return float(m["loss"]), float(t._global_norm(g)), _whole(t, g)
+
+    out = {}
+    # LoRA, B non-zero: one micro-batch, without and with dropout
+    t = trainer(inp["lora_conf"], inp["lora_params"], "lora")
+    t._set_trainable(inp["lora"])
+    out["lora"] = micro(t)
+    t.lora_cfg = dataclasses.replace(t.lora_cfg, dropout=0.1)
+    out["lora_dropout"] = micro(t, seed=5)
+    t.lora_cfg = dataclasses.replace(t.lora_cfg, dropout=0.0)
+    # two optimizer steps, then a checkpoint
+    out["lora_metrics"] = [{k: float(v) for k, v in t._step(*b).items()}
+                           for b in (batch, batch2)]
+    out["lora_after"] = _whole(t, t.trainable)
+    t.global_step = 2
+    out["lora_ckpt"] = t.save()
+    out["lora_local"] = _local(t)
+
+    # full fine-tune (the language model and the gen head): one step,
+    # then a second and a checkpoint
+    t = trainer(inp["full_conf"], inp["full_params"], "full")
+    out["full_metrics"] = {k: float(v) for k, v in t._step(*batch).items()}
+    out["full_wq"] = _whole(t, t.trainable)["language_model/layers/wq"]
+    t._step(*batch2)
+    t.global_step = 2
+    out["full_ckpt"] = t.save()
+    out["full_local"] = _local(t)
+
+    # the int8 and w8a8 trunks: this rank's quantized shards and one
+    # micro-batch
+    for mode in ("int8", "w8a8"):
+        t = trainer(inp["lora_conf"], inp["lora_params"], mode,
+                    quantize_base=mode)
+        t._set_trainable(inp["lora"])
+        layers = t.model.params["language_model"]["layers"]
+        out[f"{mode}_layers"] = {n: {k: v.clone() for k, v in layers[n].items()}
+                                 for n in QUANTIZABLE}
+        out[mode] = micro(t)
+
+    # a JAX checkpoint resumed
+    t = trainer(inp["lora_conf"], inp["lora_params"], "resumed")
+    t.resume(inp["jax_ckpt"])
+    out["resumed"] = _whole(t, t.trainable)
+    out["resumed_step"] = t.global_step
+    return out
+
+
 def main() -> None:
     from ospo_tpu_torch import io as io_lib
     from ospo_tpu_torch.parallel import mesh as mesh_lib
@@ -128,6 +239,14 @@ def main() -> None:
     torch.set_num_threads(1)
     maybe_init_distributed("cpu")
     rank = io_lib.process_index()
+    if sys.argv[2:] == ["train"]:
+        mesh = mesh_lib.create_mesh(2)
+        out = run_train_cases(
+            torch.load(os.path.join(workdir, "train.pt"), weights_only=False),
+            workdir, 2, lambda p: mesh_lib.shard_janus_params(p, mesh))
+        torch.save(out, os.path.join(workdir, f"train_out{rank}.pt"))
+        print(f"# tp train worker {rank} done", flush=True)
+        return
     model, _, _ = get_model({"model_preset": "tiny", "device": "cpu",
                              "quantize": "int8", "tensor_parallel": 2})
     mesh = mesh_lib.current_mesh()
