@@ -39,6 +39,7 @@ from ospo_tpu_torch.ops.quant import parse_kv_quant
 from ospo_tpu_torch.ops.sampling import sample_categorical
 from ospo_tpu_torch.parallel import mesh as mesh_lib
 from ospo_tpu_torch.processing import Processor, t2i_prompt
+from ospo_tpu_torch.utils.profiling import span
 
 
 def _bucket(n: int, step: int = 64) -> int:
@@ -140,7 +141,9 @@ class ImageGenEngine:
         step, prompt_len) → (emit, embeds, pos)`` defines what each step
         emits and feeds next; emits are stacked on axis 1.  On the kernel's
         cache every step reads the whole window; on a plain read each
-        segment's window covers the rows it writes (64-aligned)."""
+        segment's window covers the rows it writes (64-aligned).  Spans:
+        ``image.prefill``, each cached step's ``image.trunk`` and each
+        ``step_fn``'s ``image.sample``."""
         params, cfg = self.model.params, self.model.cfg
         two_b, t_prompt = tokens.shape
         n_img = self.image_token_num
@@ -148,26 +151,28 @@ class ImageGenEngine:
         if self.kernel_read:
             s_max = ((s_max + 63) // 64) * 64
 
-        kv = janus_lib.init_kv_cache(params, cfg, two_b, s_max,
-                                     quantized=self.kv_quant,
-                                     layout=self.kv_layout, device=self.device)
-        hidden, kv = janus_lib.language_forward(
-            params, cfg, janus_lib.embed_text(params, tokens), attn_mask,
-            llama.positions_from_mask(attn_mask), kv_cache=kv, self_attn=True)
-        prompt_len = attn_mask.sum(dim=-1)           # [2B] valid prompt tokens
+        with span("image.prefill"):
+            kv = janus_lib.init_kv_cache(params, cfg, two_b, s_max,
+                                         quantized=self.kv_quant,
+                                         layout=self.kv_layout, device=self.device)
+            hidden, kv = janus_lib.language_forward(
+                params, cfg, janus_lib.embed_text(params, tokens), attn_mask,
+                llama.positions_from_mask(attn_mask), kv_cache=kv, self_attn=True)
+            prompt_len = attn_mask.sum(dim=-1)           # [2B] valid prompt tokens
 
-        # mask over the whole cache: prompt part, all-ones image part
-        # (causality excludes rows not written yet), zero alignment pad
-        window_mask = torch.cat([
-            attn_mask,
-            torch.ones((two_b, n_img), dtype=torch.int32, device=self.device),
-            torch.zeros((two_b, s_max - t_prompt - n_img), dtype=torch.int32,
-                        device=self.device)], dim=-1).contiguous()
+            # mask over the whole cache: prompt part, all-ones image part
+            # (causality excludes rows not written yet), zero alignment pad
+            window_mask = torch.cat([
+                attn_mask,
+                torch.ones((two_b, n_img), dtype=torch.int32, device=self.device),
+                torch.zeros((two_b, s_max - t_prompt - n_img), dtype=torch.int32,
+                            device=self.device)], dim=-1).contiguous()
 
         hook = self.step_hook
         if hook:
             hook(0)
-        emit, embeds, pos = step_fn(hidden[:, -1], 0, prompt_len)
+        with span("image.sample"):
+            emit, embeds, pos = step_fn(hidden[:, -1], 0, prompt_len)
         outs = [emit]
         n_seg = min(self.decode_segments, max(1, (n_img - 1) // 64))
         start = 1
@@ -176,12 +181,14 @@ class ImageGenEngine:
             window = s_max if self.kernel_read else \
                 min(s_max, ((t_prompt + end + 63) // 64) * 64)
             for step in range(start, end):
-                hidden, kv = janus_lib.language_forward(
-                    params, cfg, embeds, window_mask[:, :window], pos,
-                    kv_cache=kv, attn_window=window)
+                with span("image.trunk"):
+                    hidden, kv = janus_lib.language_forward(
+                        params, cfg, embeds, window_mask[:, :window], pos,
+                        kv_cache=kv, attn_window=window)
                 if hook:
                     hook(step)
-                emit, embeds, pos = step_fn(hidden[:, -1], step, prompt_len)
+                with span("image.sample"):
+                    emit, embeds, pos = step_fn(hidden[:, -1], step, prompt_len)
                 outs.append(emit)
             start = end
         return torch.stack(outs, dim=1)
@@ -338,12 +345,13 @@ class ImageGenEngine:
     @torch.inference_mode()
     def _decode_tokens(self, gen_tokens: torch.Tensor) -> torch.Tensor:
         latent = self.img_size // self.patch_size
-        pixels = vqgan.decode_code(self.model.params["gen_vision_model"],
-                                   self.model.cfg.vq, gen_tokens,
-                                   latent_hw=(latent, latent))
-        # uint8 on the device (the reference's np.clip((dec+1)/2*255, 0,
-        # 255), image_generation.py:177); the cast truncates
-        return ((pixels.float() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
+        with span("image.vq_decode", device=True):
+            pixels = vqgan.decode_code(self.model.params["gen_vision_model"],
+                                       self.model.cfg.vq, gen_tokens,
+                                       latent_hw=(latent, latent))
+            # uint8 on the device (the reference's np.clip((dec+1)/2*255, 0,
+            # 255), image_generation.py:177); the cast truncates
+            return ((pixels.float() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
 
     # ------------------------------------------------------------------
     # public API

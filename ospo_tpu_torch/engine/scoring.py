@@ -47,6 +47,7 @@ from ospo_tpu_torch.ops import quant
 from ospo_tpu_torch.ops.pixels import normalize_pixels
 from ospo_tpu_torch.parallel import mesh as mesh_lib
 from ospo_tpu_torch.processing import Processor
+from ospo_tpu_torch.utils.profiling import span
 
 # per-image cache rows × images one shared-program slice may hold: the JAX
 # package's calibration for its int8 prefix cache, halved for bf16
@@ -359,22 +360,31 @@ class ScoringEngine:
     def _execute_shared_slice(self, operands, pre, q_counts: List[int]
                               ) -> List[Dict]:
         """One slice: the ViT, the pre-image and per-image prefills and the
-        suffixes (``scoring.py:164-283``); scores for every row."""
+        suffixes (``scoring.py:164-283``); scores for every row.  Spans:
+        ``scoring.upload``, ``.vit``, ``.prefill``, ``.suffix`` (question
+        rows run, Q_b·N, and used, the rows' own question counts) and
+        ``.readback``."""
         dev = self.device
-        ids, mask, pixels, seq_mask, emb_mask, sfx_ids, sfx_mask = (
-            torch.as_tensor(np.ascontiguousarray(x)).to(dev) for x in operands)
-        ids, sfx_ids = ids.long(), sfx_ids.long()
-        img_embeds = self._encode_images(pixels)
-        prefix, pre_len = None, 0
-        if pre is not None:
-            pre_len = int(pre[1].sum())
-            prefix = self._prefill_pre(torch.as_tensor(pre[0]).to(dev).long(),
-                                       torch.as_tensor(pre[1]).to(dev))
-        kv = self._prefill_images(ids, mask, img_embeds, seq_mask, emb_mask,
-                                  sfx_ids.shape[-1], prefix, pre_len)
-        prefix_len = pre_len + mask.sum(dim=-1, keepdim=True)
-        yn = self._suffix_probs(kv, mask, prefix_len, sfx_ids, sfx_mask,
-                                prefix).cpu().numpy()             # [Q_b, N, 2]
+        with span("scoring.upload"):
+            ids, mask, pixels, seq_mask, emb_mask, sfx_ids, sfx_mask = (
+                torch.as_tensor(np.ascontiguousarray(x)).to(dev) for x in operands)
+            ids, sfx_ids = ids.long(), sfx_ids.long()
+        with span("scoring.vit"):
+            img_embeds = self._encode_images(pixels)
+        with span("scoring.prefill"):
+            prefix, pre_len = None, 0
+            if pre is not None:
+                pre_len = int(pre[1].sum())
+                prefix = self._prefill_pre(torch.as_tensor(pre[0]).to(dev).long(),
+                                           torch.as_tensor(pre[1]).to(dev))
+            kv = self._prefill_images(ids, mask, img_embeds, seq_mask, emb_mask,
+                                      sfx_ids.shape[-1], prefix, pre_len)
+            prefix_len = pre_len + mask.sum(dim=-1, keepdim=True)
+        with span("scoring.suffix", rows_run=sfx_ids.shape[0] * sfx_ids.shape[1],
+                  rows_used=sum(q_counts)):
+            yn = self._suffix_probs(kv, mask, prefix_len, sfx_ids, sfx_mask, prefix)
+        with span("scoring.readback"):
+            yn = yn.cpu().numpy()                                  # [Q_b, N, 2]
         return [self._collect_scores(np.ascontiguousarray(yn[:q, i]), 1, q)[0]
                 for i, q in enumerate(q_counts)]
 

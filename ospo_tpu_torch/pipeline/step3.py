@@ -36,7 +36,7 @@ from ospo_tpu_torch.pipeline.model_factory import get_model
 from ospo_tpu_torch.platform import maybe_init_distributed
 from ospo_tpu_torch.processing import t2i_prompt
 from ospo_tpu_torch.utils.png import write_png
-from ospo_tpu_torch.utils.profiling import ThroughputMeter, print_process_summary
+from ospo_tpu_torch.utils.profiling import print_process_summary, span
 
 
 def save_images(images, paths: List[str]) -> None:
@@ -54,7 +54,6 @@ def run_step3(config, engine: ImageGenEngine, processor, data: List[dict]) -> di
     batch_size = int(config.batch_size or 4)
     seed_list = list(config.seed_list)
     done = failed_batches = n_batches = n_groups = n_images = n_written = 0
-    meter = ThroughputMeter()
     png_pool = ThreadPoolExecutor(max_workers=2)
     pending = []
     write_lock = threading.Lock()
@@ -95,20 +94,21 @@ def run_step3(config, engine: ImageGenEngine, processor, data: List[dict]) -> di
                     continue
                 # uint8 pixels stay on the device; a writer thread fetches
                 # them while the device decodes the next group
-                device_images = engine.generate_images_device(
-                    prompt_lists[idx], seed=seed_list[idx % 3])
                 n_real = len(path_lists[idx])
+                with span("step3.group", pairs=n_real) as group:
+                    device_images = engine.generate_images_device(
+                        prompt_lists[idx], seed=seed_list[idx % 3])
                 n_groups += 1
                 n_images += n_real
-                meter.update(n_real * engine.image_token_num)
                 if not writes:
                     continue
                 n_written += n_real
 
                 def fetch_and_save(dev=device_images, paths=path_lists[idx],
-                                   n=n_real):
+                                   n=n_real, group=group):
                     try:
-                        save_images(dev[:n].cpu().numpy(), paths)
+                        with span("step3.png_write", parent=group):
+                            save_images(dev[:n].cpu().numpy(), paths)
                         with write_lock:
                             writer_stats["ok"] += 1
                     except Exception as e:  # one group, not the stage
@@ -120,7 +120,8 @@ def run_step3(config, engine: ImageGenEngine, processor, data: List[dict]) -> di
                 pending.append(png_pool.submit(fetch_and_save))
                 # backpressure: each pending group pins its device images
                 if len(pending) >= 3:
-                    pending[-3].result()
+                    with span("step3.png_wait"):
+                        pending[-3].result()
         except Exception as e:  # per-batch fault tolerance (reference parity)
             if tensor_parallel:
                 raise
@@ -128,9 +129,11 @@ def run_step3(config, engine: ImageGenEngine, processor, data: List[dict]) -> di
             print(f"Error in step3 batch: {e}")
             traceback.print_exc()
         done += len(batch)
-        print(f"[step3] {done}/{len(data)} items ({meter.rate:.1f} img-tok/s)")
-    for fut in pending:  # join the writers (they trap their own errors)
-        fut.result()
+        rate = n_images * engine.image_token_num / (time.time() - t0)
+        print(f"[step3] {done}/{len(data)} items ({rate:.1f} img-tok/s)")
+    with span("step3.png_wait"):
+        for fut in pending:  # join the writers (they trap their own errors)
+            fut.result()
     png_pool.shutdown()
     seconds = time.time() - t0
     # a bad sample must not kill a long run, but a run where EVERY batch

@@ -34,6 +34,7 @@ from ospo_tpu_torch.pipeline.templates import get_vqa_conversation
 from ospo_tpu_torch.platform import maybe_init_distributed
 from ospo_tpu_torch.utils.png import read_png
 from ospo_tpu_torch.utils.prefetch import prefetch_iter
+from ospo_tpu_torch.utils.profiling import span
 
 GLOBAL_QUESTION = (
     "This image is generated by a prompt: {}. "
@@ -95,34 +96,36 @@ def item_image_jobs(config, sample: dict) -> List[dict]:
     return jobs
 
 
-def prepare_chunk(engine: ScoringEngine, jobs: List[dict]) -> dict:
+def prepare_chunk(engine: ScoringEngine, jobs: List[dict], unit=None) -> dict:
     """Host half of one chunk: PNG decode (a truncated or corrupt file costs
     its image, ``ospo_tpu/pipeline/step4.py:111-156``) and the engine's
     operand preparation.  Runs on the prefetch thread in
-    :func:`run_scoring`, overlapping the previous chunk's device work."""
-    images, bad = [], set()
-    for i, j in enumerate(jobs):
-        try:
-            images.append(read_png(j["path"]))
-        except Exception as e:
-            print(f"Error opening {j['path']}: {e}")
-            images.append(None)
-            bad.add(i)
-    if len(bad) < len(jobs):
-        filler = next(img for img in images if img is not None)
-        images = [img if img is not None else filler for img in images]
-    prep, prep_failed = None, False
-    if len(bad) < len(jobs) and not engine._shared_oom:
-        try:
-            prep = engine.prepare_shared_multi(
-                images, [j["questions"] for j in jobs])
-        except Exception as e:  # the shared path is doomed for this chunk
-            print(f"# chunk preparation failed ({e}); "
-                  f"falling back to unshared scoring")
-            traceback.print_exc()
-            prep_failed = True
-    return {"jobs": jobs, "images": images, "bad": bad, "prep": prep,
-            "prep_failed": prep_failed}
+    :func:`run_scoring`, overlapping the previous chunk's device work;
+    its span belongs to the chunk's ``unit`` span."""
+    with span("step4.prepare", parent=unit):
+        images, bad = [], set()
+        for i, j in enumerate(jobs):
+            try:
+                images.append(read_png(j["path"]))
+            except Exception as e:
+                print(f"Error opening {j['path']}: {e}")
+                images.append(None)
+                bad.add(i)
+        if len(bad) < len(jobs):
+            filler = next(img for img in images if img is not None)
+            images = [img if img is not None else filler for img in images]
+        prep, prep_failed = None, False
+        if len(bad) < len(jobs) and not engine._shared_oom:
+            try:
+                prep = engine.prepare_shared_multi(
+                    images, [j["questions"] for j in jobs])
+            except Exception as e:  # the shared path is doomed for this chunk
+                print(f"# chunk preparation failed ({e}); "
+                      f"falling back to unshared scoring")
+                traceback.print_exc()
+                prep_failed = True
+        return {"jobs": jobs, "images": images, "bad": bad, "prep": prep,
+                "prep_failed": prep_failed}
 
 
 def score_prepared_chunk(engine: ScoringEngine, chunk: dict) -> List[dict]:
@@ -197,9 +200,16 @@ def run_scoring(config, engine: ScoringEngine, data: List[dict]):
 
     scored: dict = {}
     by_cat: dict = {}
-    for ci, (_, pc) in enumerate(prefetch_iter(
-            (padded(c) for c in chunks), lambda c: prepare_chunk(engine, c))):
-        for job, scores in zip(chunks[ci], score_prepared_chunk(engine, pc)):
+    # one root span a chunk; its preparation on the prefetch thread joins it
+    units = [span("step4.chunk", images=len(c)) for c in chunks]
+    prepared = prefetch_iter(zip(units, (padded(c) for c in chunks)),
+                             lambda uc: prepare_chunk(engine, uc[1], unit=uc[0]))
+    for ci, unit in enumerate(units):
+        with unit:
+            with span("step4.prep_wait"):
+                _, pc = next(prepared)
+            results = score_prepared_chunk(engine, pc)
+        for job, scores in zip(chunks[ci], results):
             cat = by_cat.setdefault(job["category"], _new_category())
             cat["images"] += 1
             if scores is not None:
@@ -212,6 +222,7 @@ def run_scoring(config, engine: ScoringEngine, data: List[dict]):
         done = min((ci + 1) * rows, len(jobs))
         if ci % 5 == 4 or done == len(jobs):
             print(f"[step4b] {done}/{len(jobs)} images scored")
+    prepared.close()
 
     output = []
     for sample in data:

@@ -92,6 +92,7 @@ from ospo_tpu_torch.train import lora as lora_lib
 from ospo_tpu_torch.train.optim import AdamW, global_norm, leaves, make_schedule
 from ospo_tpu_torch.train.simpo import SimPOConfig, loss_and_metrics
 from ospo_tpu_torch.utils.prefetch import prefetch_iter
+from ospo_tpu_torch.utils.profiling import span
 
 
 def _bucket(n: int, step: int = 32) -> int:
@@ -315,7 +316,7 @@ class SimPOTrainer:
         text_ids = as_dev(text_ids).long()
         text_mask = as_dev(text_mask).float()
         b = text_ids.shape[0]
-        with torch.no_grad():
+        with span("train.vq_encode", device=True), torch.no_grad():
             pixels = torch.cat([as_dev(chosen_pixels), as_dev(rejected_pixels)])
             pixels = normalize_pixels(pixels, self.processor.image_processor)
             img_ids = vqgan.encode_to_ids(params["gen_vision_model"], cfg.vq,
@@ -323,30 +324,32 @@ class SimPOTrainer:
             # the labels of a model group are one rank's, whatever the
             # replicated encoders' last bits do
             img_ids = mesh_lib.broadcast_model(img_ids.contiguous())
-        text_embeds = janus_lib.embed_text(params, text_ids) * text_mask[..., None]
-        text_2b = torch.cat([text_embeds, text_embeds])
-        img_embeds = janus_lib.prepare_gen_img_embeds(params, cfg, img_ids)
-        seq = torch.cat([text_2b.to(img_embeds.dtype), img_embeds], dim=1)
-        t_total = seq.shape[1]
-        attn = torch.ones((2 * b, t_total), dtype=torch.int32, device=dev)
-        pos = torch.arange(t_total, device=dev).expand(2 * b, t_total)
-        hidden, _ = llama_lib.forward(
-            params["language_model"], cfg.language, seq, attn, pos,
-            lora=self.trainable if self.use_peft else None,
-            lora_scaling=self.lora_cfg.scaling,
-            lora_dropout=self.lora_cfg.dropout if self.use_peft else 0.0,
-            lora_dropout_seed=dropout_seed, remat=self.remat,
-            attn_impl=self.attn_impl)
-        logits = janus_lib.gen_logits(params, hidden)
-        text_labels = torch.full((2 * b, text_ids.shape[1]), IGNORE_ID,
-                                 dtype=torch.long, device=dev)
-        labels = torch.cat([text_labels, img_ids.long()], dim=1)
-        loss, metrics = loss_and_metrics(self.simpo_cfg, logits, labels)
+        with span("train.forward", device=True):
+            text_embeds = janus_lib.embed_text(params, text_ids) * text_mask[..., None]
+            text_2b = torch.cat([text_embeds, text_embeds])
+            img_embeds = janus_lib.prepare_gen_img_embeds(params, cfg, img_ids)
+            seq = torch.cat([text_2b.to(img_embeds.dtype), img_embeds], dim=1)
+            t_total = seq.shape[1]
+            attn = torch.ones((2 * b, t_total), dtype=torch.int32, device=dev)
+            pos = torch.arange(t_total, device=dev).expand(2 * b, t_total)
+            hidden, _ = llama_lib.forward(
+                params["language_model"], cfg.language, seq, attn, pos,
+                lora=self.trainable if self.use_peft else None,
+                lora_scaling=self.lora_cfg.scaling,
+                lora_dropout=self.lora_cfg.dropout if self.use_peft else 0.0,
+                lora_dropout_seed=dropout_seed, remat=self.remat,
+                attn_impl=self.attn_impl)
+            logits = janus_lib.gen_logits(params, hidden)
+            text_labels = torch.full((2 * b, text_ids.shape[1]), IGNORE_ID,
+                                     dtype=torch.long, device=dev)
+            labels = torch.cat([text_labels, img_ids.long()], dim=1)
+            loss, metrics = loss_and_metrics(self.simpo_cfg, logits, labels)
         params_ = [t for _, t in leaves(self.trainable)]
-        # a leaf the loss does not reach (the VQ model, lm_head) gets zeros
-        flat = iter([torch.zeros_like(p) if g is None else g for p, g in zip(
-            params_, torch.autograd.grad(loss, params_, allow_unused=True))])
-        grads = map_tree(self.trainable, lambda *_: next(flat))
+        with span("train.backward", device=True):
+            # a leaf the loss does not reach (the VQ model, lm_head) gets zeros
+            flat = iter([torch.zeros_like(p) if g is None else g for p, g in zip(
+                params_, torch.autograd.grad(loss, params_, allow_unused=True))])
+            grads = map_tree(self.trainable, lambda *_: next(flat))
         if not self.use_peft and "gen_vision_model" in grads:
             # the codebook stays frozen when the VQ model trains
             # (train.py:161-168)
@@ -357,12 +360,16 @@ class SimPOTrainer:
     def _step(self, text_ids, text_mask, chosen_pixels, rejected_pixels,
               dropout_seed=None) -> Dict[str, torch.Tensor]:
         """One micro-batch: gradients, grad_norm before clipping, and the
-        optimizer (an update every ``gradient_accumulation_steps``)."""
+        optimizer (an update every ``gradient_accumulation_steps``).  Device
+        spans (``utils/profiling.py``): ``train.vq_encode``,
+        ``train.forward``, ``train.backward``, ``train.optimizer``; ``fit``
+        opens ``train.update`` around an update's micro-batches."""
         _, metrics, grads = self.loss_and_grads(
             text_ids, text_mask, chosen_pixels, rejected_pixels, dropout_seed)
-        grads = self._reduce_grads(grads)
-        metrics["grad_norm"] = self._global_norm(grads)
-        self.opt.step(self.trainable, grads)
+        with span("train.optimizer", device=True):
+            grads = self._reduce_grads(grads)
+            metrics["grad_norm"] = self._global_norm(grads)
+            self.opt.step(self.trainable, grads)
         return metrics
 
     def _reduce_grads(self, grads):
@@ -487,51 +494,60 @@ class SimPOTrainer:
         # micro-batches draw different masks, and under data parallel the
         # data index, so data indices draw independent masks
         micro = self.global_step * self.grad_accum
-        for epoch in range(max_epochs):
-            if self.global_step >= self.max_steps:
-                break
-            for batch_items, batch in prefetch_iter(dataset.iter_batches(
-                    batch_size, shuffle=True, seed=self.seed + epoch,
-                    part=(self.data_index, self.dp)), self.collate):
+        update = None   # the open train.update span (utils/profiling.py)
+        try:
+            for epoch in range(max_epochs):
                 if self.global_step >= self.max_steps:
                     break
-                if micro % self.grad_accum == 0:  # an update's first micro-batch
-                    t_step = time.time()
-                seed = llama_lib.fold_seed(self.seed, micro)
-                if self.dp > 1:
-                    seed = llama_lib.fold_seed(seed, self.data_index)
-                metrics = self._step(
-                    batch["text_ids"], batch["text_mask"],
-                    batch["chosen_pixels"], batch["rejected_pixels"],
-                    dropout_seed=seed)
-                micro += 1
-                samples += len(batch_items) * self.dp  # global rows
-                if micro % self.grad_accum:
-                    continue  # accumulation micro-batch — no update yet
-                self.global_step += 1
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                self.update_seconds.append(time.time() - t_step)
+                for batch_items, batch in prefetch_iter(dataset.iter_batches(
+                        batch_size, shuffle=True, seed=self.seed + epoch,
+                        part=(self.data_index, self.dp)), self.collate):
+                    if self.global_step >= self.max_steps:
+                        break
+                    if micro % self.grad_accum == 0:  # an update's first micro-batch
+                        t_step = time.time()
+                        update = span("train.update", pairs=0).__enter__()
+                    seed = llama_lib.fold_seed(self.seed, micro)
+                    if self.dp > 1:
+                        seed = llama_lib.fold_seed(seed, self.data_index)
+                    metrics = self._step(
+                        batch["text_ids"], batch["text_mask"],
+                        batch["chosen_pixels"], batch["rejected_pixels"],
+                        dropout_seed=seed)
+                    micro += 1
+                    samples += len(batch_items) * self.dp  # global rows
+                    update.attrs["pairs"] += len(batch_items)
+                    if micro % self.grad_accum:
+                        continue  # accumulation micro-batch — no update yet
+                    self.global_step += 1
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    update.__exit__(None, None, None)
+                    update = None
+                    self.update_seconds.append(time.time() - t_step)
 
-                if self.global_step % self.log_steps == 0 \
-                        or self.global_step == 1:
-                    metrics = self._group_metrics(metrics)
-                    if first_update_s is None:
-                        first_update_s = time.time() - t0
-                        first_update_samples = samples
-                    metrics["lr"] = self._lr_fn(self.global_step)
-                    metrics["samples_per_sec"] = samples / (time.time() - t0)
-                    self.logged.append(metrics)
-                    if self.is_main:
-                        self._log_scalars(metrics)
-                        print(f"step {self.global_step}: loss="
-                              f"{metrics['loss']:.4f} acc="
-                              f"{metrics['rewards/accuracies']:.3f} margin="
-                              f"{metrics['rewards/margins']:.4f} "
-                              f"{metrics['samples_per_sec']:.2f} samples/s")
+                    if self.global_step % self.log_steps == 0 \
+                            or self.global_step == 1:
+                        metrics = self._group_metrics(metrics)
+                        if first_update_s is None:
+                            first_update_s = time.time() - t0
+                            first_update_samples = samples
+                        metrics["lr"] = self._lr_fn(self.global_step)
+                        metrics["samples_per_sec"] = samples / (time.time() - t0)
+                        self.logged.append(metrics)
+                        if self.is_main:
+                            self._log_scalars(metrics)
+                            print(f"step {self.global_step}: loss="
+                                  f"{metrics['loss']:.4f} acc="
+                                  f"{metrics['rewards/accuracies']:.3f} margin="
+                                  f"{metrics['rewards/margins']:.4f} "
+                                  f"{metrics['samples_per_sec']:.2f} samples/s")
 
-                if self.save_steps and self.global_step % int(self.save_steps) == 0:
-                    self.save()
+                    if self.save_steps and self.global_step % int(self.save_steps) == 0:
+                        self.save()
+        finally:   # a partial or failed update
+            if update is not None:
+                update.__exit__(None, None, None)
         self.save()
         total_s = time.time() - t0
         steady_s = total_s - (first_update_s or 0.0)
