@@ -2380,6 +2380,10 @@ class Smoke:
             n0, kernel = da.launches, llama.decode_attention
             if plain_kernel:
                 llama.decode_attention = da.decode_attention_plain
+                # the plain version reads a host cur_len: the eager loop,
+                # not the trunk graph, whose step holds the length on the
+                # device
+                eng._replays_trunk = lambda: False
             try:
                 out = eng.forced_cfg_logits(prompts, forced)
             finally:
@@ -2988,6 +2992,9 @@ class Smoke:
         ref = eng.forced_cfg_logits(prompts, forced)
         kernel = llama.decode_attention
         llama.decode_attention = da.decode_attention_plain
+        # the plain version reads a host cur_len: the eager loop (a replay
+        # of the graph captured above would not call it at all)
+        eng._replays_trunk = lambda: False
         try:
             ctl = eng.forced_cfg_logits(prompts, forced)
         finally:

@@ -18,6 +18,14 @@ cache — the JAX engine with ``decode_kernel: true``.  The ``bshd`` and
 growing windows bound each read.  ``speculative: W`` runs speculative
 Jacobi decoding (``_generate_tokens_sjd``) on a ``bshd`` / ``bhsd`` cache.
 
+On the card the kernel's cached trunk step is captured once as a CUDA
+graph (``_TrunkGraph``) and replayed for every step: the step's ~90 small
+kernels a layer are launched by one call instead of one Python call each,
+so the host no longer sets the decode's pace.  Where a graph cannot hold,
+the loop stays eager: the CPU, the plain reads (``bshd``/``bhsd``, int4
+cache), SJD, and a model group of several ranks (whose collectives are
+not captured).
+
 Under tensor parallel (``parallel/mesh.py``) every rank of a model group
 runs the same loop on its heads; the sampled ids (and SJD's accepted state)
 are model rank 0's, broadcast to the group, so all ranks feed the same
@@ -39,11 +47,108 @@ from ospo_tpu_torch.ops.quant import parse_kv_quant
 from ospo_tpu_torch.ops.sampling import sample_categorical
 from ospo_tpu_torch.parallel import mesh as mesh_lib
 from ospo_tpu_torch.processing import Processor, t2i_prompt
-from ospo_tpu_torch.utils.profiling import span
+from ospo_tpu_torch.utils.profiling import (add_kernel_launches,
+                                            kernel_launches, span)
 
 
 def _bucket(n: int, step: int = 64) -> int:
     return max(step, ((n + step - 1) // step) * step)
+
+
+class _TrunkGraph:
+    """One cached trunk step of :meth:`ImageGenEngine._segmented_decode`
+    (``language_forward`` at T = 1 over the decode kernel's ``shbd`` cache,
+    its length in device memory) captured as a CUDA graph, and the static
+    buffers the step reads and writes: the cache, the window mask, the
+    step's embeds and positions, and the length, which the step advances.
+    The kernel reads only ``[0, length)`` and the positions are device
+    values, so one graph serves every call of its rows whose window fits
+    ``s_max``.
+
+    The first step after the buffers are made runs eagerly on the capture
+    stream, so that lazy set-up (libraries, cuBLAS handles, kernel plans)
+    stays out of the capture; the step is captured after it and replayed
+    from the next step on.  Without CUDA every step runs eagerly over the
+    same buffers."""
+
+    def __init__(self, engine: "ImageGenEngine", rows: int, s_max: int):
+        model, dev = engine.model, engine.device
+        self.params, self.cfg = model.params, model.cfg
+        self.rows, self.s_max = rows, s_max
+        self.kv = janus_lib.init_kv_cache(model.params, model.cfg, rows, s_max,
+                                          quantized=engine.kv_quant,
+                                          layout="shbd", device=dev)
+        self.mask = torch.zeros((rows, s_max), dtype=torch.int32, device=dev)
+        self.length = torch.zeros((1,), dtype=torch.int32, device=dev)
+        self.step_kv = {**self.kv, "length": self.length}
+        self.embeds = self.pos = self.hidden = self.graph = None
+        self.launches = {}    # kernel launches a replay adds
+        self.cuda = dev.type == "cuda"
+        if self.cuda:
+            self.stream = torch.cuda.Stream(dev)
+            # step s's replay waits on the end of step s - 2's
+            self.done = [torch.cuda.Event(), torch.cuda.Event()]
+
+    def fresh_cache(self) -> dict:
+        """The cache zeroed, as ``init_kv_cache`` makes it, for a prefill."""
+        for t in self.kv.values():
+            if isinstance(t, torch.Tensor):
+                t.zero_()
+        return dict(self.kv)
+
+    def begin(self, window_mask: torch.Tensor, length: int) -> None:
+        """A call's window mask (``s_max`` wide) and its prompt length."""
+        self.mask.copy_(window_mask)
+        self.length.fill_(length)
+
+    def feed(self, embeds: torch.Tensor, pos: torch.Tensor) -> None:
+        """The next step's inputs into the static ones."""
+        if self.embeds is None:
+            self.embeds, self.pos = torch.empty_like(embeds), torch.empty_like(pos)
+        self.embeds.copy_(embeds)
+        self.pos.copy_(pos)
+
+    def _forward(self) -> torch.Tensor:
+        hidden, _ = janus_lib.language_forward(
+            self.params, self.cfg, self.embeds, self.mask, self.pos,
+            kv_cache=self.step_kv)
+        return hidden
+
+    def step(self, step: int) -> torch.Tensor:
+        """Run step ``step`` on the fed inputs → its hidden states.  Spans:
+        ``image.wait`` (the host on step s - 2), ``image.trunk`` with
+        ``graph`` 1 for a replay and 0 for an eager step, and
+        ``image.capture``."""
+        if self.graph is not None:
+            done = self.done[step % 2]
+            with span("image.wait"):
+                done.synchronize()
+            with span("image.trunk", graph=1):
+                self.graph.replay()
+                done.record()
+                add_kernel_launches(self.launches)
+            return self.hidden
+        if not self.cuda:
+            with span("image.trunk", graph=0):
+                return self._forward()
+        main = torch.cuda.current_stream(self.mask.device)
+        with span("image.trunk", graph=0):
+            self.stream.wait_stream(main)
+            with torch.cuda.stream(self.stream):
+                hidden = self._forward()
+            main.wait_stream(self.stream)
+            hidden.record_stream(main)
+        with span("image.capture"):
+            before = kernel_launches()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                self.hidden = self._forward()
+            self.launches = {k: n - before[k] for k, n in kernel_launches().items()
+                             if n != before[k]}
+            add_kernel_launches({k: -n for k, n in self.launches.items()})
+            self.graph = graph
+        return hidden
 
 
 class ImageGenEngine:
@@ -95,6 +200,29 @@ class ImageGenEngine:
         # (step 0 right after the prefill) of the sequential loop;
         # scripts/profile_torch_step3.py times and profiles it through it
         self.step_hook = None
+        # the trunk graph of the last call that replayed one
+        self._graph = None
+
+    def _replays_trunk(self) -> bool:
+        """Whether the cached trunk step runs as a CUDA graph: on the card,
+        on the decode kernel's cache (``shbd``, model-dtype or int8, MHA),
+        outside SJD, in a model group of one (gloo's collectives cannot be
+        captured)."""
+        lc = self.model.cfg.language
+        return (self.device.type == "cuda" and self.kernel_read
+                and not self.speculative and lc.kv_heads == lc.num_heads
+                and mesh_lib.model_parallel_size() == 1)
+
+    def _trunk_graph(self, rows: int, s_max: int) -> _TrunkGraph:
+        """A graph of ``rows`` rows whose cache holds at least ``s_max``
+        positions: the kept one, or a new one in its place (a batch of
+        other rows, a longer prompt bucket)."""
+        kept = self._graph
+        if kept is None or kept.rows != rows or kept.s_max < s_max:
+            # the kept graph's memory goes back before the new one is made
+            kept = self._graph = None
+            self._graph = _TrunkGraph(self, rows, s_max)
+        return self._graph
 
     # ------------------------------------------------------------------
     # prompt construction (host)
@@ -141,20 +269,28 @@ class ImageGenEngine:
         step, prompt_len) → (emit, embeds, pos)`` defines what each step
         emits and feeds next; emits are stacked on axis 1.  On the kernel's
         cache every step reads the whole window; on a plain read each
-        segment's window covers the rows it writes (64-aligned).  Spans:
-        ``image.prefill``, each cached step's ``image.trunk`` and each
-        ``step_fn``'s ``image.sample``."""
+        segment's window covers the rows it writes (64-aligned).  Where
+        :meth:`_replays_trunk`, the prefill writes the static cache of a
+        :class:`_TrunkGraph`, whose replays make the cached steps, and the
+        host keeps at most two steps in flight.  Spans: ``image.prefill``,
+        each cached step's ``image.trunk`` (``graph`` 1 for a replay, 0
+        for an eager step; with a graph also ``image.wait`` and
+        ``image.capture``) and each ``step_fn``'s ``image.sample``."""
         params, cfg = self.model.params, self.model.cfg
         two_b, t_prompt = tokens.shape
         n_img = self.image_token_num
         s_max = t_prompt + n_img
         if self.kernel_read:
             s_max = ((s_max + 63) // 64) * 64
+        graph = self._trunk_graph(two_b, s_max) if self._replays_trunk() else None
+        if graph is not None:
+            s_max = graph.s_max
 
         with span("image.prefill"):
-            kv = janus_lib.init_kv_cache(params, cfg, two_b, s_max,
-                                         quantized=self.kv_quant,
-                                         layout=self.kv_layout, device=self.device)
+            kv = graph.fresh_cache() if graph is not None else \
+                janus_lib.init_kv_cache(params, cfg, two_b, s_max,
+                                        quantized=self.kv_quant,
+                                        layout=self.kv_layout, device=self.device)
             hidden, kv = janus_lib.language_forward(
                 params, cfg, janus_lib.embed_text(params, tokens), attn_mask,
                 llama.positions_from_mask(attn_mask), kv_cache=kv, self_attn=True)
@@ -167,12 +303,20 @@ class ImageGenEngine:
                 torch.ones((two_b, n_img), dtype=torch.int32, device=self.device),
                 torch.zeros((two_b, s_max - t_prompt - n_img), dtype=torch.int32,
                             device=self.device)], dim=-1).contiguous()
+            if graph is not None:
+                graph.begin(window_mask, kv["length"])
+
+        def sample(hidden, step):
+            with span("image.sample"):
+                emit, embeds, pos = step_fn(hidden[:, -1], step, prompt_len)
+                if graph is not None:
+                    graph.feed(embeds, pos)
+            return emit, embeds, pos
 
         hook = self.step_hook
         if hook:
             hook(0)
-        with span("image.sample"):
-            emit, embeds, pos = step_fn(hidden[:, -1], 0, prompt_len)
+        emit, embeds, pos = sample(hidden, 0)
         outs = [emit]
         n_seg = min(self.decode_segments, max(1, (n_img - 1) // 64))
         start = 1
@@ -181,14 +325,16 @@ class ImageGenEngine:
             window = s_max if self.kernel_read else \
                 min(s_max, ((t_prompt + end + 63) // 64) * 64)
             for step in range(start, end):
-                with span("image.trunk"):
-                    hidden, kv = janus_lib.language_forward(
-                        params, cfg, embeds, window_mask[:, :window], pos,
-                        kv_cache=kv, attn_window=window)
+                if graph is not None:
+                    hidden = graph.step(step)
+                else:
+                    with span("image.trunk", graph=0):
+                        hidden, kv = janus_lib.language_forward(
+                            params, cfg, embeds, window_mask[:, :window], pos,
+                            kv_cache=kv, attn_window=window)
                 if hook:
                     hook(step)
-                with span("image.sample"):
-                    emit, embeds, pos = step_fn(hidden[:, -1], step, prompt_len)
+                emit, embeds, pos = sample(hidden, step)
                 outs.append(emit)
             start = end
         return torch.stack(outs, dim=1)

@@ -128,12 +128,14 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 def rope_frequencies(cfg: LlamaConfig, positions: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """fp32 cos/sin tables for the given positions ([B, T] → [B, T, Dh/2])."""
+    """fp32 cos/sin tables for the given positions ([B, T] → [B, T, Dh/2]).
+    Every tensor is made on the device (no copy from the host), so a step
+    can be captured in a CUDA graph."""
     dh = cfg.dim_head
     exponent = torch.arange(0, dh, 2, dtype=torch.float32,
                             device=positions.device) / dh
-    inv_freq = 1.0 / torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
-                                            device=positions.device), exponent)
+    inv_freq = 1.0 / torch.pow(torch.full((), cfg.rope_theta, dtype=torch.float32,
+                                          device=positions.device), exponent)
     angles = positions.float()[..., None] * inv_freq
     return torch.cos(angles), torch.sin(angles)
 
@@ -242,8 +244,9 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
     payload is the model dtype, int8 (``quantized=True``/``"int8"``) or
     int4 (``"int4"``: two heads a byte, head axis ``H/2``, MHA only), the
     quantized ones with fp32 scales ``[L, S, H, B]`` (``shbd``) or
-    ``[L, B, H, S]``.  ``length`` is a host integer; ``layout`` names the
-    layout for every forward that touches the cache."""
+    ``[L, B, H, S]``.  ``length`` is a host integer (a caller may replace it
+    by a device one, :func:`forward`); ``layout`` names the layout for every
+    forward that touches the cache."""
     if layout not in ("bshd", "bhsd", "shbd"):
         raise ValueError(f"kv_layout {layout!r}: expected bshd | bhsd | shbd")
     if quantized not in (False, True, "int8", "int4"):
@@ -304,16 +307,22 @@ _ROW_PERM = {"bshd": (0, 1, 2, 3), "bhsd": (0, 2, 1, 3), "shbd": (1, 2, 0, 3)}
 _SCALE_PERM = {"bshd": (0, 2, 1), "bhsd": (0, 2, 1), "shbd": (1, 2, 0)}
 
 
-def _write_kv(cache: Dict[str, Any], li: int, start: int,
+def _write_kv(cache: Dict[str, Any], li: int, start,
               k: torch.Tensor, v: torch.Tensor,
               positions: Optional[torch.Tensor] = None) -> None:
     """Write fresh [B, T, H, Dh] rows at positions [start, start + T), or at
     ``[positions[b], positions[b] + T)`` per row (``llama.py:475-526``).
-    A quantized cache stores the rows' int8 or int4 values (quantized in
-    head order, then permuted) and their scales."""
+    ``start`` is a host integer, or (``shbd``, T = 1) an int64 tensor
+    ``[1]`` holding the position in device memory.  A quantized cache
+    stores the rows' int8 or int4 values (quantized in head order, then
+    permuted) and their scales."""
     layout = cache.get("layout", "shbd")
     T = k.shape[1]
     int4 = _int4_cache(cache)
+    at_device = isinstance(start, torch.Tensor)
+    if at_device and (layout != "shbd" or T != 1 or positions is not None):
+        raise ValueError("a device write position takes one row of an shbd "
+                         "cache")
     for name, x in (("k", k), ("v", v)):
         if "k_s" in cache:
             xq, xs = _quantize_rows_int4(x) if int4 else _quantize_rows(x)
@@ -323,6 +332,9 @@ def _write_kv(cache: Dict[str, Any], li: int, start: int,
             rows = [(name, x.permute(_ROW_PERM[layout]).to(cache[name].dtype))]
         for key, val in rows:
             dst = cache[key]
+            if at_device:   # along S, the axis after the layer's
+                dst[li].index_copy_(0, start, val)
+                continue
             if positions is None:
                 if layout == "shbd":
                     dst[li, start:start + T] = val
@@ -444,6 +456,14 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     positions (and the mask with it), and an ``shbd`` T > 1 step reads only
     the ``length + T`` rows its causality reaches.
 
+    ``cache['length']`` may instead be an int32 tensor ``[1]`` in device
+    memory, for a T = 1 step on the decode kernel's cache (``shbd``, a
+    model-dtype or int8 payload, MHA, no ``prefix_kv``): the step writes
+    its row at that index, the kernel reads the length when it runs, and
+    the step advances the tensor in place.  Such a step makes no host
+    value and reads none, so it can be captured once in a CUDA graph and
+    replayed at every length (``engine/image_engine.py``).
+
     ``cache_positions`` ``[B]`` (``bshd`` / ``bhsd`` caches) writes each
     row's T rows at its own offset and makes the causal offset per row —
     speculative Jacobi decoding's rows advance unevenly
@@ -521,8 +541,6 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
             "prefix_kv (batch-shared KV segment) is supported on the standard "
             "cached path only — not SJD per-row offsets or the Pallas decode "
             "kernel")
-    if self_attn and cache_len != 0 and not per_row:
-        raise ValueError("self_attn prefill needs an empty cache")
     # the batch-minor model-dtype / int8 cache has the kernel and the
     # T == 1 prefix form (MHA only); everything else reads through
     # xla_attention
@@ -530,6 +548,16 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     mha = cfg.kv_heads == cfg.num_heads
     kernel = shbd_read and T == 1 and mha and prefix_kv is None
     prefix_decode = shbd_read and T == 1 and mha and prefix_kv is not None
+    device_len = isinstance(cache_len, torch.Tensor)
+    if device_len and (self_attn or not kernel):
+        raise ValueError("a device cache length takes the decode kernel's "
+                         "T = 1 step (shbd model-dtype or int8 cache, MHA, "
+                         "no prefix_kv)")
+    if self_attn and cache_len != 0 and not per_row:
+        raise ValueError("self_attn prefill needs an empty cache")
+    # where the step writes and how far the kernel reads
+    write_at = cache_len.long() if device_len else cache_len
+    read_len = cache_len + T
     window = cache_len + T if shbd_read and T > 1 else attn_window
     mask_w = attention_mask if window is None else attention_mask[:, :window]
 
@@ -544,13 +572,13 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
         k = linear(h, lp["wk"]).view(B, T, cfg.kv_heads, cfg.dim_head)
         v = linear(h, lp["wv"]).view(B, T, cfg.kv_heads, cfg.dim_head)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        _write_kv(kv_cache, li, cache_len, k, v, cache_positions)
+        _write_kv(kv_cache, li, write_at, k, v, cache_positions)
         if self_attn:
             attn = attention(q, k, v, mask=attention_mask, prefix_k=pk,
                              prefix_v=pv, prefix_mask=pm)
         elif kernel:
             attn = decode_attention(q, kv_cache["k"], kv_cache["v"], li,
-                                    cache_len + 1, attention_mask,
+                                    read_len, attention_mask,
                                     k_scale=kv_cache.get("k_s"),
                                     v_scale=kv_cache.get("v_s"))
         elif prefix_decode:
@@ -572,7 +600,10 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
         act = F.silu(gate.float()).to(h.dtype) * up
         x = x + _row_parallel(linear(act, lp["w_down"], tp), tp)
 
-    kv_cache["length"] = cache_len + T
+    if device_len:
+        cache_len.add_(T)
+    else:
+        kv_cache["length"] = read_len
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), kv_cache
 
 

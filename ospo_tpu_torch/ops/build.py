@@ -34,7 +34,7 @@ SIGNATURES = {
     "flash_fwd": ("ospo_flash_fwd", [P] * 7 + [I] * 8 + [P]),
     "flash_bwd_dq": ("ospo_flash_bwd_dq", [P] * 9 + [I] * 8 + [P]),
     "flash_bwd_dkv": ("ospo_flash_bwd_dkv", [P] * 10 + [I] * 8 + [P]),
-    "decode_attention": ("ospo_decode_attention", [P] * 9 + [I] * 10 + [P]),
+    "decode_attention": ("ospo_decode_attention", [P] * 10 + [I] * 10 + [P]),
     "int4_matmul_row": ("ospo_int4_matmul_row", [P] * 5 + [I] * 6 + [P]),
     "int4_matmul_group": ("ospo_int4_matmul_group", [P] * 5 + [I] * 7 + [P]),
 }

@@ -43,6 +43,11 @@
 //    merges its warps' (m, l, acc) in shared memory and writes one partial
 //    per (head, row); a second pass merges the chunks in order.  No
 //    atomics.
+//  - cur_len may live in device memory, for a step captured once in a CUDA
+//    graph and replayed at every length: the grid is then sized for s_max,
+//    each block derives the split of the length it reads (the same split a
+//    launch at that host length takes, so the result is the same bit for
+//    bit), and the blocks past it write an empty partial and exit.
 // ptxas (CUDA 12.8): 110 (int8) and 127 (bf16) registers a thread, no
 // spills, two 256-thread blocks an SM.  On an NVIDIA H100 80GB HBM3 at
 // 700 W (PERF.md), at the serving point above with cur_len 672: int8 0.126
@@ -159,7 +164,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 decode_partial(const QT* __restrict__ q, const typename C::T* __restrict__ kc,
                const typename C::T* __restrict__ vc,
                const float* __restrict__ ksc, const float* __restrict__ vsc,
-               const int* __restrict__ mask, float* __restrict__ part_ml,
+               const int* __restrict__ mask,
+               const int* __restrict__ cur_len_dev, float* __restrict__ part_ml,
                float* __restrict__ part_acc, int s_max, int n_heads,
                int batch, int layer, int cur_len, int chunk, float scale) {
   __shared__ int mks[ROWS * MASK_LD];            // [row][position]
@@ -173,6 +179,24 @@ decode_partial(const QT* __restrict__ q, const typename C::T* __restrict__ kc,
   const int h = blockIdx.x / n_groups;
   const int b0 = (blockIdx.x % n_groups) * ROWS;
   const int split = blockIdx.y;
+  const size_t hb = (size_t)n_heads * batch;
+  if (cur_len_dev != nullptr) {
+    // cur_len in device memory (a captured step): the grid covers s_max;
+    // the split is the one the wrapper's split(cur_len) gives, and the
+    // blocks past it write an empty partial that decode_combine skips
+    cur_len = min(max(__ldg(cur_len_dev), 0), s_max);
+    const int n_split = max(1, (cur_len + CHUNK - 1) / CHUNK);
+    chunk = max((cur_len + n_split * WARPS - 1) / (n_split * WARPS) * WARPS, WARPS);
+    if (split >= n_split) {
+      const int rr = threadIdx.x >> 6;
+      if ((threadIdx.x & 63) == 0 && b0 + rr < batch) {
+        const size_t out_row = split * hb + (size_t)h * batch + b0 + rr;
+        part_ml[out_row * 2] = -INFINITY;
+        part_ml[out_row * 2 + 1] = 0.f;
+      }
+      return;
+    }
+  }
   const int bl = min(b0 + r, batch - 1);        // a ragged group reads its last row
   const int blk_start = split * chunk;
   const int blk_end = min(cur_len, blk_start + chunk);
@@ -180,7 +204,6 @@ decode_partial(const QT* __restrict__ q, const typename C::T* __restrict__ kc,
   const int start = blk_start + warp * per_warp;
   const int end = min(blk_end, start + per_warp);
 
-  const size_t hb = (size_t)n_heads * batch;
   const size_t lbase = (size_t)layer * s_max * hb;
   // stage the mask (threads along positions) and the scales (threads
   // along the 4 rows of a position)
@@ -353,15 +376,16 @@ decode_combine(const float* __restrict__ part_ml,
 
 template <typename QT, typename C, bool QUANT>
 int launch(const void* q, const void* kc, const void* vc, const float* ksc,
-           const float* vsc, const int* mask, void* out, float* part_ml,
-           float* part_acc, int s_max, int n_heads, int batch, int layer,
-           int cur_len, int chunk, int n_split, cudaStream_t stream) {
+           const float* vsc, const int* mask, const int* cur_len_dev,
+           void* out, float* part_ml, float* part_acc, int s_max, int n_heads,
+           int batch, int layer, int cur_len, int chunk, int n_split,
+           cudaStream_t stream) {
   const int hb = n_heads * batch;
   const dim3 grid1(n_heads * ((batch + ROWS - 1) / ROWS), n_split);
   decode_partial<QT, C, QUANT><<<grid1, THREADS, 0, stream>>>(
       static_cast<const QT*>(q), static_cast<const typename C::T*>(kc),
-      static_cast<const typename C::T*>(vc), ksc, vsc, mask, part_ml, part_acc,
-      s_max, n_heads, batch, layer, cur_len, chunk,
+      static_cast<const typename C::T*>(vc), ksc, vsc, mask, cur_len_dev,
+      part_ml, part_acc, s_max, n_heads, batch, layer, cur_len, chunk,
       (float)(1.0 / sqrt((double)DH)));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -373,21 +397,21 @@ int launch(const void* q, const void* kc, const void* vc, const float* ksc,
 
 template <typename QT>
 int dispatch_kv(int kv_dtype, const void* q, const void* kc, const void* vc,
-                const float* ksc, const float* vsc, const int* mask, void* out,
-                float* part_ml, float* part_acc, int s_max, int n_heads,
-                int batch, int layer, int cur_len, int chunk, int n_split,
-                cudaStream_t st) {
+                const float* ksc, const float* vsc, const int* mask,
+                const int* cur_len_dev, void* out, float* part_ml,
+                float* part_acc, int s_max, int n_heads, int batch, int layer,
+                int cur_len, int chunk, int n_split, cudaStream_t st) {
   switch (kv_dtype) {
     case 0:
-      return launch<QT, Bf16Cache, false>(q, kc, vc, ksc, vsc, mask, out,
-                                          part_ml, part_acc, s_max, n_heads,
-                                          batch, layer, cur_len, chunk,
-                                          n_split, st);
+      return launch<QT, Bf16Cache, false>(q, kc, vc, ksc, vsc, mask,
+                                          cur_len_dev, out, part_ml, part_acc,
+                                          s_max, n_heads, batch, layer,
+                                          cur_len, chunk, n_split, st);
     case 1:
-      return launch<QT, Int8Cache, true>(q, kc, vc, ksc, vsc, mask, out,
-                                         part_ml, part_acc, s_max, n_heads,
-                                         batch, layer, cur_len, chunk,
-                                         n_split, st);
+      return launch<QT, Int8Cache, true>(q, kc, vc, ksc, vsc, mask,
+                                         cur_len_dev, out, part_ml, part_acc,
+                                         s_max, n_heads, batch, layer,
+                                         cur_len, chunk, n_split, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -397,15 +421,18 @@ int dispatch_kv(int kv_dtype, const void* q, const void* kc, const void* vc,
 // q_dtype: 0 = float32, 1 = bfloat16.  kv_dtype: 0 = bfloat16, 1 = int8
 // (then k_scale / v_scale [L, S, H, B] are read).  chunk: positions per
 // block of the first pass, a multiple of 8 up to 256, with n_split * chunk
-// >= cur_len.  part_ml and part_acc are caller-allocated scratch of
+// >= cur_len.  cur_len_dev: null, or one int32 in device memory that
+// replaces cur_len when the kernel runs (the launch then passes the split
+// of cur_len = s_max, and the kernel derives the split of the value it
+// reads).  part_ml and part_acc are caller-allocated scratch of
 // n_split * H * B * 2 and n_split * H * B * head_dim floats; the caches and
 // q 16-byte aligned.  Returns a cudaError_t (0 = success).
 extern "C" int ospo_decode_attention(
     const void* q, const void* k_cache, const void* v_cache,
-    const float* k_scale, const float* v_scale, const int* mask, void* out,
-    float* part_ml, float* part_acc, int s_max, int n_heads, int batch,
-    int head_dim, int layer, int cur_len, int chunk, int n_split, int q_dtype,
-    int kv_dtype, void* stream) {
+    const float* k_scale, const float* v_scale, const int* mask,
+    const int* cur_len_dev, void* out, float* part_ml, float* part_acc,
+    int s_max, int n_heads, int batch, int head_dim, int layer, int cur_len,
+    int chunk, int n_split, int q_dtype, int kv_dtype, void* stream) {
   if (head_dim != DH || batch <= 0 || n_split <= 0 || chunk <= 0 ||
       chunk > CHUNK || chunk % WARPS || (long long)n_split * chunk < cur_len)
     return (int)cudaErrorInvalidValue;
@@ -414,12 +441,13 @@ extern "C" int ospo_decode_attention(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0)
     return dispatch_kv<float>(kv_dtype, q, k_cache, v_cache, k_scale, v_scale,
-                              mask, out, part_ml, part_acc, s_max, n_heads,
-                              batch, layer, cur_len, chunk, n_split, st);
+                              mask, cur_len_dev, out, part_ml, part_acc,
+                              s_max, n_heads, batch, layer, cur_len, chunk,
+                              n_split, st);
   if (q_dtype == 1)
     return dispatch_kv<__nv_bfloat16>(kv_dtype, q, k_cache, v_cache, k_scale,
-                                      v_scale, mask, out, part_ml, part_acc,
-                                      s_max, n_heads, batch, layer, cur_len,
-                                      chunk, n_split, st);
+                                      v_scale, mask, cur_len_dev, out, part_ml,
+                                      part_acc, s_max, n_heads, batch, layer,
+                                      cur_len, chunk, n_split, st);
   return (int)cudaErrorInvalidValue;
 }

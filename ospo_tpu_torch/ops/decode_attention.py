@@ -70,9 +70,16 @@ def split(cur_len):
 def decode_attention(q, k_cache, v_cache, layer_idx, cur_len, mask,
                      k_scale=None, v_scale=None):
     """Launch the CUDA kernel for CUDA tensors; the plain version for CPU
-    tensors.  ``layer_idx`` and ``cur_len`` are host integers."""
+    tensors.  ``layer_idx`` is a host integer; ``cur_len`` a host integer,
+    or an int32 tensor of one element on q's CUDA device, which the kernel
+    reads when it runs (a step captured in a CUDA graph): the grid is then
+    sized by ``split(S)`` and each block takes the part of the split of the
+    length it reads, so the result equals the launch at that host length."""
     global launches
-    layer_idx, cur_len = int(layer_idx), int(cur_len)
+    layer_idx = int(layer_idx)
+    on_device = isinstance(cur_len, torch.Tensor) and cur_len.device.type == "cuda"
+    if not on_device:
+        cur_len = int(cur_len)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, layer_idx, cur_len,
                                       mask, k_scale, v_scale)
@@ -108,6 +115,15 @@ def decode_attention(q, k_cache, v_cache, layer_idx, cur_len, mask,
                       or v_scale.dtype != torch.float32):
         raise ValueError("decode_attention: int8 caches need float32 scales "
                          "[L, S, H, B]")
+    if on_device:
+        if cur_len.device != q.device or cur_len.dtype != torch.int32 \
+                or cur_len.numel() != 1:
+            raise ValueError(f"decode_attention: a device cur_len is one "
+                             f"int32 on q's device, got {cur_len.dtype} "
+                             f"{tuple(cur_len.shape)} on {cur_len.device}")
+        len_ptr, cur_len = cur_len.data_ptr(), S
+    else:
+        len_ptr = None
     if not (0 <= layer_idx < L and 0 <= cur_len <= S):
         raise ValueError(f"decode_attention: layer {layer_idx} of {L}, "
                          f"cur_len {cur_len} of {S}")
@@ -122,7 +138,7 @@ def decode_attention(q, k_cache, v_cache, layer_idx, cur_len, mask,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fn = build.load("decode_attention").ospo_decode_attention
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ks, vs,
-             mask.data_ptr(), out.data_ptr(), part_ml.data_ptr(),
+             mask.data_ptr(), len_ptr, out.data_ptr(), part_ml.data_ptr(),
              part_acc.data_ptr(), S, H, B, dh, layer_idx, cur_len, chunk,
              n_split, _Q_DTYPES[q.dtype], _KV_DTYPES[k_cache.dtype], stream)
     build.check(err, "decode_attention")

@@ -220,17 +220,37 @@ def span_totals() -> Dict[str, dict]:
     return RECORDER.totals()
 
 
+# each hand-written kernel's launch counter: (module under ops/, name)
+_LAUNCH_COUNTERS = {
+    "flash_fwd": ("flash_attention", "launches"),
+    "flash_bwd_dq": ("flash_attention", "dq_launches"),
+    "flash_bwd_dkv": ("flash_attention", "dkv_launches"),
+    "decode_attention": ("decode_attention", "launches"),
+    "int4_matmul_row": ("int4_matmul", "row_launches"),
+    "int4_matmul_group": ("int4_matmul", "group_launches"),
+}
+
+
+def _counter_module(name: str):
+    import importlib
+
+    return importlib.import_module(f"ospo_tpu_torch.ops.{_LAUNCH_COUNTERS[name][0]}")
+
+
 def kernel_launches() -> Dict[str, int]:
     """Each hand-written kernel's launch count in this process since its
     counter was last set to 0."""
-    from ospo_tpu_torch.ops import decode_attention as da
-    from ospo_tpu_torch.ops import flash_attention as fa
-    from ospo_tpu_torch.ops import int4_matmul as i4
+    return {name: getattr(_counter_module(name), attr)
+            for name, (_, attr) in _LAUNCH_COUNTERS.items()}
 
-    return {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
-            "flash_bwd_dkv": fa.dkv_launches, "decode_attention": da.launches,
-            "int4_matmul_row": i4.row_launches,
-            "int4_matmul_group": i4.group_launches}
+
+def add_kernel_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` to the kernels' counters: a CUDA graph's replay adds
+    the launches it replays, and its capture, which launches nothing, takes
+    back those it counted."""
+    for name, n in counts.items():
+        module, attr = _counter_module(name), _LAUNCH_COUNTERS[name][1]
+        setattr(module, attr, getattr(module, attr) + n)
 
 
 def print_process_summary(stage: str, stats: dict) -> None:

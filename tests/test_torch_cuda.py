@@ -677,3 +677,170 @@ def test_int4n_decode_runs_the_row_kernel(cuda):
     assert i4.row_launches == n0 + 1
     _assert_int4_close(got, i4.int4_matmul_decode_plain(x, qw), "int4",
                        torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("S", [40, 704])
+def test_decode_kernel_device_cur_len_equals_the_host_launch(cuda, S, kind):
+    """cur_len in device memory (the grid sized for S, each block taking
+    its part of the split of the length it reads) against the launch at the
+    same host cur_len, bit for bit, at every cur_len in 1..S: a ragged row
+    group, a left-padded row and a row whose every key is masked."""
+    from ospo_tpu_torch.ops import decode_attention as da
+
+    g = torch.Generator(device=cuda).manual_seed(S)
+    L, H, B = 2, 4, 6
+    q = torch.randn((B, 1, H, 128), generator=g, device=cuda).bfloat16()
+    if kind == "int8":
+        kc, vc = (torch.randint(-127, 128, (L, S, H, B, 128), generator=g,
+                                device=cuda, dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((L, S, H, B), generator=g, device=cuda) * 0.02
+                  for _ in range(2))
+    else:
+        kc, vc = (torch.randn((L, S, H, B, 128), generator=g, device=cuda)
+                  .bfloat16() for _ in range(2))
+        ks = vs = None
+    mask = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    mask[0, :S // 3] = 0
+    mask[B // 2] = 0
+    lens = torch.arange(1, S + 1, dtype=torch.int32, device=cuda)
+    n0 = da.launches
+    host = torch.stack([da.decode_attention(q, kc, vc, 1, n, mask, ks, vs)
+                        for n in range(1, S + 1)])
+    dev = torch.stack([da.decode_attention(q, kc, vc, 1, lens[n - 1:n], mask, ks, vs)
+                       for n in range(1, S + 1)])
+    torch.cuda.synchronize()
+    assert da.launches == n0 + 2 * S
+    bad = [n + 1 for n in range(S) if not torch.equal(host[n], dev[n])]
+    assert not bad, f"cur_len {bad[:10]} differ"
+    with pytest.raises(ValueError, match="int32"):
+        da.decode_attention(q, kc, vc, 1, lens[:1].long(), mask, ks, vs)
+
+
+def _graph_engines(model, proc, n_img, kv_quant):
+    """The same engine twice: the trunk replayed as a CUDA graph, and the
+    eager loop."""
+    from ospo_tpu_torch.engine.image_engine import ImageGenEngine
+
+    kw = dict(image_token_num=n_img, img_size=16, patch_size=2, kv_quant=kv_quant)
+    graph, eager = ImageGenEngine(model, proc, **kw), ImageGenEngine(model, proc, **kw)
+    assert graph._replays_trunk()
+    eager._replays_trunk = lambda: False
+    return graph, eager
+
+
+def _card_janus(cuda, cfg, quantize=False):
+    from ospo_tpu_torch.models import janus
+    from ospo_tpu_torch.processing import Processor
+    from ospo_tpu_torch.tokenizer import ByteTokenizer
+
+    model = janus.JanusModel.init(cfg, seed=5, quantize=quantize, device=cuda,
+                                  lm_head=False, understanding=False)
+    return model, Processor(ByteTokenizer(cfg.language.vocab_size))
+
+
+def _small_card_config(dtype):
+    import dataclasses
+
+    from ospo_tpu_torch.models import janus, llama
+
+    return dataclasses.replace(
+        janus.tiny_janus_config(dtype=dtype),
+        language=llama.tiny_config(hidden_size=256, intermediate_size=512,
+                                   num_heads=2, dtype=dtype))
+
+
+def _seven_b_width_config(layers=2):
+    import dataclasses
+
+    from ospo_tpu_torch.models import janus, llama
+
+    return dataclasses.replace(
+        janus.JANUS_PRO_7B,
+        language=dataclasses.replace(llama.LLAMA_7B, num_layers=layers))
+
+
+GRAPH_PROMPTS = ["A red cube on top of a blue sphere", "Two cats",
+                 "a lighthouse on a cliff at dusk, waves below, gulls overhead",
+                 "three green apples"]
+
+
+@pytest.mark.parametrize("case", ["small-fp32-int8kv", "small-bf16", "7b-int8",
+                                  "7b-int4g"])
+def test_forced_cfg_logits_replayed_equal_the_eager_loop(cuda, case):
+    """The teacher-forced probe through the replayed trunk equals the eager
+    loop's bit for bit: the small model (head dim 128) in fp32 with an int8
+    cache and in bf16 with a bf16 cache, and the 7B widths at 2 layers on
+    int8 and int4g weights with an int8 cache.  The first call captures,
+    the second (a longer prompt bucket, so a larger cache) captures again,
+    the third replays the kept graph throughout."""
+    import numpy as np
+
+    from ospo_tpu_torch.processing import t2i_prompt
+
+    if case.startswith("small"):
+        dtype = torch.float32 if "fp32" in case else torch.bfloat16
+        model, proc = _card_janus(cuda, _small_card_config(dtype))
+        kv, n_img = ("int8" if "int8kv" in case else False), 64
+    else:
+        model, proc = _card_janus(cuda, _seven_b_width_config(),
+                                  quantize=case.split("-")[1])
+        kv, n_img = "int8", 40
+    graph, eager = _graph_engines(model, proc, n_img, kv)
+    rng = np.random.default_rng(2)
+    long = GRAPH_PROMPTS[2] + " " + "and more words " * 6
+    for prompts in (GRAPH_PROMPTS, GRAPH_PROMPTS[:3] + [long], GRAPH_PROMPTS):
+        prompts = [t2i_prompt(proc, p) for p in prompts]
+        forced = rng.integers(0, model.cfg.image_token_size, (len(prompts), n_img))
+        got = graph.forced_cfg_logits(prompts, forced)
+        ref = eager.forced_cfg_logits(prompts, forced)
+        assert got.shape == (len(prompts), n_img, model.cfg.image_token_size)
+        assert np.array_equal(got, ref)
+    assert graph._graph.graph is not None and eager._graph is None
+
+
+def test_greedy_ids_replayed_equal_the_eager_loop(cuda):
+    """Greedy ids (temperature 0) through the replayed trunk equal the
+    eager loop's, at the 7B widths with 2 layers."""
+    from ospo_tpu_torch.processing import t2i_prompt
+
+    model, proc = _card_janus(cuda, _seven_b_width_config(), quantize="int8")
+    graph, eager = _graph_engines(model, proc, 96, "int8")
+    graph.temperature = eager.temperature = 0.0
+    prompts = [t2i_prompt(proc, p) for p in GRAPH_PROMPTS]
+    for seed in (0, 1):
+        assert (graph.generate_tokens(prompts, seed=seed)
+                == eager.generate_tokens(prompts, seed=seed)).all()
+
+
+def test_a_replay_counts_the_launches_it_replays(cuda):
+    """kernel_launches() after the probe through the replayed trunk: one
+    flash launch a layer for the prefill and one decode launch a layer for
+    each of the n_img - 1 cached steps, in the call that captures (its
+    first step eager, the capture counting nothing) and in one that only
+    replays; and the spans say which steps were replayed."""
+    import time
+
+    import numpy as np
+
+    from ospo_tpu_torch.processing import t2i_prompt
+    from ospo_tpu_torch.utils.profiling import kernel_launches, spans
+
+    model, proc = _card_janus(cuda, _small_card_config(torch.bfloat16))
+    n_img, layers = 24, model.cfg.language.num_layers
+    graph, _ = _graph_engines(model, proc, n_img, "int8")
+    prompts = [t2i_prompt(proc, p) for p in GRAPH_PROMPTS[:2]]
+    forced = np.zeros((2, n_img), np.int64)
+    for replayed in (n_img - 2, n_img - 1):
+        n0 = kernel_launches()
+        t0 = time.perf_counter()
+        graph.forced_cfg_logits(prompts, forced)
+        got = spans(t0, time.perf_counter())
+        n1 = kernel_launches()
+        assert n1["decode_attention"] - n0["decode_attention"] == layers * (n_img - 1)
+        assert n1["flash_fwd"] - n0["flash_fwd"] == layers
+        trunk = [s.attrs["graph"] for s in got if s.name == "image.trunk"]
+        assert len(trunk) == n_img - 1 and sum(trunk) == replayed
+        captures = [s for s in got if s.name == "image.capture"]
+        assert len(captures) == (replayed == n_img - 2)
+        assert sum(s.name == "image.wait" for s in got) == replayed
