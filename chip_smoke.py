@@ -187,6 +187,28 @@ trunk's tp = 2 shard shapes (``TP2_SHARD_SHAPES``), and the flash forward,
 dQ and dK/dV at phase 18's shard (rows 8, H = 8); its 1B training shape
 (rows 32, H = 16) is also the 7B trunk's tp = 2 shard.
 
+19. step 3 on an MLA/MoE trunk: ``pipeline.step3.run_step3`` over one
+    group of 24 CFG pairs (phase 6's prompts) through an ``ImageGenEngine``
+    on a Janus model whose trunk is DeepSeek-V2-Lite at its full width and
+    depth (``benchmark/configs/janus-deepseek-v2-lite.json``: 27 layers, 26
+    of them MoE with 64 routed experts top-6 and 2 shared), random bf16
+    weights made on the card by the benchmark's harness and handed to
+    ``models/weights.load_janus`` from memory, quantized to int8; the
+    launch counters are zeroed just before it, and each of ``ops/moe.py``'s
+    five kernels must launch 26 x 576 times (the prefill and 575 cached
+    steps, replayed from the trunk graph), the group's ``image.experts``
+    span must count 26 x 575 x 48 x 6 routed rows, and the tree must hold
+    24 real images.  ``--moe-only`` runs phase 1, phase 2's MoE check and
+    this phase.
+
+Phase 2 also holds ``ops/moe.py``'s kernels (``routed_experts`` on card
+tensors) against the plain functions on the same tensors at
+DeepSeek-V2-Lite's widths, a decode step's 48 tokens and a prefill
+bucket's 48 x 64: the plain routing but at fp32 ties, the same weights
+and counts, outputs within bf16 rounding, and two controls (a routed slot
+dropped, one expert's down scales read from the next) outside that
+tolerance.
+
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -393,7 +415,8 @@ def merged(base: dict, over: dict) -> dict:
 
 # kernels whose ptxas report phase 1 reads: a register spill fails the run
 SPILL_CHECKED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                 "decode_attention", "int4_matmul_row", "int4_matmul_group")
+                 "decode_attention", "int4_matmul_row", "int4_matmul_group",
+                 "moe_experts")
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, int8 tensor cores,
 # HBM3 bandwidth
@@ -2574,6 +2597,192 @@ class Smoke:
                        "t0": time.time()}
         print(f"synthetic 1B directory: writer started (pid {proc.pid})")
 
+    # -- phase 2: the MoE kernels ----------------------------------------
+    def moe_kernels(self):
+        """``ops/moe.py``'s five kernels (``routed_experts`` on card tensors)
+        against the plain functions on the same card tensors, at
+        DeepSeek-V2-Lite's widths (64 routed experts, top-6, 2 shared, D
+        2048, F 1408): a decode step's 48 tokens (tiles of 16) and a
+        prefill bucket's 48 x 64 (tiles of 64).  Routing (``moe_route``):
+        ``route_plain``'s experts but where a token's k-th and next scores
+        tie to fp32 rounding (a chosen expert at most 1e-6 below the plain
+        k-th score, at most 1 token in 500 differing), weights within 1e-5.
+        Grouping and GEMMs, with the kernels' own routing handed to the plain
+        version: the same counts, the output within bf16 rounding of each
+        stage (2^-7 |ref| + 1e-2 max|ref|: the products are exact in fp32 on
+        both sides, only the order of the sums differs), and two controls
+        outside that tolerance: one routed slot dropped (weight 0) and the
+        down scales of one expert read from the next.  Times: CUDA-graph
+        replay of 10 calls, every call reading its 553.6 MB of routed-expert
+        rows from device memory."""
+        from ospo_tpu_torch.ops import moe
+        from ospo_tpu_torch.ops.quant import quantize_matrix
+
+        dev = torch.device("cuda")
+        E, S, D, F, k = 64, 2, 2048, 1408, 6
+        g = torch.Generator(device=dev).manual_seed(3)
+        w13 = quantize_matrix((torch.randn((E + S, 2 * F, D), generator=g, device=dev)
+                               * D ** -0.5).to(torch.bfloat16))
+        w2 = quantize_matrix((torch.randn((E + S, D, F), generator=g, device=dev)
+                              * F ** -0.5).to(torch.bfloat16))
+        router = (torch.randn((E, D), generator=g, device=dev) * D ** -0.5).to(torch.bfloat16)
+
+        def plain(x, ti, tw, w2p=w2):
+            bm = moe.block_m(ti.numel(), E + S)
+            c, off, src, te, ts = moe.align_plain(ti, E + S, bm)
+            h = moe.gate_up_plain(x, src, off, te, ts, w13, k + S, bm)
+            y = moe.down_plain(h, src, off, te, ts, w2p, bm)
+            return moe.combine_plain(y, tw, x.dtype), c
+
+        def within(got, want):
+            gf, wf = got.float(), want.float()
+            tol = 2 ** -7 * wf.abs() + 1e-2 * float(wf.abs().max())
+            return bool(((gf - wf).abs() <= tol).all()), max_err(gf, wf)
+
+        names = ("route_launches", "align_launches", "gate_up_launches",
+                 "down_launches", "combine_launches")
+        for n_tok, what in ((48, "decode"), (48 * 64, "prefill")):
+            x = (torch.randn((n_tok, D), generator=g, device=dev)).to(torch.bfloat16)
+            counts = torch.zeros(E + S, dtype=torch.int32, device=dev)
+            n0 = {n: getattr(moe, n) for n in names}
+            got = moe.routed_experts(x, router, w13, w2, k, counts, n_shared=S)
+            torch.cuda.synchronize()
+            moved = all(getattr(moe, n) == v + 1 for n, v in n0.items())
+            ti, tw = moe.route(x, router, k, n_shared=S)
+            differ, shortfall, w_err = moe.routing_gap(x, router, ti, tw, k)
+            want, c = plain(x, ti, tw)
+            ok, err = within(got, want)
+            self.check(moved and differ <= n_tok // 500 and shortfall <= 1e-6
+                       and w_err <= 1e-5 and torch.equal(counts, c) and ok,
+                       f"moe kernels {what} ({n_tok} tokens, {n_tok * (k + S)} rows): "
+                       f"each kernel launched once {moved}; routing: {differ} tokens "
+                       f"differ (at most {n_tok // 500}), shortfall {shortfall:.3g} (tol "
+                       f"1e-6), weights max|d| {w_err:.3g} (tol 1e-5); counts equal "
+                       f"{torch.equal(counts, c)}, output max|d| {err:.3g} of max|ref| "
+                       f"{float(want.float().abs().max()):.3g} (tol 2^-7|ref| + "
+                       f"1e-2 max|ref|)")
+            dropped = tw.clone()
+            dropped[:, 0] = 0
+            shifted = {"q": w2["q"], "s": torch.roll(w2["s"], 1, dims=0)}
+            for name, ctl in (("a routed slot dropped", plain(x, ti, dropped)[0]),
+                              ("one expert's down scales read from the next",
+                               plain(x, ti, tw, shifted)[0])):
+                ctl_ok, ctl_err = within(ctl, want)
+                self.check(not ctl_ok, f"moe {what} control, {name}: max|d| "
+                                       f"{ctl_err:.3g}, outside the tolerance")
+            if what == "decode":
+                ms = cuda_ms_graph([lambda: moe.routed_experts(
+                    x, router, w13, w2, k, counts, n_shared=S)], 10)
+                plain_ms = cuda_ms(lambda: plain(x, *moe.with_shared(
+                    *moe.route_plain(x, router, k), E, S)), 3, 1)
+                touched = int((c > 0).sum())
+                nbytes = touched * (3 * D * F + 4 * (2 * F + D))
+                flops = 2 * n_tok * (k + S) * 3 * D * F
+                bound_ms = max(nbytes / PEAK_BYTES, flops / PEAK_BF16) * 1e3
+                print(f"moe kernels, one layer at 48 tokens: {ms:.4f} ms (graph "
+                      f"replay, cold), plain {plain_ms:.3f} ms (it walks the tile table "
+                      f"on the host), bound {bound_ms:.4f} ms (bytes: {touched} "
+                      f"experts, {nbytes / 1e6:.1f} MB)")
+                self.kernels["moe_experts"] = {
+                    "name": "moe_experts", "route": "cuda",
+                    "source": "ospo_tpu_torch/ops/csrc/moe_experts.cu",
+                    "replaces": None, "launches": None, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                    "library_ms": None,
+                    "library_note": "no PyTorch call computes grouped W8A16 experts"}
+            del x, got, want
+
+    # -- phase 19 --------------------------------------------------------
+    def moe_path(self):
+        """Step 3 on the MLA/MoE trunk (module docstring, phase 19)."""
+        import gc
+
+        sys.path.insert(0, os.path.join(ROOT, "benchmark"))
+        from harness.port import load_model, processor_for
+        from harness.weights_deepseek_v2 import make_weights
+
+        from ospo_tpu_torch.config import Config
+        from ospo_tpu_torch.engine.image_engine import ImageGenEngine
+        from ospo_tpu_torch.io import read_json
+        from ospo_tpu_torch.ops import moe
+        from ospo_tpu_torch.pipeline.step3 import run_step3
+        from ospo_tpu_torch.utils import profiling
+        from ospo_tpu_torch.utils.png import read_png
+
+        gc.collect()  # the previous phase's model goes first
+        torch.cuda.empty_cache()
+        with open(os.path.join(ROOT, "benchmark", "configs",
+                               "janus-deepseek-v2-lite.json")) as f:
+            cfg = json.load(f)
+        dev = torch.device("cuda")
+        root = os.path.join(self.workdir, "step3_moe")
+        t0 = time.time()
+        weights = make_weights(cfg, ("language", "generation"), 1234, dev)
+        model = load_model(cfg, weights, os.path.join(root, "model"), dev,
+                           quantize="int8")
+        del weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        mc = model.cfg
+        lc = mc.language
+        print(f"MoE path: DeepSeek-V2-Lite trunk ({lc.num_layers} layers, "
+              f"{lc.n_moe} MoE, {lc.n_routed_experts} + {lc.n_shared_experts} experts) "
+              f"loaded through load_janus and quantized in {time.time() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        proc = processor_for(model, cfg)
+        engine = ImageGenEngine(model, proc, cfg_weight=5.0, temperature=1.0,
+                                image_token_num=mc.num_gen_tokens,
+                                img_size=mc.gen_image_size,
+                                patch_size=mc.vq.downsample_factor, decode_segments=8,
+                                batch_cap=N_ITEMS)
+        items = read_json(FIXTURE)[:N_ITEMS]
+        for sample in items:
+            sample["long_prompt"] = [sample["long_prompt"][0], "", ""]
+            sample["negative_long_prompt"] = ["", "", ""]
+        names = ("moe_route", "moe_align", "moe_gate_up", "moe_down", "moe_combine")
+        for name in names:
+            setattr(moe, profiling._LAUNCH_COUNTERS[name][1], 0)
+        torch.cuda.reset_peak_memory_stats()
+        t_run = time.perf_counter()
+        stats = run_step3(Config.from_nested({"batch_size": N_ITEMS, "seed_list": [0, 1, 2],
+                                              "save_path": os.path.join(root, "out")}),
+                          engine, proc, items)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        launches = profiling.kernel_launches()
+        steps = mc.num_gen_tokens            # the prefill and 575 cached steps
+        want = lc.n_moe * steps
+        self.check(all(launches[n] == want for n in names),
+                   f"MoE path: each MoE kernel launched {lc.n_moe} x {steps} = {want} "
+                   f"times (prefill and cached steps, replays counted): "
+                   f"{ {n: launches[n] for n in names} }")
+        for name in names:
+            self.launches[name] = self.launches.get(name, 0) + launches[name]
+        self.launches["moe_experts"] = self.launches.get("moe_experts", 0) + sum(
+            launches[n] for n in names[:4])
+        experts = [s for s in profiling.spans(t_run) if s.name == "image.experts"]
+        routed = lc.n_moe * (steps - 1) * 2 * N_ITEMS * lc.num_experts_per_tok
+        got = experts[-1].attrs if experts else {}
+        self.check(len(experts) == 1 and got.get("routed_rows") == routed,
+                   f"MoE path: one image.experts span, routed_rows "
+                   f"{got.get('routed_rows')} == {routed}; idle experts "
+                   f"{got.get('idle_experts')} of {got.get('expert_slots')}, busiest "
+                   f"{got.get('busiest_rows')}")
+        pngs = [os.path.join(root, "out", "base", s["category"], s["item_id"], "00.png")
+                for s in items]
+        real = [p for p in pngs if os.path.exists(p) and _real_png(read_png(p))]
+        graphed = engine._graph is not None and engine._graph.graph is not None
+        self.check(len(real) == N_ITEMS and graphed,
+                   f"MoE path: {len(real)} of {N_ITEMS} real PNGs, the cached step "
+                   f"replayed from a CUDA graph {graphed}")
+        print(f"MoE path: one group of {N_ITEMS} CFG pairs in {wall:.2f} s "
+              f"({N_ITEMS * steps / wall:.1f} img-tok/s), peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; run_step3 stats "
+              f"{json.dumps(stats)[:300]}")
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
     def close(self):
         """Stop what the script started and has not waited for."""
         proc = getattr(self, "writer", {}).get("proc")
@@ -3935,6 +4144,8 @@ def main() -> int:
     parser.add_argument("--skip-main", action="store_true",
                         help="stop after phase 3 (kernel and small-model "
                              "checks only)")
+    parser.add_argument("--moe-only", action="store_true",
+                        help="phase 1, phase 2's MoE kernels and phase 19 only")
     parser.add_argument("--tp-worker", metavar="DIR",
                         help="run one rank of phase 16 on the inputs in DIR "
                              "(started by the script itself)")
@@ -3962,24 +4173,30 @@ def main() -> int:
         smoke.phase("environment and kernel build", smoke.environment)
         if smoke.failures:
             return 1
-        smoke.phase("flash_fwd kernel vs plain", smoke.flash_kernel)
-        smoke.phase("flash dQ and dK/dV kernels vs plain",
-                    smoke.flash_backward_kernels)
-        smoke.phase("decode_attention kernel vs plain", smoke.decode_kernel)
-        smoke.phase("int4 row and group decode-matmul kernels vs plain",
-                    smoke.int4_kernels)
-        smoke.phase("flash_fwd and decode_attention at the text shapes",
-                    smoke.text_kernels)
-        smoke.phase("flash_fwd at the step-4b scoring shapes",
-                    smoke.scoring_kernels)
-        smoke.phase("small model GPU vs CPU", smoke.small_model)
-        smoke.phase("small model text decode GPU vs CPU", smoke.small_text)
-        smoke.phase("small model scoring GPU vs CPU", smoke.small_scoring)
-        smoke.phase("small model training step GPU vs CPU",
-                    smoke.small_train_step)
-        smoke.phase("small model bf16 training step, backward kernels vs "
-                    "plain", smoke.small_train_step_bf16)
-        if not args.skip_main:
+        if args.moe_only:
+            smoke.phase("moe kernels vs plain", smoke.moe_kernels)
+            smoke.phase("main path: step 3 on an MLA/MoE trunk at DeepSeek-V2-Lite "
+                        "width", smoke.moe_path)
+        else:
+            smoke.phase("flash_fwd kernel vs plain", smoke.flash_kernel)
+            smoke.phase("flash dQ and dK/dV kernels vs plain",
+                        smoke.flash_backward_kernels)
+            smoke.phase("decode_attention kernel vs plain", smoke.decode_kernel)
+            smoke.phase("int4 row and group decode-matmul kernels vs plain",
+                        smoke.int4_kernels)
+            smoke.phase("moe kernels vs plain", smoke.moe_kernels)
+            smoke.phase("flash_fwd and decode_attention at the text shapes",
+                        smoke.text_kernels)
+            smoke.phase("flash_fwd at the step-4b scoring shapes",
+                        smoke.scoring_kernels)
+            smoke.phase("small model GPU vs CPU", smoke.small_model)
+            smoke.phase("small model text decode GPU vs CPU", smoke.small_text)
+            smoke.phase("small model scoring GPU vs CPU", smoke.small_scoring)
+            smoke.phase("small model training step GPU vs CPU",
+                        smoke.small_train_step)
+            smoke.phase("small model bf16 training step, backward kernels vs "
+                        "plain", smoke.small_train_step_bf16)
+        if not (args.skip_main or args.moe_only):
             smoke.phase("main path: step 3 at 7B width", smoke.main_path)
             smoke.phase("main path: step 5 at 7B width", smoke.train_path)
             smoke.phase("main path: step 3 at 7B width, quantize int4g",
@@ -4021,6 +4238,8 @@ def main() -> int:
                         smoke.tp_train_path)
             smoke.phase("main path: the weights gate at 1B width from the "
                         "directory", smoke.weights_gate)
+            smoke.phase("main path: step 3 on an MLA/MoE trunk at DeepSeek-V2-Lite "
+                        "width", smoke.moe_path)
     finally:
         if smoke is not None:
             smoke.close()
@@ -4028,6 +4247,9 @@ def main() -> int:
     if smoke.failures or args.skip_main:
         print(f"FAILED: {smoke.failures}")
         return 1
+    if args.moe_only:
+        print(json.dumps({"ok": True, "moe_only": True}))
+        return 0
     for name, entry in smoke.kernels.items():
         entry["launches"] = smoke.launches.get(name, 0)
     print(json.dumps({"kernels": list(smoke.kernels.values())}))

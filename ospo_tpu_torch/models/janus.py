@@ -18,7 +18,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ospo_tpu_torch.models import llama, projector, vit, vqgan
+from ospo_tpu_torch.models import deepseek_v2, llama, projector, vit, vqgan
 from ospo_tpu_torch.ops import quant
 from ospo_tpu_torch.parallel import mesh as mesh_lib
 
@@ -166,12 +166,20 @@ def lm_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
 
 
 def language_forward(params: Params, cfg: JanusConfig, *args, **kwargs):
+    """The trunk's forward: ``llama.forward``, or ``deepseek_v2.forward``
+    for an MLA/MoE trunk (the same arguments and result)."""
+    if deepseek_v2.is_mla(cfg.language):
+        return deepseek_v2.forward(params["language_model"], cfg.language,
+                                   *args, **kwargs)
     return llama.forward(params["language_model"], cfg.language, *args, **kwargs)
 
 
 def init_kv_cache(params: Params, cfg: JanusConfig, *args, **kwargs):
     """The trunk's KV cache for the heads this process holds (all of them,
-    or its tensor-parallel share): ``llama.init_kv_cache``'s arguments."""
+    or its tensor-parallel share): ``llama.init_kv_cache``'s arguments; an
+    MLA/MoE trunk's latent cache (``deepseek_v2.init_kv_cache``)."""
+    if deepseek_v2.is_mla(cfg.language):
+        return deepseek_v2.init_kv_cache(cfg.language, *args, **kwargs)
     return llama.init_kv_cache(
         llama.local_config(cfg.language, params["language_model"]),
         *args, **kwargs)
@@ -359,6 +367,9 @@ class JanusModel:
         understanding tower.  The head and the understanding tower come from
         generators of their own, so leaving them out changes no other weight
         of a seed."""
+        if deepseek_v2.is_mla(cfg.language):
+            raise NotImplementedError("random init (JanusModel.init) is not "
+                                      "ported for the MLA/MoE trunk: load it")
         mode = quant.quant_mode(quantize)
         device = torch.device(device or "cuda")
         ini = _Init(seed, device)

@@ -30,6 +30,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from ospo_tpu_torch.models import deepseek_v2
 from ospo_tpu_torch.models import janus as janus_lib
 from ospo_tpu_torch.models import llama as llama_lib
 from ospo_tpu_torch.models import vit as vit_lib
@@ -104,18 +105,21 @@ def config_from_checkpoint(model_path: str) -> janus_lib.JanusConfig:
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(
         hf.get("torch_dtype"), torch.bfloat16)
     lc = hf.get("language_config", {})
-    lang = llama_lib.LlamaConfig(
-        vocab_size=lc.get("vocab_size", 102400),
-        hidden_size=lc.get("hidden_size", 4096),
-        intermediate_size=lc.get("intermediate_size", 11008),
-        num_layers=lc.get("num_hidden_layers", 30),
-        num_heads=lc.get("num_attention_heads", 32),
-        num_kv_heads=lc.get("num_key_value_heads"),
-        rope_theta=lc.get("rope_theta", 10000.0),
-        rms_norm_eps=lc.get("rms_norm_eps", 1e-6),
-        max_seq_len=lc.get("max_position_embeddings", 4096),
-        dtype=dtype,
-    )
+    if lc.get("model_type") == "deepseek_v2":
+        lang = deepseek_v2.config_from_hf(lc, dtype)
+    else:
+        lang = llama_lib.LlamaConfig(
+            vocab_size=lc.get("vocab_size", 102400),
+            hidden_size=lc.get("hidden_size", 4096),
+            intermediate_size=lc.get("intermediate_size", 11008),
+            num_layers=lc.get("num_hidden_layers", 30),
+            num_heads=lc.get("num_attention_heads", 32),
+            num_kv_heads=lc.get("num_key_value_heads"),
+            rope_theta=lc.get("rope_theta", 10000.0),
+            rms_norm_eps=lc.get("rms_norm_eps", 1e-6),
+            max_seq_len=lc.get("max_position_embeddings", 4096),
+            dtype=dtype,
+        )
     gvp = hf.get("gen_vision_config", {}).get("params", {})
     vqp = gvp.get("vq")
     vq = vqgan_lib.VQConfig(
@@ -259,6 +263,114 @@ def _port_llama(ck: _Checkpoint, cfg: llama_lib.LlamaConfig, quantize,
     return out
 
 
+def _port_deepseek_v2(ck: _Checkpoint, cfg: deepseek_v2.DeepseekV2Config,
+                      quantize, lm_head: bool,
+                      prefix: str = "language_model.") -> Params:
+    """The MLA/MoE trunk (``models/deepseek_v2.py``'s tree).  ``quantize``
+    ("" or "int8") quantizes every projection, the shared experts and the
+    routed experts, each matrix as it is read, into int8 stacks allocated
+    once: no stack of model-dtype experts is ever made.  The router stays
+    in the model dtype."""
+    from ospo_tpu_torch.ops import quant
+
+    mode = quant.quant_mode(quantize)
+    if mode not in ("", "int8"):
+        raise NotImplementedError(
+            f"quantize {mode!r}: the MLA/MoE trunk takes int8 (W8A16) or the "
+            "model dtype")
+    dt = cfg.dtype
+    qfn = quant.quant_fn(mode) if mode else None
+    pre = prefix + "model.layers."
+
+    def stack(keys, quantized: bool):
+        """The matrices of ``keys`` stacked on a leading axis, each read,
+        quantized and written on its own."""
+        out = None
+        for idx, key in enumerate(keys):
+            w = ck.get(key, dt)
+            parts = qfn(w) if quantized and qfn else {"w": w}
+            if out is None:
+                out = {n: torch.empty((len(keys), *t.shape), dtype=t.dtype,
+                                      device=t.device) for n, t in parts.items()}
+            for n, t in parts.items():
+                out[n][idx] = t
+        return out["w"] if "w" in out else out
+
+    L = cfg.num_layers
+    attn = {"attn_norm": ("input_layernorm", False),
+            "wq": ("self_attn.q_proj", True),
+            "wkv_a": ("self_attn.kv_a_proj_with_mqa", True),
+            "kv_norm": ("self_attn.kv_a_layernorm", False),
+            "wkv_b": ("self_attn.kv_b_proj", True),
+            "wo": ("self_attn.o_proj", True),
+            "mlp_norm": ("post_attention_layernorm", False)}
+    layers = {name: stack([f"{pre}{i}.{hf}.weight" for i in range(L)], q)
+              for name, (hf, q) in attn.items()}
+
+    def mlp(layer_ids, part):
+        return {name: stack([f"{pre}{i}.{part}.{hf}.weight" for i in layer_ids], True)
+                for name, hf in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                                 ("w_down", "down_proj"))}
+
+    moe_ids = range(cfg.n_dense, L)
+    out = {
+        "embed": ck.get(prefix + "model.embed_tokens.weight", dt),
+        "layers": layers,
+        "moe": {"router": stack([f"{pre}{i}.mlp.gate.weight" for i in moe_ids], False)},
+        "final_norm": ck.get(prefix + "model.norm.weight", dt),
+    }
+    if cfg.n_dense:
+        out["dense"] = mlp(range(cfg.n_dense), "mlp")
+    out["moe"]["w13"], out["moe"]["w2"] = _port_experts(ck, cfg, qfn, pre, moe_ids)
+    out["layers"]["w_uk"], out["layers"]["w_uv"] = deepseek_v2.absorbed(
+        layers["wkv_b"], cfg)
+    if lm_head:
+        out["lm_head"] = ck.get(prefix + "lm_head.weight", dt)
+    return out
+
+
+def _port_experts(ck: _Checkpoint, cfg: deepseek_v2.DeepseekV2Config, qfn,
+                  pre: str, moe_ids):
+    """``w13`` ``[Lm, E + S, 2F, D]`` (gate rows, then up rows) and ``w2``
+    ``[Lm, E + S, D, F]`` of the MoE layers: the E routed experts, then the
+    shared MLP (width ``S · F``) cut into S experts of width F (its down
+    rows quantized whole, so each part keeps the row's scale).  Each matrix
+    is read, quantized and written into stacks allocated once."""
+    E, S, F = cfg.n_routed_experts, cfg.n_shared_experts, cfg.moe_intermediate_size
+    dt = cfg.dtype
+    stacks = [None, None]
+
+    def put(which, m, e, w):
+        parts = qfn(w) if qfn else {"w": w}
+        if stacks[which] is None:
+            stacks[which] = {n: torch.empty((len(moe_ids), E + S, *t.shape),
+                                            dtype=t.dtype, device=t.device)
+                             for n, t in parts.items()}
+        for n, t in parts.items():
+            stacks[which][n][m, e] = t
+
+    def mats(key):
+        return [ck.get(f"{key}.{n}_proj.weight", dt) for n in ("gate", "up", "down")]
+
+    for m, i in enumerate(moe_ids):
+        for e in range(E):
+            g, u, d = mats(f"{pre}{i}.mlp.experts.{e}")
+            put(0, m, e, torch.cat([g, u]))
+            put(1, m, e, d)
+        if not S:
+            continue
+        g, u, d = mats(f"{pre}{i}.mlp.shared_experts")
+        if qfn:   # the whole down rows' scales, then cut by columns
+            qd = qfn(d)
+            stacks[1]["q"][m, E:] = torch.stack(qd["q"].chunk(S, dim=1))
+            stacks[1]["s"][m, E:] = qd["s"]
+        else:
+            stacks[1]["w"][m, E:] = torch.stack(d.chunk(S, dim=1))
+        for j, (gj, uj) in enumerate(zip(g.chunk(S), u.chunk(S))):
+            put(0, m, E + j, torch.cat([gj, uj]))
+    return tuple(st["w"] if "w" in st else st for st in stacks)
+
+
 def _port_vq(ck: _Checkpoint, cfg: vqgan_lib.VQConfig,
              prefix: str = "gen_vision_model.") -> Params:
     f32 = torch.float32
@@ -386,7 +498,8 @@ def load_janus(model_path: str, device=None,
     cfg = cfg or config_from_checkpoint(model_path)
     understanding = understanding and vision
     ck = _Checkpoint(model_path, device)
-    params = {"language_model": _port_llama(ck, cfg.language, quantize, lm_head)}
+    port = _port_deepseek_v2 if deepseek_v2.is_mla(cfg.language) else _port_llama
+    params = {"language_model": port(ck, cfg.language, quantize, lm_head)}
     if understanding:
         params["vision_model"] = _port_vit(ck, cfg.vision)
         params["aligner"] = _port_mlp_projector(ck, "aligner.",

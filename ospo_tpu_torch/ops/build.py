@@ -27,9 +27,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the exported entry points (every pointer and the stream
-# as c_void_p, every int as c_int; each returns a cudaError_t)
+# as c_void_p, every int as c_int, a float as c_float; each returns a
+# cudaError_t)
 SIGNATURES = {
     "flash_fwd": ("ospo_flash_fwd", [P] * 7 + [I] * 8 + [P]),
     "flash_bwd_dq": ("ospo_flash_bwd_dq", [P] * 9 + [I] * 8 + [P]),
@@ -37,6 +38,7 @@ SIGNATURES = {
     "decode_attention": ("ospo_decode_attention", [P] * 10 + [I] * 10 + [P]),
     "int4_matmul_row": ("ospo_int4_matmul_row", [P] * 5 + [I] * 6 + [P]),
     "int4_matmul_group": ("ospo_int4_matmul_group", [P] * 5 + [I] * 7 + [P]),
+    "moe_experts": ("ospo_moe_gate_up", [P] * 8 + [I] * 6 + [P]),
 }
 
 # further exported functions of a library: symbol → argument types (each
@@ -44,6 +46,9 @@ SIGNATURES = {
 EXTRA = {
     "int4_matmul_row": {"ospo_int4_matmul_row_clusters": [I, I]},
     "int4_matmul_group": {"ospo_int4_matmul_group_clusters": [I, I]},
+    "moe_experts": {"ospo_moe_down": [P] * 8 + [I] * 5 + [P],
+                    "ospo_moe_route": [P] * 4 + [I] * 6 + [F, P],
+                    "ospo_moe_align": [P] * 7 + [I] * 4 + [P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

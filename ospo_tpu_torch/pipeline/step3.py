@@ -28,7 +28,8 @@ from typing import List
 import torch
 
 from ospo_tpu_torch.config import build_config
-from ospo_tpu_torch.engine.image_engine import ImageGenEngine
+from ospo_tpu_torch.engine.image_engine import (ImageGenEngine,
+                                                record_expert_span)
 from ospo_tpu_torch.io import save_json, shard_for_process
 from ospo_tpu_torch.parallel import mesh as mesh_lib
 from ospo_tpu_torch.pipeline.datasets import batched, load_base_dataset
@@ -98,6 +99,10 @@ def run_step3(config, engine: ImageGenEngine, processor, data: List[dict]) -> di
                 with span("step3.group", pairs=n_real) as group:
                     device_images = engine.generate_images_device(
                         prompt_lists[idx], seed=seed_list[idx % 3])
+                    # an MLA/MoE trunk's routing counters, read after the
+                    # writer's fetch of the group's pixels (an engine of
+                    # another kind has none)
+                    experts = getattr(engine, "take_expert_rows", lambda: None)()
                 n_groups += 1
                 n_images += n_real
                 if not writes:
@@ -105,10 +110,12 @@ def run_step3(config, engine: ImageGenEngine, processor, data: List[dict]) -> di
                 n_written += n_real
 
                 def fetch_and_save(dev=device_images, paths=path_lists[idx],
-                                   n=n_real, group=group):
+                                   n=n_real, group=group, experts=experts):
                     try:
                         with span("step3.png_write", parent=group):
                             save_images(dev[:n].cpu().numpy(), paths)
+                        if experts is not None:
+                            record_expert_span(experts, parent=group)
                         with write_lock:
                             writer_stats["ok"] += 1
                     except Exception as e:  # one group, not the stage

@@ -228,6 +228,11 @@ _LAUNCH_COUNTERS = {
     "decode_attention": ("decode_attention", "launches"),
     "int4_matmul_row": ("int4_matmul", "row_launches"),
     "int4_matmul_group": ("int4_matmul", "group_launches"),
+    "moe_route": ("moe", "route_launches"),
+    "moe_align": ("moe", "align_launches"),
+    "moe_gate_up": ("moe", "gate_up_launches"),
+    "moe_down": ("moe", "down_launches"),
+    "moe_combine": ("moe", "combine_launches"),
 }
 
 
