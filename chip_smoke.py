@@ -416,7 +416,7 @@ def merged(base: dict, over: dict) -> dict:
 # kernels whose ptxas report phase 1 reads: a register spill fails the run
 SPILL_CHECKED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                  "decode_attention", "int4_matmul_row", "int4_matmul_group",
-                 "moe_experts")
+                 "moe_experts", "w8a16_matmul")
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, int8 tensor cores,
 # HBM3 bandwidth
@@ -474,6 +474,12 @@ def cuda_ms_graph(fns, iters: int, replays: int = 5) -> float:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def bf16_step(v: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |v| (fp32): 2^(floor(log2 |v|) - 7)."""
+    e = torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
 
 
 class Smoke:
@@ -1105,6 +1111,98 @@ class Smoke:
                                 "the weight larger than the L2",
             }
 
+    def w8a16_kernel(self):
+        """The weight-only int8 T == 1 product (``quant.w8a16_matmul``)
+        against the plain ``_w8a16`` on the card at 48 rows and the 7B and 1B
+        projection shapes, as a step launches them: q, k and v in one launch,
+        o, gate and up in one, down.  Tolerance one bf16 step of |ref| plus
+        2^-8 max|ref| (both sides round the fp32 sum, then the scaled value;
+        only the order of the fp32 sums differs); a second call bit-equal.
+        Times: CUDA-graph replay over copies of the weights larger than the
+        L2, beside the bytes bound, the plain version (copy + cuBLAS + scale)
+        and cuBLAS on the weight dequantized to bf16 ahead of time."""
+        from ospo_tpu_torch.ops import quant
+
+        dev = torch.device("cuda")
+        M = 48
+        # (label, [F...] sharing x, D): one launch each, the 7B layer then 1B
+        launches = (("7b wq/wk/wv", [4096] * 3, 4096), ("7b wo", [4096], 4096),
+                    ("7b w_gate/w_up", [11008] * 2, 4096), ("7b w_down", [4096], 11008),
+                    ("1b wq/wk/wv", [2048] * 3, 2048), ("1b wo", [2048], 2048),
+                    ("1b w_gate/w_up", [5632] * 2, 2048), ("1b w_down", [2048], 5632))
+        g = torch.Generator(device=dev).manual_seed(19)
+        worst, layer_ms, rows = 0.0, {"7b": [0.0] * 4, "1b": [0.0] * 4}, {}
+        prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        try:
+            for label, fs, D in launches:
+                qws = [quant.quantize_matrix(
+                    (torch.randn((F, D), generator=g, device=dev) * 0.02).to(torch.bfloat16))
+                    for F in fs]
+                x = torch.randn((M, 1, D), generator=g, device=dev).to(torch.bfloat16)
+                got = quant.w8a16_matmul(x, qws)
+                ref = [quant._w8a16(x, w["q"], w["s"]) for w in qws]
+                same = all(torch.equal(a, b) for a, b in zip(got, quant.w8a16_matmul(x, qws)))
+                ok, err = True, 0.0
+                for a, r in zip(got, ref):
+                    rf = r.float()
+                    tol = bf16_step(rf) + 2 ** -8 * float(rf.abs().max())
+                    ok &= bool(((a.float() - rf).abs() <= tol).all())
+                    err = max(err, max_err(a, r))
+                worst = max(worst, err)
+                self.check(ok and same, f"w8a16_matmul {label} M={M} F={fs} D={D}: "
+                           f"max|d|={err:.3g} (tol one bf16 step of |ref| + 2^-8 "
+                           f"max|ref|); a second call bit-identical: {same}")
+                nbytes = sum(F * D + 4 * F + 2 * M * F for F in fs) + 2 * M * D
+                flops = 2.0 * M * D * sum(fs)
+                bound_ms = max(nbytes / PEAK_BYTES, flops / PEAK_BF16) * 1e3
+                copies = -(-120_000_000 // nbytes)
+                sets = [[{k: t.clone() for k, t in w.items()} for w in qws]
+                        for _ in range(copies)]
+                ms = cuda_ms_graph([lambda w=w: quant.w8a16_matmul(x, w) for w in sets],
+                                   10 * copies)
+                plain_ms = cuda_ms_graph(
+                    [lambda w=w: [quant._w8a16(x, v["q"], v["s"]) for v in w]
+                     for w in sets], 10 * copies)
+                del sets
+                wbs = [torch.cat([(w["q"].float() * w["s"][:, None]).to(torch.bfloat16)
+                                  for w in qws])]
+                wbs += [wbs[0].clone() for _ in range(-(-120_000_000 // wbs[0].nbytes) - 1)]
+                x2 = x[:, 0]
+                lib_ms = cuda_ms_graph([lambda w=w: x2 @ w.T for w in wbs], 10 * len(wbs))
+                del wbs
+                size, part = label.split(" ", 1)
+                layer_ms[size][[t[0] for t in launches if t[0].startswith(size)]
+                               .index(label)] = ms
+                print(f"w8a16_matmul {label} (M={M} F={fs} D={D}): kernel {ms:.4f} ms "
+                      f"cold in L2 ({100 * bound_ms / ms:.1f}% of bound, "
+                      f"{nbytes / ms / 1e6:.1f} GB/s); plain (copy + cuBLAS + scale) "
+                      f"{plain_ms:.4f} ms; cuBLAS bf16 on the weight dequantized "
+                      f"ahead {lib_ms:.4f} ms; bound {bound_ms:.5f} ms "
+                      f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+                rows[label] = (ms, plain_ms, bound_ms, lib_ms)
+                del qws, x, got, ref
+        finally:
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
+        for size, layers in (("7b", 30), ("1b", 24)):
+            print(f"w8a16_matmul: one {size} decode step's projections at these "
+                  f"times ({layers} layers x 4 launches): "
+                  f"{layers * sum(layer_ms[size]):.3f} ms")
+        torch.cuda.empty_cache()
+        t = rows["7b w_gate/w_up"]
+        self.kernels["w8a16_matmul"] = {
+            "name": "w8a16_matmul", "route": "cuda",
+            "source": "ospo_tpu_torch/ops/csrc/w8a16_matmul.cu",
+            "replaces": None, "launches": None, "max_abs_err": worst,
+            "ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "bound_by": "bytes",
+            "library_ms": t[3],
+            "library_note": "cuBLAS bf16 x @ W^T on the two weights dequantized to "
+                            "bf16 ahead of time (2x the int8 bytes), at the 7B "
+                            "gate/up launch (M=48, F=2x11008, D=4096); device "
+                            "times from CUDA-graph replay over copies larger than "
+                            "the L2",
+        }
+
     def text_kernels(self):
         """The flash forward at the step-2 prefix prefill and the decode
         kernel at the text plain-path shape (module docstring)."""
@@ -1611,14 +1709,17 @@ class Smoke:
             "data_path": FIXTURE, "e_idx": N_ITEMS,
             "save_path": os.path.join(tmp, "step3")})
         from ospo_tpu_torch.ops import int4_matmul as i4
+        from ospo_tpu_torch.ops import quant
 
         torch.cuda.reset_peak_memory_stats()
         fa.launches = da.launches = i4.row_launches = i4.group_launches = 0
+        quant.w8a16_launches = 0
         t0 = time.time()
         stats = step3.main(config)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        counts = {"flash_fwd": fa.launches, "decode_attention": da.launches}
+        counts = {"flash_fwd": fa.launches, "decode_attention": da.launches,
+                  "w8a16_matmul": quant.w8a16_launches}
         self.check(i4.row_launches == i4.group_launches == 0,
                    "int8 weights launched no int4 kernel")
         print(f"main path step 3 launches: {counts}")
@@ -1637,6 +1738,10 @@ class Smoke:
         self.check(counts["decode_attention"] == layers * (n_img - 1) * groups,
                    f"decode_attention launches {counts['decode_attention']}"
                    f" == {layers} x {n_img - 1} x {groups} groups")
+        self.check(counts["w8a16_matmul"] == 4 * layers * (n_img - 1) * groups,
+                   f"w8a16_matmul launches {counts['w8a16_matmul']} == 4 x "
+                   f"{layers} x {n_img - 1} x {groups} groups (q, k and v; o; "
+                   "gate and up; down)")
         for name, n in counts.items():
             self.launches[name] = self.launches.get(name, 0) + n
 
@@ -2704,7 +2809,7 @@ class Smoke:
         from ospo_tpu_torch.config import Config
         from ospo_tpu_torch.engine.image_engine import ImageGenEngine
         from ospo_tpu_torch.io import read_json
-        from ospo_tpu_torch.ops import moe
+        from ospo_tpu_torch.ops import moe, quant
         from ospo_tpu_torch.pipeline.step3 import run_step3
         from ospo_tpu_torch.utils import profiling
         from ospo_tpu_torch.utils.png import read_png
@@ -2742,6 +2847,7 @@ class Smoke:
         names = ("moe_route", "moe_align", "moe_gate_up", "moe_down", "moe_combine")
         for name in names:
             setattr(moe, profiling._LAUNCH_COUNTERS[name][1], 0)
+        quant.w8a16_launches = 0
         torch.cuda.reset_peak_memory_stats()
         t_run = time.perf_counter()
         stats = run_step3(Config.from_nested({"batch_size": N_ITEMS, "seed_list": [0, 1, 2],
@@ -2760,6 +2866,16 @@ class Smoke:
             self.launches[name] = self.launches.get(name, 0) + launches[name]
         self.launches["moe_experts"] = self.launches.get("moe_experts", 0) + sum(
             launches[n] for n in names[:4])
+        # a cached step: each layer's q with the latent projection, and o; the
+        # dense layers' gate and up, and down (the prefill keeps its form)
+        dense = lc.num_layers - lc.n_moe
+        want = (2 * lc.num_layers + 2 * dense) * (steps - 1)
+        self.check(launches["w8a16_matmul"] == want,
+                   f"MoE path: w8a16_matmul launched {launches['w8a16_matmul']} == "
+                   f"(2 x {lc.num_layers} + 2 x {dense}) x {steps - 1} times (replays "
+                   "counted)")
+        self.launches["w8a16_matmul"] = (self.launches.get("w8a16_matmul", 0)
+                                         + launches["w8a16_matmul"])
         experts = [s for s in profiling.spans(t_run) if s.name == "image.experts"]
         routed = lc.n_moe * (steps - 1) * 2 * N_ITEMS * lc.num_experts_per_tok
         got = experts[-1].attrs if experts else {}
@@ -4185,6 +4301,7 @@ def main() -> int:
             smoke.phase("int4 row and group decode-matmul kernels vs plain",
                         smoke.int4_kernels)
             smoke.phase("moe kernels vs plain", smoke.moe_kernels)
+            smoke.phase("w8a16_matmul kernel vs plain", smoke.w8a16_kernel)
             smoke.phase("flash_fwd and decode_attention at the text shapes",
                         smoke.text_kernels)
             smoke.phase("flash_fwd at the step-4b scoring shapes",

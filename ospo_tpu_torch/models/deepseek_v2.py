@@ -64,7 +64,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ospo_tpu_torch.models.llama import linear, rms_norm
+from ospo_tpu_torch.models.llama import linear, linears, rms_norm
 from ospo_tpu_torch.ops import moe
 from ospo_tpu_torch.parallel import mesh as mesh_lib
 
@@ -349,8 +349,8 @@ def _attend_latent(q_nope, q_pe, ckv, w_uk, w_uv, bias, cfg: DeepseekV2Config):
 
 
 def _mlp(h: torch.Tensor, w: Params) -> torch.Tensor:
-    gate = linear(h, w["w_gate"])
-    act = F.silu(gate.float()).to(h.dtype) * linear(h, w["w_up"])
+    gate, up = linears(h, (w["w_gate"], w["w_up"]))
+    act = F.silu(gate.float()).to(h.dtype) * up
     return linear(act, w["w_down"])
 
 
@@ -420,8 +420,8 @@ def forward(params: Params, cfg: DeepseekV2Config, inputs_embeds: torch.Tensor,
     for li in range(cfg.num_layers):
         lp = _layer(params["layers"], li)
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-        q = linear(h, lp["wq"]).view(B, T, H, dn + dr)
-        ckv = linear(h, lp["wkv_a"])
+        q, ckv = linears(h, (lp["wq"], lp["wkv_a"]))
+        q = q.view(B, T, H, dn + dr)
         c = rms_norm(ckv[..., :R], lp["kv_norm"], cfg.rms_norm_eps)
         q_pe = apply_rope(q[..., dn:], rot)
         k_pe = apply_rope(ckv[..., None, R:], rot)[:, :, 0]

@@ -45,8 +45,8 @@ from ospo_tpu_torch.ops.int4_matmul import int4_matmul_decode
 from ospo_tpu_torch.ops.quant import (_pack_halves, quantized_matmul,
                                       quantized_matmul_int4,
                                       quantized_matmul_int4_group,
-                                      quantized_matmul_w8a8,
-                                      quantized_matmul_w8a16, w8a16_active)
+                                      quantized_matmul_w8a8, quantized_matmuls,
+                                      weight_only_int8)
 from ospo_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
@@ -161,18 +161,28 @@ def linear(x: torch.Tensor, w, row_parallel: bool = False) -> torch.Tensor:
     takes the abs-max over the model group."""
     if not isinstance(w, dict):
         return x @ w.T
+    int8 = weight_only_int8(w)
+    if int8 is not None:
+        return quantized_matmul(x, int8)
     if "sa" in w:
-        if w8a16_active():
-            return quantized_matmul_w8a16(x, w)
         return quantized_matmul_w8a8(
             x, w, mesh_lib.all_max_model if row_parallel else None)
-    if "q4" not in w:
-        return quantized_matmul(x, w)
     if x.shape[1] == 1:
         return int4_matmul_decode(x, w)
     if "gs" in w:
         return quantized_matmul_int4_group(x, w)
     return quantized_matmul_int4(x, w)
+
+
+def linears(x: torch.Tensor, ws) -> list:
+    """:func:`linear` of each column-parallel weight on one x.  Where all are
+    weight-only int8 products (``quant.weight_only_int8``) they go through
+    ``quant.quantized_matmuls``, which runs those of a T == 1 step on the
+    card in shared launches."""
+    int8 = [weight_only_int8(w) for w in ws]
+    if all(w is not None for w in int8):
+        return quantized_matmuls(x, int8)
+    return [linear(x, w) for w in ws]
 
 
 def _layer(layers: Params, li: int) -> Params:
@@ -568,9 +578,10 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
         if prefix_kv is not None:
             pk, pv = prefix_kv["k"][li], prefix_kv["v"][li]
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-        q = linear(h, lp["wq"]).view(B, T, cfg.num_heads, cfg.dim_head)
-        k = linear(h, lp["wk"]).view(B, T, cfg.kv_heads, cfg.dim_head)
-        v = linear(h, lp["wv"]).view(B, T, cfg.kv_heads, cfg.dim_head)
+        q, k, v = linears(h, (lp["wq"], lp["wk"], lp["wv"]))
+        q = q.view(B, T, cfg.num_heads, cfg.dim_head)
+        k = k.view(B, T, cfg.kv_heads, cfg.dim_head)
+        v = v.view(B, T, cfg.kv_heads, cfg.dim_head)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         _write_kv(kv_cache, li, write_at, k, v, cache_positions)
         if self_attn:
@@ -595,8 +606,7 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
         x = x + _row_parallel(linear(
             attn.reshape(B, T, cfg.num_heads * cfg.dim_head), lp["wo"], tp), tp)
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-        gate = linear(h, lp["w_gate"])
-        up = linear(h, lp["w_up"])
+        gate, up = linears(h, (lp["w_gate"], lp["w_up"]))
         act = F.silu(gate.float()).to(h.dtype) * up
         x = x + _row_parallel(linear(act, lp["w_down"], tp), tp)
 

@@ -13,14 +13,16 @@ A quantized matrix is a dict in torch layout ``[out, in]``:
   same packing with one scale per group of input columns.
 
 The T == 1 int4 products run in ``ops/int4_matmul.py`` (the CUDA kernels);
-the forms here serve the prefill (T > 1).
+the forms here serve the prefill (T > 1).  The T == 1 int8 product on the
+card runs ``csrc/w8a16_matmul.cu`` (:func:`w8a16_matmul`); ``_w8a16`` is its
+plain version and serves the rest.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -91,10 +93,101 @@ class _W8A16(torch.autograd.Function):
 def quantized_matmul(x: torch.Tensor, qw: Dict[str, torch.Tensor]) -> torch.Tensor:
     """y = x @ Wᵀ with W stored int8: the payload converted to x's dtype,
     then the per-row scale in x's dtype (``llama.py:207-209``).  Where x
-    needs a gradient it runs as :class:`_W8A16`."""
+    needs a gradient it runs as :class:`_W8A16`; a T == 1 product on the
+    card runs the kernel (:func:`w8a16_kernel_takes`)."""
     if x.requires_grad and torch.is_grad_enabled():
         return _W8A16.apply(x, qw["q"], qw["s"])
+    if w8a16_kernel_takes(x, [qw]):
+        return w8a16_matmul(x, [qw])[0]
     return _w8a16(x, qw["q"], qw["s"])
+
+
+def quantized_matmuls(x: torch.Tensor, qws) -> list:
+    """:func:`quantized_matmul` of each int8 ``{"q", "s"}`` matrix on one x;
+    on the kernel's route they share launches (up to
+    ``W8A16_MAX_MATS`` a launch)."""
+    if not w8a16_kernel_takes(x, qws):
+        return [quantized_matmul(x, qw) for qw in qws]
+    out = []
+    for i in range(0, len(qws), W8A16_MAX_MATS):
+        out += w8a16_matmul(x, qws[i:i + W8A16_MAX_MATS])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The T == 1 kernel, ``csrc/w8a16_matmul.cu``
+# ---------------------------------------------------------------------------
+# The same function as :func:`_w8a16`, r(r(Σ x · q) · r(s)) with the sum in
+# fp32, read from the int8 payload without a bf16 copy.  The route follows
+# from the input alone (:func:`w8a16_kernel_takes`).
+
+W8A16_MAX_MATS = 3    # matrices one launch takes
+W8A16_ROWS = 128      # weight rows a block
+W8A16_CHUNK = 128     # columns of K a stage; a split is whole chunks
+
+w8a16_launches = 0    # kernel launches since the last reset (main-path accounting)
+
+
+def w8a16_kernel_takes(x: torch.Tensor, qws) -> bool:
+    """Whether the product of ``x`` by the int8 matrices ``qws`` runs the
+    kernel: bf16 x ``[B, 1, D]`` on the card, D a multiple of 16, no
+    gradient wanted, every payload a contiguous ``[F, D]`` int8 matrix
+    beside it; x and the payloads 16-byte aligned (the kernel's copies)."""
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16 or x.dim() != 3 \
+            or x.shape[1] != 1 or x.shape[2] % 16 \
+            or (x.requires_grad and torch.is_grad_enabled()) \
+            or (x.is_contiguous() and x.data_ptr() % 16):
+        return False
+    return all(qw["q"].dim() == 2 and qw["q"].shape[1] == x.shape[2]
+               and qw["q"].dtype == torch.int8 and qw["q"].device == x.device
+               and qw["q"].is_contiguous() and qw["q"].data_ptr() % 16 == 0
+               for qw in qws)
+
+
+def w8a16_split(m: int, fs, d: int) -> int:
+    """Blocks of a cluster that split K for M rows of x and matrices of F
+    rows: 2 where the launch has 40 or more blocks of rows, else 6, at most
+    D's 128-column chunks (the splits that measured fastest on the H100 at
+    the 7B, 1B and MLA projections, ``scripts/w8a16_kernel_times.py
+    --splits``)."""
+    tiles = sum(-(-f // W8A16_ROWS) for f in fs) * -(-m // (8 * _n_tiles(m)))
+    return max(1, min(-(-d // W8A16_CHUNK), 2 if tiles >= 40 else 6))
+
+
+def w8a16_matmul(x: torch.Tensor, qws, n_split: Optional[int] = None) -> list:
+    """y = x @ Wᵀ for each of 1 to ``W8A16_MAX_MATS`` int8 matrices
+    ``{"q": [F, D], "s": [F]}`` in one launch of the kernel → ``[B, 1, F]``
+    each.  K is split across ``n_split`` blocks of a cluster (1 to 8; by
+    default :func:`w8a16_split`)."""
+    global w8a16_launches
+    from ospo_tpu_torch.ops import build
+
+    if not 1 <= len(qws) <= W8A16_MAX_MATS or not w8a16_kernel_takes(x, qws):
+        raise ValueError("w8a16_matmul: takes bf16 x [M, 1, D] on the card "
+                         "(D a multiple of 16) and 1 to 3 contiguous int8 [F, D] "
+                         "matrices, 16-byte aligned")
+    x = x.contiguous()
+    m, d = x.shape[0], x.shape[2]
+    qs = [qw["q"] for qw in qws]
+    ss = [qw["s"].float().contiguous() for qw in qws]
+    fs = [q.shape[0] for q in qs]
+    ys = [torch.empty((m, 1, f), dtype=x.dtype, device=x.device) for f in fs]
+    if n_split is None:
+        n_split = w8a16_split(m, fs, d)
+    pad = [None] * (W8A16_MAX_MATS - len(qws))
+    ptrs = lambda ts: [t.data_ptr() for t in ts] + pad  # noqa: E731
+    build.check(build.load("w8a16_matmul").ospo_w8a16_matmul(
+        x.data_ptr(), *ptrs(qs), *ptrs(ss), *ptrs(ys),
+        *(fs + [0] * len(pad)), len(qws), m, d, n_split,
+        torch.cuda.current_stream(x.device).cuda_stream), "w8a16_matmul")
+    w8a16_launches += 1
+    return ys
+
+
+def _n_tiles(m: int) -> int:
+    """n8 tiles of x a block of the kernel holds for M rows: 1, 2, 4, 6 or 8."""
+    t = -(-min(m, 64) // 8)
+    return next(n for n in (1, 2, 4, 6, 8) if t <= n)
 
 
 # ---------------------------------------------------------------------------
@@ -207,9 +300,17 @@ def w8a16_active() -> bool:
     return getattr(_OVERRIDE, "w8a16", False)
 
 
-def quantized_matmul_w8a16(x: torch.Tensor, qw: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Weight-only product over a w8a8 payload: (x @ qᵀ) · sa."""
-    return quantized_matmul(x, {"q": qw["q"], "s": qw["sa"]})
+def weight_only_int8(w) -> Optional[Dict[str, torch.Tensor]]:
+    """The ``{"q", "s"}`` matrix a weight-only int8 product reads of ``w``:
+    an int8 matrix itself, or a w8a8 payload with its row scales under
+    :func:`w8a16_override` ((x @ qᵀ) · sa); None for any other weight."""
+    if not isinstance(w, dict) or "q" not in w:
+        return None
+    if "s" in w:
+        return w
+    if "sa" in w and w8a16_active():
+        return {"q": w["q"], "s": w["sa"]}
+    return None
 
 
 # ---------------------------------------------------------------------------

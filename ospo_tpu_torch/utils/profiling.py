@@ -233,6 +233,7 @@ _LAUNCH_COUNTERS = {
     "moe_gate_up": ("moe", "gate_up_launches"),
     "moe_down": ("moe", "down_launches"),
     "moe_combine": ("moe", "combine_launches"),
+    "w8a16_matmul": ("quant", "w8a16_launches"),
 }
 
 

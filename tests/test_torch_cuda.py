@@ -844,3 +844,154 @@ def test_a_replay_counts_the_launches_it_replays(cuda):
         captures = [s for s in got if s.name == "image.capture"]
         assert len(captures) == (replayed == n_img - 2)
         assert sum(s.name == "image.wait" for s in got) == replayed
+
+
+# -- the weight-only int8 T == 1 kernel (ops/quant.py, csrc/w8a16_matmul.cu) --
+
+W8A16_SHAPES = [(4096, 4096), (11008, 4096), (4096, 11008),      # 7B
+                (2048, 2048), (5632, 2048), (2048, 5632),        # 1B
+                (3072, 2048), (576, 2048), (10944, 2048), (2048, 10944)]  # MLA
+
+
+def _w8a16_inputs(cuda, m, f, d, seed):
+    from ospo_tpu_torch.ops import quant
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qw = quant.quantize_matrix(
+        (torch.randn((f, d), generator=g, device=cuda) * 0.02).to(torch.bfloat16))
+    x = torch.randn((m, 1, d), generator=g, device=cuda).to(torch.bfloat16)
+    return x, qw
+
+
+def _bf16_step(v):
+    """The spacing of bf16 values at |v|: 2^(floor(log2 |v|) - 7)."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def _w8a16_plain(x, qw):
+    """``_w8a16`` on the card, its bf16 GEMM summing in fp32 throughout."""
+    from ospo_tpu_torch.ops import quant
+
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        return quant._w8a16(x, qw["q"], qw["s"])
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
+
+
+def _within_a_step(got, ref):
+    """One bf16 step of |ref| plus 2^-8 max|ref|.  Both sides round the fp32
+    sum to bf16, then the product by the bf16 row scale: where the two
+    orders of the fp32 sums put the sum on either side of a rounding
+    boundary, the first rounding moves one step, which the scale and the
+    second rounding carry through; the absolute term covers outputs near
+    zero, whose step is small against the sums' error."""
+    r = ref.float()
+    tol = _bf16_step(r) + 2 ** -8 * float(r.abs().max())
+    return bool(((got.float() - r).abs() <= tol).all())
+
+
+def _within_the_sum_order(got, x, qw):
+    """The output is r(r(acc) r(s)) for an fp32 sum acc within 2^-17 sum
+    |x q| of the exact sum (float64): only the order of the fp32 sums may
+    differ from the plain function, so every output lies between the two
+    roundings of that interval's ends.  Tighter than ``_within_a_step``
+    wherever the sum is not at a rounding boundary."""
+    q = qw["q"].double()
+    acc = x[:, 0].double() @ q.T
+    slack = 2.0 ** -17 * (x[:, 0].double().abs() @ q.abs().T)
+    rs = qw["s"].to(torch.bfloat16).float()
+
+    def finish(a):
+        return (a.float().to(torch.bfloat16).float() * rs).to(torch.bfloat16).float()
+
+    y = got[:, 0].float()
+    return bool(((finish(acc - slack) <= y) & (y <= finish(acc + slack))).all())
+
+
+@pytest.mark.parametrize("m", [1, 5, 48, 64])
+@pytest.mark.parametrize("f,d", W8A16_SHAPES)
+def test_w8a16_kernel_matches_plain(cuda, f, d, m):
+    """The kernel against ``_w8a16`` on the card at the main paths' shapes
+    (the 7B and 1B projections, the MLA layer's q, latent down-projection,
+    dense FFN; F = 576 and K = 10944 are no multiples of the 128-row and
+    128-column tiles) and 1, 5, 48 and 64 rows: within one bf16 step
+    (``_within_a_step``), and within the rounding of the sum's order
+    (``_within_the_sum_order``); one launch."""
+    from ospo_tpu_torch.ops import quant
+
+    x, qw = _w8a16_inputs(cuda, m, f, d, 20 + m)
+    n0 = quant.w8a16_launches
+    got = quant.quantized_matmul(x, qw)
+    assert quant.w8a16_launches == n0 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, 1, f)
+    assert _within_a_step(got, _w8a16_plain(x, qw))
+    assert _within_the_sum_order(got, x, qw)
+
+
+@pytest.mark.parametrize("f,d", [(11008, 4096), (5632, 2048), (576, 2048)])
+def test_w8a16_kernel_controls_fail(cuda, f, d):
+    """Two controls at 48 rows: the K chunk at the end dropped (x's last 128
+    columns zeroed) fails both tolerances; one row's scale shifted by 1%
+    (the row holding the largest output) fails the sum-order bound.  A 1%
+    shift of a bf16 scale moves that row's outputs by 1 to 3 bf16 steps,
+    which the one-step tolerance can hold near max|ref|: it is reported,
+    not required, there."""
+    from ospo_tpu_torch.ops import quant
+
+    x, qw = _w8a16_inputs(cuda, 48, f, d, 30)
+    ref = _w8a16_plain(x, qw)
+    dropped = x.clone()
+    dropped[..., -128:] = 0
+    got = quant.quantized_matmul(dropped, qw)
+    assert not _within_a_step(got, ref)
+    assert not _within_the_sum_order(got, x, qw)
+    row = int(ref.float().abs().amax(dim=(0, 1)).argmax())
+    shifted = {"q": qw["q"], "s": qw["s"].clone()}
+    shifted["s"][row] *= 1.01
+    got = quant.quantized_matmul(x, shifted)
+    assert not _within_the_sum_order(got, x, qw)
+
+
+@pytest.mark.parametrize("m,fs,d", [(48, [4096, 4096, 4096], 4096),
+                                    (48, [11008, 11008], 4096),
+                                    (48, [3072, 576], 2048),
+                                    (64, [4096], 11008), (5, [2048], 5632)])
+def test_w8a16_kernel_is_deterministic_and_shares_launches(cuda, m, fs, d):
+    """Two calls are bit-equal; matrices that share x in one launch give
+    what separate launches with the same split of K give, bit for bit (a
+    launch of its own may split K otherwise, which orders the fp32 sums
+    otherwise)."""
+    from ospo_tpu_torch.ops import quant
+
+    x, _ = _w8a16_inputs(cuda, m, 16, d, 40)
+    qws = [_w8a16_inputs(cuda, 1, f, d, 41 + i)[1] for i, f in enumerate(fs)]
+    n0 = quant.w8a16_launches
+    a = quant.w8a16_matmul(x, qws)
+    b = quant.w8a16_matmul(x, qws)
+    assert quant.w8a16_launches == n0 + 2
+    n_split = quant.w8a16_split(m, fs, d)
+    for y1, y2, qw in zip(a, b, qws):
+        assert torch.equal(y1, y2)
+        assert torch.equal(y1, quant.w8a16_matmul(x, [qw], n_split)[0])
+
+
+def test_a_cached_step_runs_every_int8_projection_on_the_kernel(cuda):
+    """The replayed trunk step of an int8 model launches the kernel four
+    times a layer: q, k and v; o; gate and up; down."""
+    import numpy as np
+
+    from ospo_tpu_torch.processing import t2i_prompt
+    from ospo_tpu_torch.utils.profiling import kernel_launches
+
+    model, proc = _card_janus(cuda, _small_card_config(torch.bfloat16), quantize="int8")
+    n_img, layers = 24, model.cfg.language.num_layers
+    graph, _ = _graph_engines(model, proc, n_img, "int8")
+    prompts = [t2i_prompt(proc, p) for p in GRAPH_PROMPTS[:2]]
+    forced = np.zeros((2, n_img), np.int64)
+    graph.forced_cfg_logits(prompts, forced)   # captures
+    n0 = kernel_launches()
+    graph.forced_cfg_logits(prompts, forced)   # replays
+    n1 = kernel_launches()
+    assert n1["w8a16_matmul"] - n0["w8a16_matmul"] == 4 * layers * (n_img - 1)
