@@ -193,8 +193,8 @@ dQ and dK/dV at phase 18's shard (rows 8, H = 8); its 1B training shape
     depth (``benchmark/configs/janus-deepseek-v2-lite.json``: 27 layers, 26
     of them MoE with 64 routed experts top-6 and 2 shared), random bf16
     weights made on the card by the benchmark's harness and handed to
-    ``models/weights.load_janus`` from memory, quantized to int8; the
-    launch counters are zeroed just before it, and each of ``ops/moe.py``'s
+    ``models/weights.load_janus`` from memory, quantized to int8; counted
+    from a ``kernel_launches()`` read just before it, each of ``ops/moe.py``'s
     five kernels must launch 26 x 576 times (the prefill and 575 cached
     steps, replayed from the trunk graph), the group's ``image.experts``
     span must count 26 x 575 x 48 x 6 routed rows, and the tree must hold
@@ -227,6 +227,8 @@ import time
 import traceback
 
 import torch
+
+from ospo_tpu_torch.utils.profiling import kernel_launches
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "examples", "step2",
@@ -474,6 +476,16 @@ def cuda_ms_graph(fns, iters: int, replays: int = 5) -> float:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def launched(before: dict, *names) -> dict:
+    """Each kernel's launches (the kernels ``names``, else all) since
+    ``before``, a ``kernel_launches()`` read."""
+    now = kernel_launches()
+    return {k: now[k] - before[k] for k in names or now}
 
 
 def bf16_step(v: torch.Tensor) -> torch.Tensor:
@@ -1376,7 +1388,6 @@ class Smoke:
             janus.tiny_janus_config(),
             language=llama.tiny_config(hidden_size=256, intermediate_size=512,
                                        num_heads=2))
-        from ospo_tpu_torch.ops import int4_matmul as i4
 
         proc = Processor(ByteTokenizer(cfg.language.vocab_size))
         prompts = [t2i_prompt(proc, "A red cube on a blue sphere"),
@@ -1392,7 +1403,7 @@ class Smoke:
             gpu_params = _tree_map(cpu_model.params, to_cuda)
             gpu_model = janus.JanusModel(cfg, gpu_params, torch.device("cuda"))
             outs = []
-            n0 = i4.group_launches
+            n0 = kernel_launches()
             for model in (cpu_model, gpu_model):
                 eng = ImageGenEngine(model, proc,
                                      image_token_num=cfg.num_gen_tokens,
@@ -1403,7 +1414,7 @@ class Smoke:
             ref, got = outs
             err = float(abs(ref - got).max())
             scale = float(abs(ref).max())
-            moved = i4.group_launches - n0
+            moved = launched(n0)["int4_matmul_group"]
             want = 7 * cfg.language.num_layers * (cfg.num_gen_tokens - 1) \
                 if mode == "int4g" else 0
             self.check(err <= 1e-2 * scale and moved == want,
@@ -1429,8 +1440,6 @@ class Smoke:
 
         from ospo_tpu_torch.engine.text_engine import TextGenEngine
         from ospo_tpu_torch.models import janus, llama
-        from ospo_tpu_torch.ops import decode_attention as da
-        from ospo_tpu_torch.ops import flash_attention as fa
         from ospo_tpu_torch.processing import Processor
         from ospo_tpu_torch.tokenizer import ByteTokenizer
 
@@ -1461,7 +1470,7 @@ class Smoke:
         try:
             for shared in (True, False):
                 ids, first[:], steps = [], [], []
-                n0 = (fa.launches, da.launches)
+                n0 = kernel_launches()
                 for model in (cpu_model, gpu_model):
                     eng = TextGenEngine(model, proc, max_new_tokens=24,
                                         do_sample=False, kv_quant="int8",
@@ -1469,7 +1478,7 @@ class Smoke:
                     eng.step_hook = steps.append
                     first.append(None)
                     ids.append(eng.generate_ids(prompts))
-                moved = (fa.launches - n0[0], da.launches - n0[1])
+                moved = tuple(launched(n0, "flash_fwd", "decode_attention").values())
                 # 2 layers: the prompt (or prefix) prefill, and the plain
                 # program's cached steps on the GPU
                 n_gpu = len(steps) // 2
@@ -1501,7 +1510,6 @@ class Smoke:
         from ospo_tpu_torch.engine.scoring import ScoringEngine
         from ospo_tpu_torch.image_processing import ImageProcessor
         from ospo_tpu_torch.models import janus, llama
-        from ospo_tpu_torch.ops import flash_attention as fa
         from ospo_tpu_torch.processing import Processor
         from ospo_tpu_torch.tokenizer import ByteTokenizer
 
@@ -1530,12 +1538,12 @@ class Smoke:
             for pre in (True, False):
                 for kv in ("int8", False):
                     outs = []
-                    n0 = fa.launches
+                    n0 = kernel_launches()
                     for model in (cpu_model, gpu_model):
                         eng = ScoringEngine(model, proc, kv_quant=kv,
                                             pre_image_prefix=pre)
                         outs.append(eng.score_images_multi(images, questions))
-                    moved = fa.launches - n0
+                    moved = launched(n0)["flash_fwd"]
                     ps = [(m[k], n[k]) for a, b in zip(*outs) for m, n in zip(
                         a["answer_metadata"], b["answer_metadata"])
                         for k in ("p_yes", "p_no")]
@@ -1599,7 +1607,6 @@ class Smoke:
 
     def small_train_step(self):
         from ospo_tpu_torch.models import janus, vqgan
-        from ospo_tpu_torch.ops import flash_attention as fa
         from ospo_tpu_torch.ops.pixels import normalize_pixels
         from ospo_tpu_torch.train.trainer import SimPOTrainer
 
@@ -1610,11 +1617,10 @@ class Smoke:
             torch.device("cuda"))
         trainers = [SimPOTrainer(config, m, proc) for m in (cpu_model, gpu_model)]
         self._set_lora(trainers)
-        n0 = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        n0 = kernel_launches()
         out = [tr.loss_and_grads(*batch) for tr in trainers]
         torch.cuda.synchronize()
-        moved = (fa.launches - n0[0], fa.dq_launches - n0[1],
-                 fa.dkv_launches - n0[2])
+        moved = tuple(launched(n0, *FLASH_KERNELS).values())
         self.check(moved == (4, 2, 2), f"small training step on the GPU "
                    f"launched flash fwd/dq/dkv {moved} (2 layers, remat: "
                    f"(4, 2, 2))")
@@ -1663,7 +1669,7 @@ class Smoke:
         outs, moved = [], []
         kernels = (fa.flash_dq, fa.flash_dkv)
         for plain in (False, True):
-            n0 = (fa.launches, fa.dq_launches, fa.dkv_launches)
+            n0 = kernel_launches()
             if plain:
                 fa.flash_dq, fa.flash_dkv = fa.flash_dq_plain, fa.flash_dkv_plain
             try:
@@ -1671,8 +1677,7 @@ class Smoke:
                 torch.cuda.synchronize()
             finally:
                 fa.flash_dq, fa.flash_dkv = kernels
-            moved.append((fa.launches - n0[0], fa.dq_launches - n0[1],
-                          fa.dkv_launches - n0[2]))
+            moved.append(tuple(launched(n0, *FLASH_KERNELS).values()))
         self.check(moved == [(4, 2, 2), (4, 0, 0)],
                    f"small bf16 training step launched flash fwd/dq/dkv "
                    f"{moved[0]} through the kernels (expected (4, 2, 2)), "
@@ -1698,8 +1703,6 @@ class Smoke:
     def main_path(self):
         from ospo_tpu_torch.config import Config
         from ospo_tpu_torch.io import read_json
-        from ospo_tpu_torch.ops import decode_attention as da
-        from ospo_tpu_torch.ops import flash_attention as fa
         from ospo_tpu_torch.pipeline import step3
         from ospo_tpu_torch.utils.png import read_png
 
@@ -1708,19 +1711,16 @@ class Smoke:
             **STEP3_CONFIG, "model_path": None, "model_preset": "7b",
             "data_path": FIXTURE, "e_idx": N_ITEMS,
             "save_path": os.path.join(tmp, "step3")})
-        from ospo_tpu_torch.ops import int4_matmul as i4
-        from ospo_tpu_torch.ops import quant
 
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = da.launches = i4.row_launches = i4.group_launches = 0
-        quant.w8a16_launches = 0
+        n0 = kernel_launches()
         t0 = time.time()
         stats = step3.main(config)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        counts = {"flash_fwd": fa.launches, "decode_attention": da.launches,
-                  "w8a16_matmul": quant.w8a16_launches}
-        self.check(i4.row_launches == i4.group_launches == 0,
+        d = launched(n0)
+        counts = {k: d[k] for k in ("flash_fwd", "decode_attention", "w8a16_matmul")}
+        self.check(d["int4_matmul_row"] == d["int4_matmul_group"] == 0,
                    "int8 weights launched no int4 kernel")
         print(f"main path step 3 launches: {counts}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1772,7 +1772,6 @@ class Smoke:
 
         from ospo_tpu_torch.config import Config
         from ospo_tpu_torch.io import read_json
-        from ospo_tpu_torch.ops import flash_attention as fa
         from ospo_tpu_torch.pipeline import step5
 
         gc.collect()  # the int8 step-3 model of phase 4 goes first
@@ -1794,13 +1793,12 @@ class Smoke:
         config = Config.from_nested(merged(STEP5_CONFIG, step5_overrides(
             data_path, image_root, save_path)))
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        n0 = kernel_launches()
         t0 = time.time()
         trainer = step5.main(config)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        counts = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
-                  "flash_bwd_dkv": fa.dkv_launches}
+        counts = launched(n0, *FLASH_KERNELS)
         print(f"main path step 5 launches: {counts}")
         for name, n in counts.items():
             self.launches[name] = self.launches.get(name, 0) + n
@@ -1865,9 +1863,6 @@ class Smoke:
 
         from ospo_tpu_torch.config import Config
         from ospo_tpu_torch.io import read_json
-        from ospo_tpu_torch.ops import decode_attention as da
-        from ospo_tpu_torch.ops import flash_attention as fa
-        from ospo_tpu_torch.ops import int4_matmul as i4
         from ospo_tpu_torch.pipeline import step3
         from ospo_tpu_torch.utils.png import read_png
 
@@ -1916,7 +1911,7 @@ class Smoke:
             return eng
 
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = da.launches = i4.row_launches = i4.group_launches = 0
+        n0 = kernel_launches()
         step3.ImageGenEngine = keep
         t0 = time.time()
         try:
@@ -1925,9 +1920,8 @@ class Smoke:
         finally:
             step3.ImageGenEngine = engine_cls
         wall = time.time() - t0
-        counts = {"flash_fwd": fa.launches, "decode_attention": da.launches,
-                  "int4_matmul_row": i4.row_launches,
-                  "int4_matmul_group": i4.group_launches}
+        counts = launched(n0, "flash_fwd", "decode_attention", "int4_matmul_row",
+                          "int4_matmul_group")
         for name, n in counts.items():
             self.launches[name] = self.launches.get(name, 0) + n
         peak_gb = max(torch.cuda.max_memory_allocated() / 1e9, *peaks.values())
@@ -1988,8 +1982,6 @@ class Smoke:
 
         from ospo_tpu_torch.config import Config
         from ospo_tpu_torch.io import read_json
-        from ospo_tpu_torch.ops import decode_attention as da
-        from ospo_tpu_torch.ops import flash_attention as fa
         from ospo_tpu_torch.pipeline import model_factory, step1, step2, step4
 
         gc.collect()  # the previous phase's model goes first
@@ -2029,13 +2021,13 @@ class Smoke:
         for name, module, config in stages:
             module.get_model, saved = (lambda _c: shared), module.get_model
             torch.cuda.reset_peak_memory_stats()
-            fa.launches = da.launches = 0
+            n0 = kernel_launches()
             try:
                 with _TextRecorder() as rec:
                     module.main(config)
             finally:
                 module.get_model = saved
-            counts = {"flash_fwd": fa.launches, "decode_attention": da.launches}
+            counts = launched(n0, "flash_fwd", "decode_attention")
             for k, n in counts.items():
                 totals[k] += n
             st = rec.summary()
@@ -2101,7 +2093,6 @@ class Smoke:
 
         from ospo_tpu_torch.config import Config
         from ospo_tpu_torch.io import read_json
-        from ospo_tpu_torch.ops import flash_attention as fa
         from ospo_tpu_torch.pipeline import step4
 
         gc.collect()  # the previous phase's model goes first
@@ -2119,13 +2110,13 @@ class Smoke:
                               "--format=csv,noheader"],
                              capture_output=True, text=True).stdout.strip()
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = 0
+        n0 = kernel_launches()
         t0 = time.time()
         with _ScoreRecorder(step4) as rec:
             step4.main(config)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = fa.launches
+        launches = launched(n0)["flash_fwd"]
         self.launches["flash_fwd"] = self.launches.get("flash_fwd", 0) + launches
         st = rec.summary()
         summary = read_json(os.path.join(save, "score_summary.json"))
@@ -2173,8 +2164,6 @@ class Smoke:
 
         from ospo_tpu_torch import config as config_lib
         from ospo_tpu_torch.engine.image_engine import ImageGenEngine
-        from ospo_tpu_torch.ops import decode_attention as da
-        from ospo_tpu_torch.ops import flash_attention as fa
         from ospo_tpu_torch.ops import quant
         from ospo_tpu_torch.pipeline import inference
         from ospo_tpu_torch.train import checkpoint as ckpt_lib
@@ -2201,7 +2190,7 @@ class Smoke:
                    f"int8 shbd KV: {config.batch_size}, {config.quantize}, "
                    f"{config.kv_quant}, {config.kv_layout}")
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = da.launches = 0
+        n0 = kernel_launches()
         engines = []
         build = inference.build_engine
 
@@ -2220,7 +2209,7 @@ class Smoke:
             inference.build_engine = build
         torch.cuda.synchronize()
         wall = time.time() - t0
-        counts = {"flash_fwd": fa.launches, "decode_attention": da.launches}
+        counts = launched(n0, "flash_fwd", "decode_attention")
         for name, n in counts.items():
             self.launches[name] = self.launches.get(name, 0) + n
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2299,7 +2288,6 @@ class Smoke:
 
         from ospo_tpu_torch.config import Config
         from ospo_tpu_torch.io import read_json
-        from ospo_tpu_torch.ops import flash_attention as fa
         from ospo_tpu_torch.pipeline import model_factory, step5
         from ospo_tpu_torch.train import checkpoint as ckpt_lib
         from ospo_tpu_torch.train.optim import leaves
@@ -2319,14 +2307,13 @@ class Smoke:
             data_path, os.path.join(self.workdir, "step3"), save_path)),
             {"use_peft": False, "model": {"model_preset": "1b"}}))
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        n0 = kernel_launches()
         t0 = time.time()
         with _Timed([(ckpt_lib, "save_checkpoint")]) as timed:
             trainer = step5.main(config)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        counts = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
-                  "flash_bwd_dkv": fa.dkv_launches}
+        counts = launched(n0, *FLASH_KERNELS)
         for name, n in counts.items():
             self.launches[name] = self.launches.get(name, 0) + n
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2394,7 +2381,6 @@ class Smoke:
 
         from ospo_tpu_torch.config import Config
         from ospo_tpu_torch.io import read_json
-        from ospo_tpu_torch.ops import flash_attention as fa
         from ospo_tpu_torch.ops import quant
         from ospo_tpu_torch.pipeline import step5
 
@@ -2406,13 +2392,12 @@ class Smoke:
             os.path.join(self.workdir, f"step5_{mode}"))),
             {"experiment": {"quantize_base": mode}}))
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        n0 = kernel_launches()
         t0 = time.time()
         trainer = step5.main(config)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        counts = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
-                  "flash_bwd_dkv": fa.dkv_launches}
+        counts = launched(n0, *FLASH_KERNELS)
         for name, n in counts.items():
             self.launches[name] = self.launches.get(name, 0) + n
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2505,7 +2490,7 @@ class Smoke:
                                  patch_size=m.cfg.vq.downsample_factor,
                                  kv_quant="int8", decode_segments=8,
                                  kv_layout=layout)
-            n0, kernel = da.launches, llama.decode_attention
+            n0, kernel = kernel_launches(), llama.decode_attention
             if plain_kernel:
                 llama.decode_attention = da.decode_attention_plain
                 # the plain version reads a host cur_len: the eager loop,
@@ -2516,7 +2501,7 @@ class Smoke:
                 out = eng.forced_cfg_logits(prompts, forced)
             finally:
                 llama.decode_attention = kernel
-            return out, da.launches - n0
+            return out, launched(n0)["decode_attention"]
 
         def dist(x, ref):
             return float(np.abs(x - ref).max()), float(np.abs(ref).max())
@@ -2600,7 +2585,6 @@ class Smoke:
 
         from ospo_tpu_torch.config import Config
         from ospo_tpu_torch.engine.scoring import ScoringEngine
-        from ospo_tpu_torch.ops import flash_attention as fa
         from ospo_tpu_torch.ops import quant
         from ospo_tpu_torch.pipeline import step4
         from ospo_tpu_torch.pipeline.model_factory import get_model
@@ -2638,7 +2622,7 @@ class Smoke:
             engine = ScoringEngine(model, processor,
                                    kv_quant=config.get("score_kv_quant") or False)
             engine.readout_w8a16 = readout
-            fa.launches = 0
+            n0 = kernel_launches()
             step4.score_prepared_chunk = keep
             try:
                 with _ScoreRecorder(step4) as rec:
@@ -2646,8 +2630,8 @@ class Smoke:
             finally:
                 step4.score_prepared_chunk = scored
             st = rec.summary()
-            self.launches["flash_fwd"] = self.launches.get("flash_fwd", 0) \
-                + fa.launches
+            n_flash = launched(n0)["flash_fwd"]
+            self.launches["flash_fwd"] = self.launches.get("flash_fwd", 0) + n_flash
             n_images = sum(c["images"] for c in summary.values())
             answers[readout] = seen
             print(f"step 4b w8a8, readout {'W8A16' if readout else 'w8a8'}: "
@@ -2655,16 +2639,16 @@ class Smoke:
                   f"loop ({n_images / st['loop_s']:.2f} images/s); "
                   f"{st['slices']} slices of {st['rows']} images, per slice "
                   f"prefill {st['prefill_ms']:.2f} ms, suffixes "
-                  f"{st['suffix_ms']:.2f} ms; flash launches {fa.launches}; "
+                  f"{st['suffix_ms']:.2f} ms; flash launches {n_flash}; "
                   f"engine counts {st['counts']}; {len(pairs)} pairs; card {smi}")
             self.check(n_images == 6 * W8A8_SCORE_ITEMS and len(seen) == n_images
                        and all(c["scored"] == c["images"] for c in summary.values())
                        and st["counts"] == {"oom_retries": 0, "unshared_calls": 0,
                                             "per_image_retries": 0}
-                       and fa.launches == 30 * st["slices"],
+                       and n_flash == 30 * st["slices"],
                        f"step 4b w8a8 (readout {readout}): {n_images} images "
                        f"scored, no retry or fallback {st['counts']}, flash "
-                       f"launches {fa.launches} == 30 x {st['slices']} slices")
+                       f"launches {n_flash} == 30 x {st['slices']} slices")
         keys = [(p, i) for p, a in answers[False].items() for i in range(len(a))]
         same = sum(answers[False][p][i] == answers[True].get(p, [None] * (i + 1))[i]
                    for p, i in keys)
@@ -2744,15 +2728,14 @@ class Smoke:
             tol = 2 ** -7 * wf.abs() + 1e-2 * float(wf.abs().max())
             return bool(((gf - wf).abs() <= tol).all()), max_err(gf, wf)
 
-        names = ("route_launches", "align_launches", "gate_up_launches",
-                 "down_launches", "combine_launches")
+        names = ("moe_route", "moe_align", "moe_gate_up", "moe_down", "moe_combine")
         for n_tok, what in ((48, "decode"), (48 * 64, "prefill")):
             x = (torch.randn((n_tok, D), generator=g, device=dev)).to(torch.bfloat16)
             counts = torch.zeros(E + S, dtype=torch.int32, device=dev)
-            n0 = {n: getattr(moe, n) for n in names}
+            n0 = kernel_launches()
             got = moe.routed_experts(x, router, w13, w2, k, counts, n_shared=S)
             torch.cuda.synchronize()
-            moved = all(getattr(moe, n) == v + 1 for n, v in n0.items())
+            moved = all(n == 1 for n in launched(n0, *names).values())
             ti, tw = moe.route(x, router, k, n_shared=S)
             differ, shortfall, w_err = moe.routing_gap(x, router, ti, tw, k)
             want, c = plain(x, ti, tw)
@@ -2809,7 +2792,6 @@ class Smoke:
         from ospo_tpu_torch.config import Config
         from ospo_tpu_torch.engine.image_engine import ImageGenEngine
         from ospo_tpu_torch.io import read_json
-        from ospo_tpu_torch.ops import moe, quant
         from ospo_tpu_torch.pipeline.step3 import run_step3
         from ospo_tpu_torch.utils import profiling
         from ospo_tpu_torch.utils.png import read_png
@@ -2845,9 +2827,7 @@ class Smoke:
             sample["long_prompt"] = [sample["long_prompt"][0], "", ""]
             sample["negative_long_prompt"] = ["", "", ""]
         names = ("moe_route", "moe_align", "moe_gate_up", "moe_down", "moe_combine")
-        for name in names:
-            setattr(moe, profiling._LAUNCH_COUNTERS[name][1], 0)
-        quant.w8a16_launches = 0
+        n0 = kernel_launches()
         torch.cuda.reset_peak_memory_stats()
         t_run = time.perf_counter()
         stats = run_step3(Config.from_nested({"batch_size": N_ITEMS, "seed_list": [0, 1, 2],
@@ -2855,7 +2835,7 @@ class Smoke:
                           engine, proc, items)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t_run
-        launches = profiling.kernel_launches()
+        launches = launched(n0)
         steps = mc.num_gen_tokens            # the prefill and 575 cached steps
         want = lc.n_moe * steps
         self.check(all(launches[n] == want for n in names),
@@ -4069,8 +4049,6 @@ def tp_worker(workdir: str) -> int:
     from ospo_tpu_torch.engine.image_engine import ImageGenEngine
     from ospo_tpu_torch.io import process_index, read_json
     from ospo_tpu_torch.models import llama
-    from ospo_tpu_torch.ops import decode_attention as da
-    from ospo_tpu_torch.ops import flash_attention as fa
     from ospo_tpu_torch.pipeline import step3, step4
     from ospo_tpu_torch.pipeline.model_factory import get_model
     from ospo_tpu_torch.platform import maybe_init_distributed
@@ -4086,14 +4064,14 @@ def tp_worker(workdir: str) -> int:
         return init(cfg, *a, **k)
 
     llama.init_kv_cache = init_kv_cache
-    fa.launches = da.launches = 0
+    n0 = kernel_launches()
     try:
         stats = step3.main(Config.from_nested({**spec["step3"],
                                                "tensor_parallel": 2}))
     finally:
         llama.init_kv_cache = init
-    res["step3"] = {**stats, "launches": {"flash_fwd": fa.launches,
-                                          "decode_attention": da.launches}}
+    res["step3"] = {**stats, "launches": launched(n0, "flash_fwd",
+                                                  "decode_attention")}
     res["cache_heads"] = sorted(set(heads))
     gc.collect()
 

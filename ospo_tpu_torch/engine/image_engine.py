@@ -555,7 +555,7 @@ class ImageGenEngine:
 
     def generate_tokens(self, prompts: Sequence[str], seed: int = 0) -> np.ndarray:
         """Prompts → sampled image tokens [B, n_img] on the host, without
-        the VQ decode (what ``python -m ospo_tpu_torch.bench`` times)."""
+        the VQ decode."""
         toks, b_real = self._generate_tokens_device(prompts, seed=seed)
         return toks[:b_real].cpu().numpy()
 

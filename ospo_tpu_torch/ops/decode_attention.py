@@ -23,12 +23,12 @@ from __future__ import annotations
 
 import torch
 
+from ospo_tpu_torch.utils.profiling import count_launch
+
 NEG_FILL = -1e30
 HEAD_DIM = 128
 CHUNK = 256  # most positions one block of the kernel's first pass takes
 WARPS = 8    # warps of such a block, each a contiguous slice of its chunk
-
-launches = 0  # kernel launches since the last reset (main-path accounting)
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.bfloat16: 0, torch.int8: 1}  # the kernel's caches
@@ -75,7 +75,6 @@ def decode_attention(q, k_cache, v_cache, layer_idx, cur_len, mask,
     reads when it runs (a step captured in a CUDA graph): the grid is then
     sized by ``split(S)`` and each block takes the part of the split of the
     length it reads, so the result equals the launch at that host length."""
-    global launches
     layer_idx = int(layer_idx)
     on_device = isinstance(cur_len, torch.Tensor) and cur_len.device.type == "cuda"
     if not on_device:
@@ -142,5 +141,5 @@ def decode_attention(q, k_cache, v_cache, layer_idx, cur_len, mask,
              part_acc.data_ptr(), S, H, B, dh, layer_idx, cur_len, chunk,
              n_split, _Q_DTYPES[q.dtype], _KV_DTYPES[k_cache.dtype], stream)
     build.check(err, "decode_attention")
-    launches += 1
+    count_launch("decode_attention")
     return out

@@ -44,12 +44,10 @@ from __future__ import annotations
 
 import torch
 
+from ospo_tpu_torch.utils.profiling import count_launch
+
 NEG_FILL = -1e30
 HEAD_DIM = 128
-
-launches = 0      # forward-kernel launches since the last reset
-dq_launches = 0   # dQ-kernel launches since the last reset
-dkv_launches = 0  # dK/dV-kernel launches since the last reset
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -113,7 +111,6 @@ def _check(what, q, k, v, mask, extra=()):
 def flash_attention(q, k, v, mask=None, causal=True, return_stats=False):
     """Launch the forward kernel for CUDA tensors; the plain version for CPU
     tensors.  Returns O, or (O, l, m) with ``return_stats``."""
-    global launches
     if q.device.type == "cpu":
         out = flash_attention_plain(q, k, v, mask, causal)
         return out if return_stats else out[0]
@@ -131,7 +128,7 @@ def flash_attention(q, k, v, mask=None, causal=True, return_stats=False):
              out.data_ptr(), l.data_ptr(), m.data_ptr(),
              B, T, S, H, kvh, D, int(bool(causal)), _DTYPES[q.dtype], stream)
     build.check(err, "flash_fwd")
-    launches += 1
+    count_launch("flash_fwd")
     return (out, l, m) if return_stats else out
 
 
@@ -206,7 +203,6 @@ def _stats_extra(q, do, m, l, di):
 def flash_dq(q, k, v, mask, do, m, l, di, causal=True):
     """Launch the dQ kernel for CUDA tensors; the plain version for CPU
     tensors."""
-    global dq_launches
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, mask, do, m, l, di, causal)
     from ospo_tpu_torch.ops import build
@@ -222,14 +218,13 @@ def flash_dq(q, k, v, mask, do, m, l, di, causal=True):
              dq.data_ptr(), B, T, S, H, kvh, D, int(bool(causal)),
              _DTYPES[q.dtype], stream)
     build.check(err, "flash_bwd_dq")
-    dq_launches += 1
+    count_launch("flash_bwd_dq")
     return dq
 
 
 def flash_dkv(q, k, v, mask, do, m, l, di, causal=True):
     """Launch the dK/dV kernel for CUDA tensors; the plain version for CPU
     tensors."""
-    global dkv_launches
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, mask, do, m, l, di, causal)
     from ospo_tpu_torch.ops import build
@@ -246,7 +241,7 @@ def flash_dkv(q, k, v, mask, do, m, l, di, causal=True):
              dk.data_ptr(), dv.data_ptr(), B, T, S, H, kvh, D,
              int(bool(causal)), _DTYPES[q.dtype], stream)
     build.check(err, "flash_bwd_dkv")
-    dkv_launches += 1
+    count_launch("flash_bwd_dkv")
     return dk, dv
 
 

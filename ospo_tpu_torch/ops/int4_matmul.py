@@ -30,6 +30,7 @@ from typing import Callable, Dict
 import torch
 
 from ospo_tpu_torch.ops.quant import unpack_int4_halves
+from ospo_tpu_torch.utils.profiling import count_launch
 
 MAX_ROWS = 256       # M the kernels take
 ALIGN = 16           # D must be a multiple of this (16-byte weight loads)
@@ -39,9 +40,6 @@ K_STEP = 32          # fp32 body: columns per stage; a split is a multiple
 CHUNK = 128          # bf16 body: columns per stage; a split is whole chunks
 MAX_CLUSTER = 8      # bf16 body: blocks of a cluster (the portable limit)
 TARGET_BLOCKS = 264  # fp32 body: two blocks for each of the H100's 132 SMs
-
-row_launches = 0     # kernel launches since the last reset (main-path accounting)
-group_launches = 0
 
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -129,7 +127,6 @@ def int4_matmul_decode(x: torch.Tensor, qw: Dict[str, torch.Tensor]
     for CPU tensors.  On CUDA the kernel takes M ≤ 256, D a multiple of 16
     and, for groups, a group size that is a multiple of 16; anything else
     raises."""
-    global row_launches, group_launches
     if x.device.type == "cpu":
         return int4_matmul_decode_plain(x, qw)
     from ospo_tpu_torch.ops import build
@@ -195,8 +192,5 @@ def int4_matmul_decode(x: torch.Tensor, qw: Dict[str, torch.Tensor]
             part.data_ptr(), m, f2, d, per, n_split, _X_DTYPES[x.dtype],
             stream)
     build.check(err, name)
-    if group:
-        group_launches += 1
-    else:
-        row_launches += 1
+    count_launch("int4_matmul_group" if group else "int4_matmul_row")
     return y

@@ -53,14 +53,16 @@ stable ``argsort``) also read nothing back, but inside the graph they are
 the kernels' few µs (``PERF.md``).  ``moe_align`` adds each expert's rows
 to ``counts``, which the caller zeroes (a step zeroes one ``[layers, E +
 n_shared]`` block for all its layers); it groups rows of one expert in
-any order.  ``route_launches``, ``align_launches``, ``gate_up_launches``,
-``down_launches`` and ``combine_launches`` count each kernel's launches.
+any order.  Each kernel's launches are counted under its name in
+``utils/profiling``'s table.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ospo_tpu_torch.utils.profiling import count_launch
 
 # grouped rows a tile: decode steps (a few rows an expert) take the small
 # tile, prefills (hundreds of rows an expert) the large one, which reads
@@ -71,13 +73,6 @@ BLOCK_M_PREFILL = 64
 MAX_ROUTED = 256
 MAX_TOP_K = 16
 MAX_EXPERTS = 1024
-
-# kernel launches since the last reset (main-path accounting)
-route_launches = 0
-align_launches = 0
-gate_up_launches = 0
-down_launches = 0
-combine_launches = 0
 
 
 def block_m(rows: int, experts: int) -> int:
@@ -262,7 +257,6 @@ def route(x: torch.Tensor, router: torch.Tensor, top_k: int, norm_topk: bool = F
     ``moe_route`` for CUDA tensors (logits summed in another order than
     the plain version's, so a token whose k-th and next scores tie to fp32
     rounding may take the other), ``route_plain`` for CPU tensors."""
-    global route_launches
     E = router.shape[0]
     if x.device.type == "cpu":
         return with_shared(*route_plain(x, router, top_k, norm_topk, scaling), E, n_shared)
@@ -284,7 +278,7 @@ def route(x: torch.Tensor, router: torch.Tensor, top_k: int, norm_topk: bool = F
         x.data_ptr(), router.data_ptr(), topi.data_ptr(), topw.data_ptr(), n_tok, d, E,
         top_k, n_shared, int(bool(norm_topk)), float(scaling),
         torch.cuda.current_stream(x.device).cuda_stream), "moe_route")
-    route_launches += 1
+    count_launch("moe_route")
     return topi, topw
 
 
@@ -336,7 +330,6 @@ def routed_experts(x: torch.Tensor, router: torch.Tensor, w13, w2, top_k: int,
     ``counts`` ``[E + n_shared]`` int32, zeroed by the caller, receives
     each expert's rows.  CUDA tensors launch the kernels; CPU tensors take
     the plain version."""
-    global align_launches, gate_up_launches, down_launches, combine_launches
     n_tok, d = x.shape
     E = router.shape[0]
     slots = top_k + n_shared
@@ -368,20 +361,20 @@ def routed_experts(x: torch.Tensor, router: torch.Tensor, w13, w2, top_k: int,
         topi.data_ptr(), counts.data_ptr(), offsets.data_ptr(), src.data_ptr(),
         tile_e.data_ptr(), tile_s.data_ptr(), rank.data_ptr(), rows, experts, bm, n_tiles,
         stream), "moe_align")
-    align_launches += 1
+    count_launch("moe_align")
     table = (src.data_ptr(), tile_e.data_ptr(), tile_s.data_ptr(), offsets.data_ptr())
     h = torch.empty((rows, f), dtype=x.dtype, device=dev)
     build.check(lib.ospo_moe_gate_up(
         x.data_ptr(), *table, w13["q"].data_ptr(), w13["s"].data_ptr(), h.data_ptr(),
         n_tiles, bm, d, f, experts, slots, stream), "moe_gate_up")
-    gate_up_launches += 1
+    count_launch("moe_gate_up")
     y = torch.empty((rows, d), dtype=x.dtype, device=dev)
     build.check(lib.ospo_moe_down(
         h.data_ptr(), *table, w2["q"].data_ptr(), w2["s"].data_ptr(), y.data_ptr(),
         n_tiles, bm, d, f, experts, stream), "moe_down")
-    down_launches += 1
+    count_launch("moe_down")
     triton, combine = _combine_kernel()
     out = torch.empty((n_tok, d), dtype=x.dtype, device=x.device)
     combine[(n_tok, triton.cdiv(d, 1024))](y, topw, out, d, SLOTS=slots, BLOCK_D=1024)
-    combine_launches += 1
+    count_launch("moe_combine")
     return out

@@ -26,6 +26,8 @@ from typing import Dict, Optional
 
 import torch
 
+from ospo_tpu_torch.utils.profiling import count_launch
+
 QUANTIZABLE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
@@ -125,8 +127,6 @@ W8A16_MAX_MATS = 3    # matrices one launch takes
 W8A16_ROWS = 128      # weight rows a block
 W8A16_CHUNK = 128     # columns of K a stage; a split is whole chunks
 
-w8a16_launches = 0    # kernel launches since the last reset (main-path accounting)
-
 
 def w8a16_kernel_takes(x: torch.Tensor, qws) -> bool:
     """Whether the product of ``x`` by the int8 matrices ``qws`` runs the
@@ -159,7 +159,6 @@ def w8a16_matmul(x: torch.Tensor, qws, n_split: Optional[int] = None) -> list:
     ``{"q": [F, D], "s": [F]}`` in one launch of the kernel → ``[B, 1, F]``
     each.  K is split across ``n_split`` blocks of a cluster (1 to 8; by
     default :func:`w8a16_split`)."""
-    global w8a16_launches
     from ospo_tpu_torch.ops import build
 
     if not 1 <= len(qws) <= W8A16_MAX_MATS or not w8a16_kernel_takes(x, qws):
@@ -180,7 +179,7 @@ def w8a16_matmul(x: torch.Tensor, qws, n_split: Optional[int] = None) -> list:
         x.data_ptr(), *ptrs(qs), *ptrs(ss), *ptrs(ys),
         *(fs + [0] * len(pad)), len(qws), m, d, n_split,
         torch.cuda.current_stream(x.device).cuda_stream), "w8a16_matmul")
-    w8a16_launches += 1
+    count_launch("w8a16_matmul")
     return ys
 
 

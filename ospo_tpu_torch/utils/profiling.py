@@ -1,5 +1,5 @@
 """The port's own tracing: a span recorder, the hand-written kernels' launch
-counters, and the per-process summary line of a step's run.
+counts, and the per-process summary line of a step's run.
 
 ``span(name, device=False, **attrs)`` marks a piece of work at a layer
 boundary::
@@ -25,7 +25,7 @@ CUDA a device span's device time is its host time.  While a
 ``torch.profiler.record_function(name)``, so it stands in the profiler's
 trace as a ``user_annotation`` on the kernels' own timeline.
 
-The recorder is always on, as the launch counters are: a bounded ring of the
+The recorder is always on, as the launch counts are: a bounded ring of the
 last :data:`CAPACITY` closed spans (the oldest dropped) and per-name totals
 (count, host seconds, device seconds, summed numeric attrs) over the whole
 process.  :func:`print_process_summary` prints the totals."""
@@ -220,43 +220,37 @@ def span_totals() -> Dict[str, dict]:
     return RECORDER.totals()
 
 
-# each hand-written kernel's launch counter: (module under ops/, name)
-_LAUNCH_COUNTERS = {
-    "flash_fwd": ("flash_attention", "launches"),
-    "flash_bwd_dq": ("flash_attention", "dq_launches"),
-    "flash_bwd_dkv": ("flash_attention", "dkv_launches"),
-    "decode_attention": ("decode_attention", "launches"),
-    "int4_matmul_row": ("int4_matmul", "row_launches"),
-    "int4_matmul_group": ("int4_matmul", "group_launches"),
-    "moe_route": ("moe", "route_launches"),
-    "moe_align": ("moe", "align_launches"),
-    "moe_gate_up": ("moe", "gate_up_launches"),
-    "moe_down": ("moe", "down_launches"),
-    "moe_combine": ("moe", "combine_launches"),
-    "w8a16_matmul": ("quant", "w8a16_launches"),
-}
+# each hand-written kernel's launches in this process, counted at its one
+# launch site under ops/ (a CUDA graph's replays through add_kernel_launches)
+_LAUNCHES = dict.fromkeys((
+    "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
+    "int4_matmul_row", "int4_matmul_group", "moe_route", "moe_align",
+    "moe_gate_up", "moe_down", "moe_combine", "w8a16_matmul"), 0)
 
 
-def _counter_module(name: str):
-    import importlib
-
-    return importlib.import_module(f"ospo_tpu_torch.ops.{_LAUNCH_COUNTERS[name][0]}")
+def count_launch(name: str) -> None:
+    """Count one launch of the kernel ``name`` (its launch site calls this);
+    an unknown name raises ``KeyError``."""
+    _LAUNCHES[name] += 1
 
 
 def kernel_launches() -> Dict[str, int]:
-    """Each hand-written kernel's launch count in this process since its
-    counter was last set to 0."""
-    return {name: getattr(_counter_module(name), attr)
-            for name, (_, attr) in _LAUNCH_COUNTERS.items()}
+    """Each hand-written kernel's launch count in this process: a copy of
+    the table, so a caller reads what a piece of work launched as the
+    difference of two reads."""
+    return dict(_LAUNCHES)
 
 
 def add_kernel_launches(counts: Dict[str, int]) -> None:
-    """Add ``counts`` to the kernels' counters: a CUDA graph's replay adds
+    """Add ``counts`` to the kernels' counts: a CUDA graph's replay adds
     the launches it replays, and its capture, which launches nothing, takes
-    back those it counted."""
+    back those it counted.  An unknown name raises ``KeyError`` and changes
+    no count."""
+    unknown = sorted(set(counts) - _LAUNCHES.keys())
+    if unknown:
+        raise KeyError(f"no hand-written kernel named {unknown}")
     for name, n in counts.items():
-        module, attr = _counter_module(name), _LAUNCH_COUNTERS[name][1]
-        setattr(module, attr, getattr(module, attr) + n)
+        _LAUNCHES[name] += n
 
 
 def print_process_summary(stage: str, stats: dict) -> None:

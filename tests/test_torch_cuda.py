@@ -8,7 +8,16 @@ makes the same comparisons at the main path's full shapes.
 import pytest
 import torch
 
+from ospo_tpu_torch.utils.profiling import kernel_launches
+
 pytestmark = pytest.mark.gpu
+
+
+def _launched(before, *names):
+    """The named kernels' launches since ``before``, a ``kernel_launches()``
+    read."""
+    now = kernel_launches()
+    return tuple(now[n] - before[n] for n in names)
 
 
 @pytest.fixture
@@ -29,11 +38,11 @@ def test_flash_kernel_matches_plain(cuda, dtype, causal, kvh):
             for _ in range(2))
     mask = torch.ones((3, 150), dtype=torch.int32, device=cuda)
     mask[1, :40] = 0
-    n0 = fa.launches
+    n0 = kernel_launches()
     out, l, m = fa.flash_attention(q, k, v, mask, causal=causal,
                                    return_stats=True)
     ref, l_ref, m_ref = fa.flash_attention_plain(q, k, v, mask, causal=causal)
-    assert fa.launches == n0 + 1
+    assert _launched(n0, "flash_fwd") == (1,)
     # fp32 math on both sides; a bf16 output differs by its final rounding
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
@@ -154,11 +163,11 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, t, h, kvh, causal):
     out, l, m = fa.flash_attention(q, k, v, mask, causal=causal,
                                    return_stats=True)
     di = fa.row_dot(out, do)
-    n0 = (fa.dq_launches, fa.dkv_launches)
+    n0 = kernel_launches()
     dq = fa.flash_dq(q, k, v, mask, do, m, l, di, causal)
     dk, dv = fa.flash_dkv(q, k, v, mask, do, m, l, di, causal)
     torch.cuda.synchronize()
-    assert (fa.dq_launches, fa.dkv_launches) == (n0[0] + 1, n0[1] + 1)
+    assert _launched(n0, "flash_bwd_dq", "flash_bwd_dkv") == (1, 1)
     ref_dq = fa.flash_dq_plain(q, k, v, mask, do, m, l, di, causal)
     ref_dk, ref_dv = fa.flash_dkv_plain(q, k, v, mask, do, m, l, di, causal)
     for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
@@ -198,13 +207,13 @@ def test_flash_autograd_on_cuda_never_takes_the_plain_path(cuda, monkeypatch):
 
     for name in ("flash_attention_plain", "flash_dq_plain", "flash_dkv_plain"):
         monkeypatch.setattr(fa, name, trap)
-    n0 = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    n0 = kernel_launches()
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     o = tattn.attention(*leaves, mask=mask, impl="flash")
     grads = torch.autograd.grad(o, leaves, do)
     torch.cuda.synchronize()
-    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == \
-        (n0[0] + 1, n0[1] + 1, n0[2] + 1)
+    assert _launched(n0, "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") == \
+        (1, 1, 1)
     for got, want in zip(grads, ref):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
@@ -222,13 +231,13 @@ def test_flash_autograd_on_cuda_never_takes_the_plain_path_bf16(cuda,
     ref = fa.flash_attention_bwd_plain(q, k, v, mask, out, l, m, do)
     for name in ("flash_attention_plain", "flash_dq_plain", "flash_dkv_plain"):
         monkeypatch.setattr(fa, name, _trap)
-    n0 = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    n0 = kernel_launches()
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     o = tattn.attention(*leaves, mask=mask, impl="flash")
     grads = torch.autograd.grad(o, leaves, do)
     torch.cuda.synchronize()
-    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == \
-        (n0[0] + 1, n0[1] + 1, n0[2] + 1)
+    assert _launched(n0, "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") == \
+        (1, 1, 1)
     for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
         _assert_bwd_close(got, want, torch.bfloat16, name)
 
@@ -306,11 +315,11 @@ def test_decode_kernel_rows_and_lengths(cuda, B, cur_len, kind, q_dtype):
     mask = torch.ones((B, S), dtype=torch.int32, device=cuda)
     mask[0, :cur_len // 3] = 0           # left padding
     mask[B // 2] = 0                     # every key masked
-    n0 = da.launches
+    n0 = kernel_launches()
     out = da.decode_attention(q, kc, vc, 1, cur_len, mask, ks, vs)
     ref = da.decode_attention_plain(q, kc, vc, 1, cur_len, mask, ks, vs)
     torch.cuda.synchronize()
-    assert da.launches == n0 + 1 and out.dtype == q_dtype
+    assert _launched(n0, "decode_attention") == (1,) and out.dtype == q_dtype
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-4,
                                rtol=2 ** -7)
 
@@ -363,11 +372,12 @@ def test_int4_kernels_match_plain(cuda, mode, m, f, d, dtype):
     from ospo_tpu_torch.ops import int4_matmul as i4
 
     x, qw = _int4_inputs(cuda, mode, m, f, d, dtype, 5)
-    n0 = i4.group_launches if mode == "int4g" else i4.row_launches
+    n0 = kernel_launches()
     got = i4.int4_matmul_decode(x, qw)
     ref = i4.int4_matmul_decode_plain(x, qw)
     torch.cuda.synchronize()
-    assert (i4.group_launches if mode == "int4g" else i4.row_launches) == n0 + 1
+    assert _launched(n0, "int4_matmul_group" if mode == "int4g"
+                     else "int4_matmul_row") == (1,)
     assert got.dtype == dtype and got.shape == (m, 1, f)
     scale = float(ref.float().abs().max())
     if dtype == torch.float32:
@@ -485,10 +495,10 @@ def test_int4_projection_on_cuda_never_takes_the_plain_path(cuda, monkeypatch):
         ref = i4.int4_matmul_decode_plain(x, qw)
         with monkeypatch.context() as mp:
             mp.setattr(i4, "int4_matmul_decode_plain", _trap)
-            n0 = (i4.row_launches, i4.group_launches)
+            n0 = kernel_launches()
             got = llama.linear(x, qw)
             torch.cuda.synchronize()
-            moved = (i4.row_launches - n0[0], i4.group_launches - n0[1])
+            moved = _launched(n0, "int4_matmul_row", "int4_matmul_group")
         assert moved == ((0, 1) if mode == "int4g" else (1, 0))
         scale = float(ref.float().abs().max())
         torch.testing.assert_close(got.float(), ref.float(), atol=1e-3 * scale,
@@ -671,10 +681,10 @@ def test_int4n_decode_runs_the_row_kernel(cuda):
     w = torch.randn((4096, 4096), generator=g, device=cuda).bfloat16() * 0.02
     qw = quant.quant_fn("int4n")(w)
     x = torch.randn((48, 1, 4096), generator=g, device=cuda).bfloat16()
-    n0 = i4.row_launches
+    n0 = kernel_launches()
     got = llama.linear(x, qw)
     torch.cuda.synchronize()
-    assert i4.row_launches == n0 + 1
+    assert _launched(n0, "int4_matmul_row") == (1,)
     _assert_int4_close(got, i4.int4_matmul_decode_plain(x, qw), "int4",
                        torch.bfloat16)
 
@@ -704,13 +714,13 @@ def test_decode_kernel_device_cur_len_equals_the_host_launch(cuda, S, kind):
     mask[0, :S // 3] = 0
     mask[B // 2] = 0
     lens = torch.arange(1, S + 1, dtype=torch.int32, device=cuda)
-    n0 = da.launches
+    n0 = kernel_launches()
     host = torch.stack([da.decode_attention(q, kc, vc, 1, n, mask, ks, vs)
                         for n in range(1, S + 1)])
     dev = torch.stack([da.decode_attention(q, kc, vc, 1, lens[n - 1:n], mask, ks, vs)
                        for n in range(1, S + 1)])
     torch.cuda.synchronize()
-    assert da.launches == n0 + 2 * S
+    assert _launched(n0, "decode_attention") == (2 * S,)
     bad = [n + 1 for n in range(S) if not torch.equal(host[n], dev[n])]
     assert not bad, f"cur_len {bad[:10]} differ"
     with pytest.raises(ValueError, match="int32"):
@@ -824,7 +834,7 @@ def test_a_replay_counts_the_launches_it_replays(cuda):
     import numpy as np
 
     from ospo_tpu_torch.processing import t2i_prompt
-    from ospo_tpu_torch.utils.profiling import kernel_launches, spans
+    from ospo_tpu_torch.utils.profiling import spans
 
     model, proc = _card_janus(cuda, _small_card_config(torch.bfloat16))
     n_img, layers = 24, model.cfg.language.num_layers
@@ -922,9 +932,9 @@ def test_w8a16_kernel_matches_plain(cuda, f, d, m):
     from ospo_tpu_torch.ops import quant
 
     x, qw = _w8a16_inputs(cuda, m, f, d, 20 + m)
-    n0 = quant.w8a16_launches
+    n0 = kernel_launches()
     got = quant.quantized_matmul(x, qw)
-    assert quant.w8a16_launches == n0 + 1
+    assert _launched(n0, "w8a16_matmul") == (1,)
     assert got.dtype == torch.bfloat16 and got.shape == (m, 1, f)
     assert _within_a_step(got, _w8a16_plain(x, qw))
     assert _within_the_sum_order(got, x, qw)
@@ -967,10 +977,10 @@ def test_w8a16_kernel_is_deterministic_and_shares_launches(cuda, m, fs, d):
 
     x, _ = _w8a16_inputs(cuda, m, 16, d, 40)
     qws = [_w8a16_inputs(cuda, 1, f, d, 41 + i)[1] for i, f in enumerate(fs)]
-    n0 = quant.w8a16_launches
+    n0 = kernel_launches()
     a = quant.w8a16_matmul(x, qws)
     b = quant.w8a16_matmul(x, qws)
-    assert quant.w8a16_launches == n0 + 2
+    assert _launched(n0, "w8a16_matmul") == (2,)
     n_split = quant.w8a16_split(m, fs, d)
     for y1, y2, qw in zip(a, b, qws):
         assert torch.equal(y1, y2)
@@ -983,7 +993,6 @@ def test_a_cached_step_runs_every_int8_projection_on_the_kernel(cuda):
     import numpy as np
 
     from ospo_tpu_torch.processing import t2i_prompt
-    from ospo_tpu_torch.utils.profiling import kernel_launches
 
     model, proc = _card_janus(cuda, _small_card_config(torch.bfloat16), quantize="int8")
     n_img, layers = 24, model.cfg.language.num_layers

@@ -20,6 +20,7 @@ from ospo_tpu_torch.models import llama as tllama
 from ospo_tpu_torch.models.weights import from_jax_params
 from ospo_tpu_torch.ops import int4_matmul as tint4
 from ospo_tpu_torch.ops import quant as tquant
+from ospo_tpu_torch.utils.profiling import kernel_launches
 import int4_mma_reference
 from test_torch_models import np_janus_params
 
@@ -176,11 +177,11 @@ def test_wrapper_on_cpu_is_the_plain_version():
     w, x = _weights(6, 64, 128, 3)
     for mode in ("int4", "int4g"):
         qw = QUANT[mode][1](torch.from_numpy(w))
-        n0 = (tint4.row_launches, tint4.group_launches)
+        n0 = kernel_launches()
         got = tint4.int4_matmul_decode(torch.from_numpy(x), qw)
         ref = tint4.int4_matmul_decode_plain(torch.from_numpy(x), qw)
         torch.testing.assert_close(got, ref, atol=0, rtol=0)
-        assert (tint4.row_launches, tint4.group_launches) == n0
+        assert kernel_launches() == n0
 
 
 SPLIT_SHAPES = ((48, 2048, 4096), (48, 5504, 4096), (48, 2048, 11008),

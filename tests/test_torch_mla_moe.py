@@ -29,6 +29,7 @@ from ospo_tpu_torch.models import weights as weights_lib
 from ospo_tpu_torch.ops import moe
 from ospo_tpu_torch.parallel import mesh as mesh_lib
 from ospo_tpu_torch.processing import t2i_prompt
+from ospo_tpu_torch.utils.profiling import kernel_launches
 
 torch.set_num_threads(2)
 # the first parallel torch.exp of a process can come out ~1e-4 off in the
@@ -586,9 +587,9 @@ def test_expert_kernels_match_the_plain_version(cuda, n_tok):
     x = torch.randn((n_tok, D), generator=torch.Generator().manual_seed(9)).to(
         cuda, torch.bfloat16)
     counts = torch.zeros(E + S, dtype=torch.int32, device=cuda)
-    n0 = moe.gate_up_launches
+    n0 = kernel_launches()["moe_gate_up"]
     got = moe.routed_experts(x, router, w13, w2, k, counts, n_shared=S)
-    assert moe.gate_up_launches == n0 + 1
+    assert kernel_launches()["moe_gate_up"] == n0 + 1
     topi, topw = moe.route(x, router, k, n_shared=S)
     differ, shortfall, w_err = moe.routing_gap(x, router, topi, topw, k)
     assert differ <= n_tok // 500 and shortfall <= 1e-6 and w_err <= 1e-5
@@ -626,9 +627,9 @@ def test_the_step_is_replayed_without_a_host_read(cuda, weights):
     prompts = [t2i_prompt(proc, p) for p in PROMPTS]
     forced = np.zeros((2, graph.image_token_num), np.int64)
     a = graph.forced_cfg_logits(prompts, forced)
-    n0 = moe.gate_up_launches
+    n0 = kernel_launches()["moe_gate_up"]
     a2 = graph.forced_cfg_logits(prompts, forced)
-    assert moe.gate_up_launches - n0 == cfg.n_moe * graph.image_token_num
+    assert kernel_launches()["moe_gate_up"] - n0 == cfg.n_moe * graph.image_token_num
     b = eager.forced_cfg_logits(prompts, forced)
     assert graph._graph is not None and graph._graph.graph is not None
     np.testing.assert_array_equal(a, a2)

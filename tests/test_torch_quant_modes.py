@@ -2,16 +2,14 @@
 exact int32 product, the quantized payloads, ``llama.forward``, the
 straight-through backward, the W8A16 override, the scoring readout on a
 w8a8 trunk, a training step on a w8a8 frozen trunk, and the entry points
-(``get_model``, ``JanusModel.init``, the bench).
+(``get_model``, ``JanusModel.init``, the engines and the trainer in each
+mode).
 
 Both packages quantize the same numpy weights, each with its own quantize
 function; the payloads are compared too.
 """
 
 import json
-import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +27,7 @@ from ospo_tpu_torch.models import janus as tjanus
 from ospo_tpu_torch.models import llama as tllama
 from ospo_tpu_torch.models.weights import from_jax_params
 from ospo_tpu_torch.ops import quant as tquant
+from ospo_tpu_torch.pipeline.model_factory import get_model
 from ospo_tpu_torch.train import optim as toptim
 from ospo_tpu_torch.train.trainer import SimPOTrainer
 from test_torch_scoring import (PER_IMAGE, _assert_scores, _images,
@@ -41,8 +40,6 @@ torch.set_num_threads(2)
 # worker thread's share (MKL VML set-up); make that call here
 torch.exp(torch.zeros(64))
 torch.exp(torch.zeros(1 << 17))
-
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _ties_only(got, ref):
@@ -395,7 +392,6 @@ def test_get_model_and_init_serve_the_modes(mode, capsys):
     mode (the same draws as the unquantized init), and step 3's engine
     decodes on it."""
     from ospo_tpu_torch.engine.image_engine import ImageGenEngine
-    from ospo_tpu_torch.pipeline.model_factory import get_model
     from ospo_tpu_torch.processing import t2i_prompt
 
     model, _, proc = get_model({"model_preset": "tiny", "device": "cpu",
@@ -418,24 +414,110 @@ def test_get_model_and_init_serve_the_modes(mode, capsys):
     assert toks.shape == (1, 8) and int(toks.max()) < model.cfg.image_token_size
 
 
-@pytest.mark.parametrize("args", [
-    ("--mode", "step3", "--quantize", "int4n", "--kv", "int4"),
-    ("--mode", "text", "--quantize", "w8a8", "--kv", "int4"),
-    ("--mode", "score", "--quantize", "w8a8"),
-    ("--mode", "train", "--quantize", "w8a8"),
-])
-def test_bench_takes_the_modes(args):
-    """``--quantize w8a8|int4n`` and ``--kv int4`` pass through to the
-    engines (step 3 and text at 16 tokens) and to ``quantize_base``."""
-    out = subprocess.run(
-        [sys.executable, "-m", "ospo_tpu_torch.bench", "--preset", "tiny",
-         "--device", "cpu", "--tokens", "16", *args], cwd=ROOT,
-        env={**os.environ, "OMP_NUM_THREADS": "2"}, capture_output=True,
-        text=True, timeout=300)
-    assert out.returncode == 0, out.stderr[-2000:]
-    rec = json.loads(out.stdout.strip())
-    assert rec["value"] > 0
-    key = "quantize_base" if args[1] == "train" else "quantize"
-    assert rec[key] == args[3]
-    if "--kv" in args:
-        assert rec["kv"] == "int4"
+def _recording_caches(monkeypatch):
+    """Every KV cache the engines make from here on: (its ``quantized``
+    argument, the cache)."""
+    made, init = [], tjanus.init_kv_cache
+
+    def record(*args, **kwargs):
+        made.append((kwargs.get("quantized", False), init(*args, **kwargs)))
+        return made[-1][1]
+
+    monkeypatch.setattr(tjanus, "init_kv_cache", record)
+    return made
+
+
+def _assert_int4_cache(made):
+    """At least one cache is the int4 one: int8 bytes of two heads each,
+    beside one fp32 scale a head and position."""
+    int4 = [kv for quantized, kv in made if quantized == "int4"]
+    assert int4
+    for kv in int4:
+        assert kv["k"].dtype == kv["v"].dtype == torch.int8
+        assert kv["k"].numel() * 2 == kv["k_s"].numel() * kv["k"].shape[-1]
+
+
+def _assert_trunk(model, payload):
+    layers = model.params["language_model"]["layers"]
+    for name in tquant.QUANTIZABLE:
+        assert set(layers[name]) == payload, name
+
+
+def _step3_int4n_int4_kv(model_config, tmp_path, monkeypatch):
+    from ospo_tpu_torch.engine.image_engine import ImageGenEngine
+    from ospo_tpu_torch.processing import t2i_prompt
+
+    model, _, proc = get_model({**model_config, "quantize": "int4n"})
+    made = _recording_caches(monkeypatch)
+    engine = ImageGenEngine(model, proc, image_token_num=16,
+                            img_size=model.cfg.gen_image_size,
+                            patch_size=model.cfg.vq.downsample_factor,
+                            kv_quant="int4")
+    prompts = [t2i_prompt(proc, p) for p in ("a red cube", "two blue spheres")]
+    toks = engine.generate_tokens(prompts, seed=0)
+    assert toks.shape == (2, 16) and int(toks.max()) < model.cfg.image_token_size
+    _assert_trunk(model, {"q4", "s"})
+    _assert_int4_cache(made)
+
+
+def _text_w8a8_int4_kv(model_config, tmp_path, monkeypatch):
+    from ospo_tpu_torch.engine.text_engine import TextGenEngine
+
+    model, _, proc = get_model({**model_config, "quantize": "w8a8"})
+    made = _recording_caches(monkeypatch)
+    engine = TextGenEngine(model, proc, max_new_tokens=16, kv_quant="int4")
+    ids = engine.generate_ids(["A" * 40, "A" * 24 + "B" * 9, "C" * 7], seed=0)
+    assert ids.shape == (3, 16)
+    _assert_trunk(model, {"q", "sa"})
+    _assert_int4_cache(made)
+
+
+def _score_w8a8(model_config, tmp_path, monkeypatch):
+    model, _, proc = get_model({**model_config, "quantize": "w8a8"})
+    engine = tscoring.ScoringEngine(model, proc)
+    out = engine.score_images_multi(_images(3, 4, model.cfg.image_size), PER_IMAGE)
+    assert len(out) == 3
+    for got, questions in zip(out, PER_IMAGE):
+        assert len(got["answer_metadata"]) == len(questions)
+        assert np.isfinite([got["local_score"], got["global_score"]]).all()
+    _assert_trunk(model, {"q", "sa"})
+
+
+def _train_w8a8_base(model_config, tmp_path, monkeypatch):
+    from ospo_tpu_torch.pipeline.datasets import PreferenceDataset
+    from ospo_tpu_torch.utils.png import write_png
+
+    model, _, proc = get_model(model_config)
+    records = []
+    for i, (chosen, rejected) in enumerate(zip(*[iter(_images(4, 5))] * 2)):
+        paths = [str(tmp_path / f"{i}_{side}.png") for side in ("c", "r")]
+        write_png(paths[0], chosen)
+        write_png(paths[1], rejected)
+        records.append({"item_id": str(i), "prompt": f"a photo of object {i}",
+                        "chosen": paths[0], "rejected": paths[1]})
+    (tmp_path / "train.json").write_text(json.dumps(records))
+    trainer = SimPOTrainer(Config.from_nested(_trainer_config(
+        tmp_path / "ckpt", "flash", quantize_base="w8a8",
+        max_training_steps=1)), model, proc)
+    _assert_trunk(model, {"q", "sa"})
+    frozen = {n: model.params["language_model"]["layers"][n]["q"].clone()
+              for n in tquant.QUANTIZABLE}
+    trainer.fit(PreferenceDataset(seed=0, data_path=str(tmp_path / "train.json"),
+                                  processor=proc), batch_size=2)
+    assert trainer.global_step == 1 and np.isfinite(float(trainer.logged[-1]["loss"]))
+    _assert_trunk(model, {"q", "sa"})
+    for name, q in frozen.items():
+        assert torch.equal(model.params["language_model"]["layers"][name]["q"], q)
+
+
+@pytest.mark.parametrize("case", [_step3_int4n_int4_kv, _text_w8a8_int4_kv,
+                                  _score_w8a8, _train_w8a8_base],
+                         ids=["step3-int4n-int4kv", "text-w8a8-int4kv",
+                              "score-w8a8", "train-w8a8-base"])
+def test_engines_take_the_modes(case, tmp_path, monkeypatch):
+    """``quantize: w8a8 | int4n`` through ``get_model`` and ``kv_quant:
+    int4`` reach the engines, and ``quantize_base: w8a8`` the trainer's
+    ``fit``: the trunk holds the mode's payload, the decode engines make
+    the int4 head-pair cache, and each returns its output in full."""
+    case({"model_preset": "tiny", "device": "cpu", "seed": 0}, tmp_path,
+         monkeypatch)

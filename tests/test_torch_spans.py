@@ -2,8 +2,12 @@
 CPU: nesting, parents and unit ids across threads, the ring's bound, the
 per-name totals, the process summary's ``spans`` key, spans in a
 ``torch.profiler`` trace, and the spans that ``run_step3``, ``run_scoring``
-and ``SimPOTrainer.fit`` record on the tiny random-init model."""
+and ``SimPOTrainer.fit`` record on the tiny random-init model; and the
+hand-written kernels' launch table beside it, against the launch sites
+under ``ospo_tpu_torch/ops/`` (an AST scan)."""
 
+import ast
+import glob
 import json
 import os
 import sys
@@ -311,3 +315,109 @@ def test_fit_records_one_update_with_its_phases(tiny, tmp_path):
         for s in inside[u.id]:
             assert s.parent == u.id and u.start <= s.start <= s.end <= u.end
             assert s.device_s == s.host_s
+
+
+# ---------------------------------------------------------------------------
+# the kernels' launch table
+# ---------------------------------------------------------------------------
+
+PORT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "ospo_tpu_torch")
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
+           "int4_matmul_row", "int4_matmul_group", "moe_route", "moe_align",
+           "moe_gate_up", "moe_down", "moe_combine", "w8a16_matmul")
+
+
+def _trees(package):
+    for path in sorted(glob.glob(os.path.join(PORT, package, "*.py"))):
+        with open(path) as f:
+            yield os.path.basename(path), ast.parse(f.read(), path)
+
+
+def _literals(arg):
+    """The kernel names a ``count_launch`` argument can take: a string or a
+    choice of strings; anything else is None (no name the scan can read)."""
+    if isinstance(arg, ast.IfExp):
+        return _literals(arg.body) + _literals(arg.orelse)
+    return [arg.value if isinstance(arg, ast.Constant) else None]
+
+
+def _launch_sites():
+    return [(module, name) for module, tree in _trees("ops")
+            for node in ast.walk(tree) if isinstance(node, ast.Call)
+            and getattr(node.func, "id", None) == "count_launch"
+            for name in _literals(node.args[0])]
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_launch_table_matches_the_kernels(kernel):
+    """The table holds the twelve kernels, and each has exactly one launch
+    site under ``ops/``."""
+    assert tuple(profiling.kernel_launches()) == KERNELS
+    assert [name for _, name in _launch_sites()].count(kernel) == 1
+
+
+def test_ops_count_only_the_tables_kernels():
+    """Every ``count_launch`` under ``ops/`` names a kernel of the table,
+    and no ``ops`` module keeps a launch counter of its own."""
+    assert {name for _, name in _launch_sites()} == set(KERNELS)
+    for module, tree in _trees("ops"):
+        names = [t.id for node in tree.body if isinstance(node, (ast.Assign, ast.AnnAssign))
+                 for t in (node.targets if isinstance(node, ast.Assign) else [node.target])
+                 if isinstance(t, ast.Name)]
+        assert not [n for n in names if n.endswith("launches")], module
+
+
+def test_utils_import_nothing_from_ops():
+    """The bottom layer does not reach up: no module under ``utils/``
+    imports ``ospo_tpu_torch.ops``, directly or by ``import_module``."""
+    for module, tree in _trees("utils"):
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            elif isinstance(node, ast.Call) and node.args \
+                    and isinstance(node.args[0], ast.Constant) \
+                    and getattr(node.func, "attr", None) == "import_module":
+                names = [str(node.args[0].value)]
+            else:
+                continue
+            assert not [n for n in names if n.startswith("ospo_tpu_torch.ops")], module
+
+
+@pytest.mark.parametrize("counter", ["count_launch", "add_kernel_launches"])
+def test_count_launch_refuses_an_unknown_kernel(counter):
+    """An unknown name raises from either function and changes no count,
+    the known name beside it in the same call included."""
+    before = profiling.kernel_launches()
+    with pytest.raises(KeyError, match="flash_fwd_v2"):
+        if counter == "count_launch":
+            profiling.count_launch("flash_fwd_v2")
+        else:
+            profiling.add_kernel_launches({"flash_fwd": 1, "flash_fwd_v2": 1})
+    assert profiling.kernel_launches() == before
+
+
+def test_a_capture_takes_back_its_launches_and_a_replay_adds_them():
+    """A CUDA graph's accounting, as ``_TrunkGraph`` keeps it: the launches
+    counted while capturing are taken back, each replay adds them, and
+    ``kernel_launches()`` is a copy a caller cannot change the table
+    through."""
+    before = profiling.kernel_launches()
+    for name in ("decode_attention", "w8a16_matmul", "w8a16_matmul"):  # the capture
+        profiling.count_launch(name)
+    captured = {k: n - before[k] for k, n in profiling.kernel_launches().items()
+                if n != before[k]}
+    assert captured == {"decode_attention": 1, "w8a16_matmul": 2}
+    profiling.add_kernel_launches({k: -n for k, n in captured.items()})
+    assert profiling.kernel_launches() == before
+    for _ in range(3):                                              # replays
+        profiling.add_kernel_launches(captured)
+    got = profiling.kernel_launches()
+    assert {k: got[k] - before[k] for k in captured} == {"decode_attention": 3,
+                                                         "w8a16_matmul": 6}
+    got["flash_fwd"] += 1000
+    assert profiling.kernel_launches()["flash_fwd"] == before["flash_fwd"]
+    profiling.add_kernel_launches({k: -3 * n for k, n in captured.items()})
+    assert profiling.kernel_launches() == before

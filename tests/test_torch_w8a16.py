@@ -4,7 +4,7 @@ A T == 1 product on the card runs the kernel ``csrc/w8a16_matmul.cu``
 (``tests/test_torch_cuda.py`` holds it against the plain version there).
 Everything else keeps its form: a CPU tensor takes the plain ``_w8a16``, a
 T > 1 product too, and a product whose input needs a gradient the autograd
-Function ``_W8A16``; none of them moves the kernel's launch counter.
+Function ``_W8A16``; none of them moves a kernel's launch count.
 """
 
 from types import SimpleNamespace
@@ -15,6 +15,7 @@ import torch
 
 from ospo_tpu_torch.models import llama
 from ospo_tpu_torch.ops import quant
+from ospo_tpu_torch.utils.profiling import kernel_launches
 
 
 def _inputs(b, t, d, f, seed=0, dtype=torch.bfloat16):
@@ -28,13 +29,13 @@ def _inputs(b, t, d, f, seed=0, dtype=torch.bfloat16):
 @pytest.mark.parametrize("b,t", [(1, 1), (5, 1), (48, 1), (64, 1), (3, 7)])
 def test_cpu_product_takes_the_plain_form(b, t):
     """On the CPU, T == 1 or not, ``quantized_matmul`` is ``_w8a16`` bit for
-    bit, and the kernel's launch counter does not move."""
+    bit, and no kernel's launch count moves."""
     x, qw = _inputs(b, t, 64, 48, seed=b + t)
-    n0 = quant.w8a16_launches
+    n0 = kernel_launches()
     got = quant.quantized_matmul(x, qw)
     assert torch.equal(got, quant._w8a16(x, qw["q"], qw["s"]))
     assert not quant.w8a16_kernel_takes(x, [qw])
-    assert quant.w8a16_launches == n0
+    assert kernel_launches() == n0
 
 
 def _card_like(shape, dtype=torch.bfloat16, requires_grad=False, device="cuda",
@@ -130,7 +131,7 @@ def test_linears_equal_linear_of_each_weight(mode):
                           ).to(torch.bfloat16) for f in (32, 16, 16)]
     if mode != "bf16":
         ws = [quant.quant_fn(mode.split("-")[0])(w) for w in ws]
-    n0 = quant.w8a16_launches
+    n0 = kernel_launches()
     if mode == "w8a8-override":
         with quant.w8a16_override():
             got, want = llama.linears(x, ws), [llama.linear(x, w) for w in ws]
@@ -138,7 +139,7 @@ def test_linears_equal_linear_of_each_weight(mode):
         got, want = llama.linears(x, ws), [llama.linear(x, w) for w in ws]
     assert len(got) == 3
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert quant.w8a16_launches == n0
+    assert kernel_launches() == n0
 
 
 @pytest.mark.parametrize("mode,override,int8", [
