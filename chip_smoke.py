@@ -418,7 +418,7 @@ def merged(base: dict, over: dict) -> dict:
 # kernels whose ptxas report phase 1 reads: a register spill fails the run
 SPILL_CHECKED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                  "decode_attention", "int4_matmul_row", "int4_matmul_group",
-                 "moe_experts", "w8a16_matmul")
+                 "moe_experts", "w8a16_matmul", "suffix_attention")
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, int8 tensor cores,
 # HBM3 bandwidth
@@ -1214,6 +1214,82 @@ class Smoke:
                             "times from CUDA-graph replay over copies larger than "
                             "the L2",
         }
+
+    def suffix_kernel(self):
+        """The suffix-attention kernel (``ops/suffix_attention.py``) at the
+        1B cell's slice: 8 images, 16 heads, T = 240 suffix rows after 640
+        image rows, a 48-row pre-image prefix (43 valid), int8 cache of 24
+        layers; every row within ``tests/suffix_attention_reference.py``'s
+        tolerance of the plain version, the three controls refused by 10x.
+        Times: CUDA-graph replay cycling through the 24 layers (the window
+        cold in L2, as a pass finds it), beside the bound (the int8 window,
+        scales, prefix, q and out once; the valid prefix, image rows and
+        the causal triangle's FLOPs), the plain version and SDPA over a
+        dequantized bf16 copy with the prefix concatenated (copy not
+        timed)."""
+        from ospo_tpu_torch.ops import suffix_attention as sa
+
+        sys.path[:0] = [os.path.join(ROOT, "tests")]
+        import suffix_attention_reference as sref
+
+        dev = torch.device("cuda")
+        B, T, H, D, L0, C, pre_n, L = 8, 240, 16, 128, 640, 48, 43, 24
+        a = sref.suffix_inputs(B, T, H, L0, C, "int8", seed=31, device=dev)
+        a["prefix_mask"][:, :C - pre_n] = 0
+        got = sref.call(sa.suffix_attention, a)
+        ref, tol = sref.call(sref.plain_and_tolerance, a)
+        worst = sref.worst(got, ref, tol)
+        ctrl = {n: sref.worst(sref.call(sa.suffix_attention, a, **c), ref, tol)
+                for n, c in sref.controls(a).items()}
+        self.check(worst <= 1.0 and min(ctrl.values()) >= 10,
+                   f"suffix_attention B={B} T={T} H={H} L0={L0} C={C} int8: "
+                   f"max |d|/tol = {worst:.3g} (<= 1), controls {ctrl} (>= 10)")
+        # the 24 layers of one cache: layer 1's rows in each
+        caches = {n: a[n][1:2].expand(L, *a[n].shape[1:]).contiguous()
+                  for n in ("k_cache", "v_cache", "k_scale", "v_scale")}
+        b = {**a, **caches}
+        ms = cuda_ms_graph([lambda li=li: sref.call(sa.suffix_attention, b, layer_idx=li)
+                            for li in range(L)], 4 * L)
+        plain_ms = cuda_ms(lambda: sref.call(sa.suffix_attention_plain, a), 5, 1)
+        W = L0 + T
+        kd = (a["k_cache"][1, :W].float() * a["k_scale"][1, :W, ..., None]
+              ).permute(2, 1, 0, 3).to(torch.bfloat16)
+        vd = (a["v_cache"][1, :W].float() * a["v_scale"][1, :W, ..., None]
+              ).permute(2, 1, 0, 3).to(torch.bfloat16)
+        kf = torch.cat([a["prefix_k"].permute(1, 0, 2)[None].expand(B, H, C, D), kd], 2)
+        vf = torch.cat([a["prefix_v"].permute(1, 0, 2)[None].expand(B, H, C, D), vd], 2)
+        rows = L0 + torch.arange(T, device=dev)[:, None]
+        own = (a["mask"][:, None, None, :W] != 0) & (torch.arange(W, device=dev) <= rows)
+        allowed = torch.cat([(a["prefix_mask"] != 0)[:, None, None, :].expand(B, 1, T, C),
+                             own], -1)
+        qt = a["q"].transpose(1, 2)
+        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kf, vf, attn_mask=allowed), 20)
+        flops = 4.0 * B * H * D * T * (pre_n + L0) + 4.0 * B * H * D * T * (T + 1) / 2
+        nbytes = (2 * B * W * H * (D + 4) + 2 * C * H * D * 2 + 2 * B * T * H * D * 2
+                  + B * W * 4)
+        bound_ms = max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+        print(f"suffix_attention B={B} T={T} H={H} L0={L0} C={C} int8: kernel "
+              f"{ms:.4f} ms cold in L2 ({100 * bound_ms / ms:.1f}% of bound); plain "
+              f"{plain_ms:.4f} ms; sdpa on a dequantized bf16 copy {lib_ms:.4f} ms; "
+              f"bound {bound_ms:.5f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, "
+              f"bound by {'operations' if flops / PEAK_BF16 > nbytes / PEAK_BYTES else 'bytes'})")
+        self.kernels["suffix_attention"] = {
+            "name": "suffix_attention", "route": "cuda",
+            "source": "ospo_tpu_torch/ops/csrc/suffix_attention.cu",
+            "replaces": None, "launches": None,
+            "max_abs_err": max_err(got, ref), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if flops / PEAK_BF16 > nbytes / PEAK_BYTES
+            else "bytes",
+            "library_ms": lib_ms,
+            "library_note": "SDPA over the window dequantized to bf16 ahead of time "
+                            "with the prefix concatenated and a boolean mask (copy "
+                            "not timed); the kernel's time from CUDA-graph replay "
+                            "cycling through 24 layers",
+        }
+        del a, b, caches, kd, vd, kf, vf, allowed
+        torch.cuda.empty_cache()
 
     def text_kernels(self):
         """The flash forward at the step-2 prefix prefill and the decode
@@ -2116,8 +2192,9 @@ class Smoke:
             step4.main(config)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = launched(n0)["flash_fwd"]
-        self.launches["flash_fwd"] = self.launches.get("flash_fwd", 0) + launches
+        launches, suffix = (launched(n0)[k] for k in ("flash_fwd", "suffix_attention"))
+        for k, n in (("flash_fwd", launches), ("suffix_attention", suffix)):
+            self.launches[k] = self.launches.get(k, 0) + n
         st = rec.summary()
         summary = read_json(os.path.join(save, "score_summary.json"))
         train = read_json(os.path.join(save, "train.json"))
@@ -2147,6 +2224,9 @@ class Smoke:
                    f"step 4b flash_fwd launches {launches} == 30 x "
                    f"{st['slices']} shared-program slices (the B = 1 "
                    f"pre-image prefill)")
+        self.check(suffix == 30 * st["suffix_passes"],
+                   f"step 4b suffix_attention launches {suffix} == 30 layers x "
+                   f"{st['suffix_passes']} question passes over the slices")
         self.check(all(set(r) == TRAIN_KEYS and set(r["metadata"]) == TRAIN_META_KEYS
                        and set(r["metadata"]["score_metadata"]) == {
                            "local_gap", "global_gap", "preference_strength"}
@@ -3717,6 +3797,7 @@ class _ScoreRecorder:
         def slice_call(eng, operands, pre, q_counts):
             t = time.perf_counter()
             rec.slices.append({"rows": operands[0].shape[0], "events": {},
+                               "q_b": operands[5].shape[0],
                                "bucket": (operands[0].shape[1],
                                           operands[5].shape[2],
                                           None if pre is None else pre[0].shape[1])})
@@ -3757,6 +3838,7 @@ class _ScoreRecorder:
         out = {p: per_slice(p) for p in ("vit", "pre", "prefill", "suffix")}
         return {
             "slices": len(self.slices),
+            "suffix_passes": sum(s["q_b"] for s in self.slices),
             "rows": sorted({s["rows"] for s in self.slices}),
             "buckets": sorted({s["bucket"] for s in self.slices}, key=str),
             "vit_ms": out["vit"], "pre_ms": out["pre"],
@@ -4280,6 +4362,7 @@ def main() -> int:
                         smoke.int4_kernels)
             smoke.phase("moe kernels vs plain", smoke.moe_kernels)
             smoke.phase("w8a16_matmul kernel vs plain", smoke.w8a16_kernel)
+            smoke.phase("suffix_attention kernel vs plain", smoke.suffix_kernel)
             smoke.phase("flash_fwd and decode_attention at the text shapes",
                         smoke.text_kernels)
             smoke.phase("flash_fwd at the step-4b scoring shapes",

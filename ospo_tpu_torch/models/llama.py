@@ -13,12 +13,14 @@ too) and updated in place (PyTorch tensors are mutable; the JAX package
 threads a new cache through its scan instead).  Prefill
 (``self_attn=True``) writes the prompt rows and attends over them with the
 flash kernel; on an ``shbd`` model-dtype or int8 cache a cached T=1 step
-writes its row and reads the cache with the decode-attention kernel.  With a
-batch-shared prefix segment (``prefix_kv``, the text engine's shared-prefix
-decode and step 4b's pre-image segment) prefill and T = 1 take the plain
-prefix forms of ``ops/attention.py`` instead.  Every other cached read (a
-T > 1 step, other layouts, int4 caches, per-row offsets) goes through the
-plain ``xla_attention``.  Numerics
+writes its row and reads the cache with the decode-attention kernel, and on
+the card a cached T > 1 step (step 4b's question suffixes, with or without a
+prefix) with the suffix-attention kernel.  With a batch-shared prefix
+segment (``prefix_kv``, the text engine's shared-prefix decode and step 4b's
+pre-image segment) prefill and T = 1 take the plain prefix forms of
+``ops/attention.py`` instead.  Every other cached read (other layouts, int4
+caches, per-row offsets, the CPU) goes through the plain
+``xla_attention``.  Numerics
 follow the reference: weights in the model dtype, RMSNorm / RoPE / softmax
 / SiLU in fp32.
 
@@ -47,6 +49,8 @@ from ospo_tpu_torch.ops.quant import (_pack_halves, quantized_matmul,
                                       quantized_matmul_int4_group,
                                       quantized_matmul_w8a8, quantized_matmuls,
                                       weight_only_int8)
+from ospo_tpu_torch.ops.suffix_attention import (suffix_attention,
+                                                 suffix_attention_takes)
 from ospo_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
@@ -458,9 +462,12 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     every row) and reads positions ``[0, length + T)`` of the cache,
     causally; ``attention_mask`` covers the whole cache window
     ``[B, S_max]`` (int32).  On a model-dtype or int8 ``shbd`` cache T = 1
-    runs the decode-attention kernel (MHA).  Every other cached read (T > 1
-    — step 4b's question suffixes —, the ``bshd`` and ``bhsd`` layouts, an
-    int4 cache, per-row offsets) takes the plain ``xla_attention`` over the
+    runs the decode-attention kernel (MHA), and T > 1 — step 4b's question
+    suffixes — the suffix-attention kernel where
+    ``ops/suffix_attention.suffix_attention_takes`` accepts the step (bf16
+    queries on the card, MHA, head dim 128).  Every other cached read (the
+    ``bshd`` and ``bhsd`` layouts, an int4 cache, per-row offsets, the CPU)
+    takes the plain ``xla_attention`` over the
     layer's cache, the path of the JAX package without its decode kernel;
     ``attn_window`` truncates that read to the first ``attn_window``
     positions (and the mask with it), and an ``shbd`` T > 1 step reads only
@@ -551,9 +558,9 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
             "prefix_kv (batch-shared KV segment) is supported on the standard "
             "cached path only — not SJD per-row offsets or the Pallas decode "
             "kernel")
-    # the batch-minor model-dtype / int8 cache has the kernel and the
-    # T == 1 prefix form (MHA only); everything else reads through
-    # xla_attention
+    # the batch-minor model-dtype / int8 cache has the decode kernel, the
+    # T == 1 prefix form and, for T > 1, the suffix kernel (MHA only);
+    # everything else reads through xla_attention
     shbd_read = layout == "shbd" and not int4 and not per_row
     mha = cfg.kv_heads == cfg.num_heads
     kernel = shbd_read and T == 1 and mha and prefix_kv is None
@@ -597,6 +604,11 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
                 q, kv_cache["k"], kv_cache["v"], li, cache_len + 1,
                 attention_mask, pk, pv, pm, k_scale=kv_cache.get("k_s"),
                 v_scale=kv_cache.get("v_s"))
+        elif suffix_attention_takes(q, kv_cache, per_row, pk):
+            attn = suffix_attention(q, kv_cache["k"], kv_cache["v"], li,
+                                    cache_len, attention_mask, pk, pv, pm,
+                                    k_scale=kv_cache.get("k_s"),
+                                    v_scale=kv_cache.get("v_s"))
         else:
             k_att, v_att = _cache_window(kv_cache, li, layout, window)
             attn = xla_attention(

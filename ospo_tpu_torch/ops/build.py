@@ -40,6 +40,7 @@ SIGNATURES = {
     "int4_matmul_group": ("ospo_int4_matmul_group", [P] * 5 + [I] * 7 + [P]),
     "moe_experts": ("ospo_moe_gate_up", [P] * 8 + [I] * 6 + [P]),
     "w8a16_matmul": ("ospo_w8a16_matmul", [P] * 10 + [I] * 7 + [P]),
+    "suffix_attention": ("ospo_suffix_attention", [P] * 10 + [I] * 9 + [P]),
 }
 
 # further exported functions of a library: symbol → argument types (each

@@ -1004,3 +1004,108 @@ def test_a_cached_step_runs_every_int8_projection_on_the_kernel(cuda):
     graph.forced_cfg_logits(prompts, forced)   # replays
     n1 = kernel_launches()
     assert n1["w8a16_matmul"] - n0["w8a16_matmul"] == 4 * layers * (n_img - 1)
+
+
+# -- the suffix-attention kernel (step 4b's question suffixes) ---------------
+
+SUFFIX_PREFIXES = [(0, None), (48, "shared"), (48, "per_image")]
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("C,pm", SUFFIX_PREFIXES)
+@pytest.mark.parametrize("T", [16, 96, 304])
+def test_suffix_kernel_matches_plain(cuda, T, C, pm, kind):
+    """The kernel against the plain version at the 1B cell's shapes (16
+    images, 16 heads, a window of 640 + T rows) on every row: left-padded
+    image and suffix rows, image 1's first rows without an allowed key (the
+    mean of V over prefix and window), rows past the window never read;
+    within ``suffix_attention_reference``'s tolerance (the fp16 rounding of
+    P, the bf16 output); one launch."""
+    import suffix_attention_reference as sref
+
+    from ospo_tpu_torch.ops import suffix_attention as sa
+
+    a = sref.suffix_inputs(16, T, 16, 640, C, kind, seed=T + C, device=cuda,
+                           prefix_mask=pm or "shared")
+    n0 = kernel_launches()
+    got = sref.call(sa.suffix_attention, a)
+    assert _launched(n0, "suffix_attention") == (1,)
+    ref, tol = sref.call(sref.plain_and_tolerance, a)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert sref.worst(got, ref, tol) <= 1.0
+
+
+@pytest.mark.parametrize("C,pm", [(0, None), (48, "shared")])
+def test_suffix_kernel_controls_fail(cuda, C, pm):
+    """The tolerance refuses what a right kernel must not do, each by 10x
+    or more: one image's k scales times 1 + 2^-7, the prefix dropped, the
+    causal limit a row lower; the kernel itself stays within it."""
+    import suffix_attention_reference as sref
+
+    from ospo_tpu_torch.ops import suffix_attention as sa
+
+    a = sref.suffix_inputs(16, 96, 16, 640, C, "int8", seed=11, device=cuda,
+                           prefix_mask=pm or "shared")
+    ref, tol = sref.call(sref.plain_and_tolerance, a)
+    assert sref.worst(sref.call(sa.suffix_attention, a), ref, tol) <= 1.0
+    for name, change in sref.controls(a).items():
+        got = sref.call(sa.suffix_attention, a, **change)
+        assert sref.worst(got, ref, tol) >= 10, name
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_suffix_kernel_is_deterministic(cuda, kind):
+    import suffix_attention_reference as sref
+
+    from ospo_tpu_torch.ops import suffix_attention as sa
+
+    a = sref.suffix_inputs(16, 240, 16, 640, 48, kind, seed=5, device=cuda)
+    assert torch.equal(sref.call(sa.suffix_attention, a), sref.call(sa.suffix_attention, a))
+
+
+def test_suffix_kernel_in_a_scoring_call(cuda, monkeypatch):
+    """A whole ``ScoringEngine`` call on a bf16 model with an int8 cache
+    (the pre-image prefix, a budget of two images a slice, so two slices):
+    its yes/no readouts equal the plain route's within 2^-5 relative, and
+    the kernel runs once a layer and question pass of each slice (layers x
+    Q_b x 2)."""
+    import dataclasses
+
+    import numpy as np
+
+    from ospo_tpu_torch.engine.scoring import ScoringEngine
+    from ospo_tpu_torch.image_processing import ImageProcessor
+    from ospo_tpu_torch.models import janus, llama
+    from ospo_tpu_torch.processing import Processor
+    from ospo_tpu_torch.tokenizer import ByteTokenizer
+
+    cfg = dataclasses.replace(
+        janus.tiny_janus_config(dtype=torch.bfloat16),
+        language=llama.tiny_config(hidden_size=256, intermediate_size=512,
+                                   num_heads=2, dtype=torch.bfloat16))
+    model = janus.JanusModel.init(cfg, seed=5, quantize="int8", device=cuda)
+    proc = Processor(ByteTokenizer(cfg.language.vocab_size),
+                     ImageProcessor(image_size=cfg.image_size),
+                     num_image_tokens=cfg.num_image_tokens)
+    rng = np.random.default_rng(5)
+    images = [rng.integers(0, 256, (32, 32, 3)).astype(np.uint8) for _ in range(3)]
+    questions = [["Is there a dog?", "Is it red?", "Does it match?"],
+                 ["Is the sky blue?", "Does it match the prompt?"],
+                 ["Is there a cat?", "Is it big?", "Is it outdoors?", "Does it match?"]]
+
+    def score():
+        eng = ScoringEngine(model, proc, kv_quant="int8")
+        prep = eng.prepare_shared_multi(images, questions)
+        eng.row_token_budget = 2 * prep.row_tokens
+        return eng.score_images_multi(images, questions, prep=prep)
+
+    n0 = kernel_launches()
+    got = score()
+    launches = _launched(n0, "suffix_attention")[0]
+    monkeypatch.setattr(llama, "suffix_attention_takes", lambda *a, **k: False)
+    ref = score()
+    assert launches == cfg.language.num_layers * max(map(len, questions)) * 2
+    ps = [(m[k], n[k]) for a, b in zip(got, ref)
+          for m, n in zip(a["answer_metadata"], b["answer_metadata"]) for k in ("p_yes", "p_no")]
+    assert len(ps) == 2 * 9
+    assert max(abs(g - r) / abs(r) for g, r in ps) <= 2 ** -5
