@@ -198,8 +198,18 @@ dQ and dK/dV at phase 18's shard (rows 8, H = 8); its 1B training shape
     five kernels must launch 26 x 576 times (the prefill and 575 cached
     steps, replayed from the trunk graph), the group's ``image.experts``
     span must count 26 x 575 x 48 x 6 routed rows, and the tree must hold
-    24 real images.  ``--moe-only`` runs phase 1, phase 2's MoE check and
-    this phase.
+    24 real images.
+20. a step of a Qwen3-Next trunk at its full width and depth
+    (``benchmark/configs/janus-qwen3-next-80b-a3b.json``: 48 layers, 36 of
+    them Gated DeltaNet, every one MoE with 64 of 512 experts held, top-10,
+    a gated shared expert), the harness's random weights quantized to int8:
+    a prefill of 16 rows and one cached T = 1 step, eagerly; counted from a
+    ``kernel_launches()`` read just before the step, ``gdn_decode`` must
+    launch 36 times and each MoE kernel 48 times; and ``moe_route`` at 512
+    experts top-10 over 192 tokens against ``route_plain`` (as phase 2's
+    MoE check), its held range's ids and weights those of the same slots,
+    the shared slots' weight the gate's sigmoid.  ``--moe-only`` runs phase
+    1, phase 2's MoE and GDN checks, phase 19 and this phase.
 
 Phase 2 also holds ``ops/moe.py``'s kernels (``routed_experts`` on card
 tensors) against the plain functions on the same tensors at
@@ -207,7 +217,10 @@ DeepSeek-V2-Lite's widths, a decode step's 48 tokens and a prefill
 bucket's 48 x 64: the plain routing but at fp32 ties, the same weights
 and counts, outputs within bf16 rounding, and two controls (a routed slot
 dropped, one expert's down scales read from the next) outside that
-tolerance.
+tolerance.  It holds ``ops/gated_delta.py``'s ``gdn_decode`` against
+``decode_plain`` at the Qwen3-Next cell's 192 rows (phase 2's GDN check:
+the state within 1e-5, which a bf16 state fails) and times it against the
+bytes' bound.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -418,7 +431,7 @@ def merged(base: dict, over: dict) -> dict:
 # kernels whose ptxas report phase 1 reads: a register spill fails the run
 SPILL_CHECKED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                  "decode_attention", "int4_matmul_row", "int4_matmul_group",
-                 "moe_experts", "w8a16_matmul", "suffix_attention")
+                 "moe_experts", "w8a16_matmul", "suffix_attention", "gated_delta")
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, int8 tensor cores,
 # HBM3 bandwidth
@@ -2860,6 +2873,169 @@ class Smoke:
                     "library_note": "no PyTorch call computes grouped W8A16 experts"}
             del x, got, want
 
+    def gdn_kernel(self):
+        """``ops/gated_delta.py``'s ``gdn_decode`` (``decode`` on card
+        tensors) against ``decode_plain`` on copies of the same tensors, at
+        the Qwen3-Next cell's shapes: 192 rows, 16 key and 32 value heads of
+        128, a conv of width 4, one T = 1 step from a state of 8 earlier
+        plain steps.  The state within 1e-5 of the plain one (relative
+        Frobenius distance, a row and value head: both keep it in fp32, only
+        the order of the sums differs), the conv state equal, the output
+        within one bf16 rounding; the plain state rounded to bf16 (a
+        control) outside the state's tolerance.  Time: CUDA-graph replay,
+        every call reading its 403 MB state from device memory, against the
+        bytes' bound (``benchmark/roofline/gated_delta.py``'s count)."""
+        from ospo_tpu_torch.ops import gated_delta as gd
+
+        dev = torch.device("cuda")
+        g = torch.Generator(device=dev).manual_seed(5)
+        R, hk, hv, dk, K, eps = 192, 16, 32, 128, 4, 1e-6
+        C = 2 * hk * dk + hv * dk
+        bf = dict(dtype=torch.bfloat16, device=dev)
+
+        def randn(*shape, std=1.0):
+            return torch.randn(shape, generator=g, device=dev) * std
+
+        conv_w = randn(C, K, std=0.5).to(torch.bfloat16)
+        a_log = torch.log(1 + 15 * torch.rand((hv,), generator=g, device=dev))
+        dt_bias = randn(hv, std=0.5) - 4.0
+        norm_w = 1 + randn(dk, std=0.1)
+        conv_state = torch.zeros((R, K - 1, C), **bf)
+        state = torch.zeros((R, hv, dk, dk), dtype=torch.float32, device=dev)
+        args = (a_log, dt_bias, norm_w, hk, dk, dk, hv // hk, eps)
+
+        def inputs():
+            return (randn(R, hk * (2 * dk + 4 * dk)).to(torch.bfloat16),
+                    randn(R, 4 * hk).to(torch.bfloat16))
+
+        for _ in range(8):
+            gd.decode_plain(*inputs(), conv_w, conv_state, state, *args)
+        qkvz, ba = inputs()
+        cs_k, st_k = conv_state.clone(), state.clone()
+        n0 = kernel_launches()
+        out = gd.decode(qkvz, ba, conv_w, cs_k, st_k, *args)
+        torch.cuda.synchronize()
+        once = launched(n0, "gdn_decode")["gdn_decode"] == 1
+        cs_p, st_p = conv_state.clone(), state.clone()
+        want = gd.decode_plain(qkvz, ba, conv_w, cs_p, st_p, *args)
+
+        def rel(a, b):
+            return float(((a - b).pow(2).sum((-2, -1))
+                          / b.pow(2).sum((-2, -1))).sqrt().max())
+
+        err_state, err_ctl = rel(st_k, st_p), rel(st_p.to(torch.bfloat16).float(), st_p)
+        wf = want.float()
+        out_ok = bool(((out.float() - wf).abs()
+                       <= 2 ** -7 * wf.abs() + 1e-3 * float(wf.abs().max())).all())
+        self.check(once and err_state <= 1e-5 and torch.equal(cs_k, cs_p) and out_ok
+                   and err_ctl > 1e-5,
+                   f"gdn_decode at {R} rows, {hk}/{hv} heads of {dk}: launched once "
+                   f"{once}; state distance {err_state:.3g} (tol 1e-5), conv state equal "
+                   f"{torch.equal(cs_k, cs_p)}, output within one bf16 rounding {out_ok} "
+                   f"(max|d| {max_err(out, want):.3g}); control, the state in bf16: "
+                   f"{err_ctl:.3g}, outside the tolerance")
+        ms = cuda_ms_graph([lambda: gd.decode(qkvz, ba, conv_w, cs_k, st_k, *args)], 10)
+        plain_ms = cuda_ms(lambda: gd.decode_plain(qkvz, ba, conv_w, cs_p, st_p, *args), 3, 1)
+        channels, state_b = C, R * hv * dk * dk * 4
+        nbytes = (2 * state_b + 2 * R * (K - 1) * channels * 2
+                  + R * (channels + hv * dk + 2 * hv) * 2 + channels * K * 2
+                  + 2 * hv * 4 + dk * 4 + R * hv * dk * 2)
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        print(f"gdn_decode, one layer at {R} rows: {ms:.4f} ms (graph replay, cold; "
+              f"{100 * bound_ms / ms:.1f}% of bound), plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms (bytes: {nbytes / 1e6:.1f} MB)")
+        self.kernels["gdn_decode"] = {
+            "name": "gdn_decode", "route": "cuda",
+            "source": "ospo_tpu_torch/ops/csrc/gated_delta.cu",
+            "replaces": None, "launches": None, "max_abs_err": max_err(out, want),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None,
+            "library_note": "no PyTorch call computes a gated delta-rule step"}
+
+    # -- phase 20 --------------------------------------------------------
+    def hybrid_step(self):
+        """A step of the Qwen3-Next trunk (module docstring, phase 20)."""
+        import gc
+
+        sys.path.insert(0, os.path.join(ROOT, "benchmark"))
+        from harness.port import load_model
+        from harness.weights_qwen3_next import make_weights
+
+        from ospo_tpu_torch.models import janus as janus_lib
+        from ospo_tpu_torch.models import llama
+        from ospo_tpu_torch.ops import moe
+
+        gc.collect()  # the previous phase's model goes first
+        torch.cuda.empty_cache()
+        with open(os.path.join(ROOT, "benchmark", "configs",
+                               "janus-qwen3-next-80b-a3b.json")) as f:
+            cfg = json.load(f)
+        dev = torch.device("cuda")
+        t0 = time.time()
+        weights = make_weights(cfg, ("language", "generation"), 1234, dev)
+        model = load_model(cfg, weights, os.path.join(self.workdir, "qwen3_next"), dev,
+                           quantize="int8")
+        del weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        params, mc = model.params, model.cfg
+        lc = mc.language
+        print(f"hybrid step: Qwen3-Next trunk ({lc.num_layers} layers, {lc.n_gdn} GDN, "
+              f"{lc.held} of {lc.experts} experts held) loaded and quantized in "
+              f"{time.time() - t0:.1f} s")
+        rows, t_prompt = 16, 32
+        g = torch.Generator(device=dev).manual_seed(7)
+        tokens = torch.randint(0, min(1000, lc.vocab_size), (rows, t_prompt), generator=g,
+                               device=dev)
+        mask = torch.ones((rows, t_prompt), dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            kv = janus_lib.init_kv_cache(params, mc, rows, t_prompt + 1, device=dev)
+            _, kv = janus_lib.language_forward(
+                params, mc, janus_lib.embed_text(params, tokens), mask,
+                llama.positions_from_mask(mask), kv_cache=kv, self_attn=True)
+            img = torch.randint(0, mc.image_token_size, (rows, 1), generator=g, device=dev)
+            embeds = janus_lib.prepare_gen_img_embeds(params, mc, img)
+            window = torch.ones((rows, t_prompt + 1), dtype=torch.int32, device=dev)
+            pos = torch.full((rows, 1), t_prompt, dtype=torch.long, device=dev)
+            torch.cuda.synchronize()
+            n0 = kernel_launches()
+            hidden, _ = janus_lib.language_forward(params, mc, embeds, window, pos,
+                                                   kv_cache=kv)
+            torch.cuda.synchronize()
+            got = launched(n0)
+        names = ("gdn_decode", "moe_route", "moe_align", "moe_gate_up", "moe_down",
+                 "moe_combine")
+        want = {"gdn_decode": lc.n_gdn, **{n: lc.n_moe for n in names[1:]}}
+        self.check(all(got[n] == want[n] for n in names)
+                   and bool(torch.isfinite(hidden.float()).all()),
+                   f"hybrid step: one cached step of {rows} rows launches "
+                   f"{ {n: got[n] for n in names} } (want {want}), hidden finite")
+        for name in names:
+            self.launches[name] = self.launches.get(name, 0) + got[name]
+        # moe_route at 512 experts top-10, on the held range and with the
+        # shared gate, against the plain routing of layer 0's router
+        router = params["language_model"]["moe"]["router"][0]
+        x = torch.randn((192, lc.hidden_size), generator=g, device=dev).to(torch.bfloat16)
+        k, E = lc.num_experts_per_tok, lc.experts
+        ti, tw = moe.route(x, router[:E].contiguous(), k, True)
+        differ, shortfall, w_err = moe.routing_gap(x, router[:E], ti, tw, k, True)
+        hi, hw = moe.route(x, router, k, True, 1.0, lc.n_shared, held=lc.held_range,
+                           shared_gate=True)
+        held_ok = torch.equal(hi[:, :k], moe.held_ids(ti, lc.held_range)) \
+            and torch.equal(hw[:, :k], tw)
+        gate = torch.sigmoid(x.float() @ router[E].float())
+        gate_err = float((hw[:, k:] - gate[:, None]).abs().max())
+        self.check(differ <= 192 // 500 and shortfall <= 1e-6 and w_err <= 1e-5
+                   and held_ok and gate_err <= 1e-5,
+                   f"moe_route at {E} experts top-{k} (192 tokens): {differ} tokens "
+                   f"differ, shortfall {shortfall:.3g} (tol 1e-6), weights max|d| "
+                   f"{w_err:.3g} (tol 1e-5); held range {lc.held_range} ids and weights "
+                   f"the same slots' {held_ok}, shared gate max|d| {gate_err:.3g} "
+                   f"(tol 1e-5)")
+        del model, kv, hidden
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # -- phase 19 --------------------------------------------------------
     def moe_path(self):
         """Step 3 on the MLA/MoE trunk (module docstring, phase 19)."""
@@ -4321,7 +4497,8 @@ def main() -> int:
                         help="stop after phase 3 (kernel and small-model "
                              "checks only)")
     parser.add_argument("--moe-only", action="store_true",
-                        help="phase 1, phase 2's MoE kernels and phase 19 only")
+                        help="phase 1, phase 2's MoE and GDN kernels, phases 19 "
+                             "and 20 only")
     parser.add_argument("--tp-worker", metavar="DIR",
                         help="run one rank of phase 16 on the inputs in DIR "
                              "(started by the script itself)")
@@ -4351,8 +4528,10 @@ def main() -> int:
             return 1
         if args.moe_only:
             smoke.phase("moe kernels vs plain", smoke.moe_kernels)
+            smoke.phase("gdn_decode kernel vs plain", smoke.gdn_kernel)
             smoke.phase("main path: step 3 on an MLA/MoE trunk at DeepSeek-V2-Lite "
                         "width", smoke.moe_path)
+            smoke.phase("main path: a step of the Qwen3-Next trunk", smoke.hybrid_step)
         else:
             smoke.phase("flash_fwd kernel vs plain", smoke.flash_kernel)
             smoke.phase("flash dQ and dK/dV kernels vs plain",
@@ -4361,6 +4540,7 @@ def main() -> int:
             smoke.phase("int4 row and group decode-matmul kernels vs plain",
                         smoke.int4_kernels)
             smoke.phase("moe kernels vs plain", smoke.moe_kernels)
+            smoke.phase("gdn_decode kernel vs plain", smoke.gdn_kernel)
             smoke.phase("w8a16_matmul kernel vs plain", smoke.w8a16_kernel)
             smoke.phase("suffix_attention kernel vs plain", smoke.suffix_kernel)
             smoke.phase("flash_fwd and decode_attention at the text shapes",
@@ -4418,6 +4598,7 @@ def main() -> int:
                         "directory", smoke.weights_gate)
             smoke.phase("main path: step 3 on an MLA/MoE trunk at DeepSeek-V2-Lite "
                         "width", smoke.moe_path)
+            smoke.phase("main path: a step of the Qwen3-Next trunk", smoke.hybrid_step)
     finally:
         if smoke is not None:
             smoke.close()

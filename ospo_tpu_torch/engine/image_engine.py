@@ -42,7 +42,7 @@ import torch
 from ospo_tpu_torch.constants import (IMAGE_TOKEN_NUM_PER_IMAGE, IMG_SIZE,
                                       PATCH_SIZE)
 from ospo_tpu_torch.models import janus as janus_lib
-from ospo_tpu_torch.models import deepseek_v2, llama, vqgan
+from ospo_tpu_torch.models import deepseek_v2, llama, qwen3_next, vqgan
 from ospo_tpu_torch.ops.quant import parse_kv_quant
 from ospo_tpu_torch.ops.sampling import sample_categorical
 from ospo_tpu_torch.parallel import mesh as mesh_lib
@@ -155,8 +155,8 @@ def record_expert_span(expert_rows, parent=None) -> None:
     """A span ``image.experts`` holding the MoE counters of one call
     (:meth:`ImageGenEngine.take_expert_rows`); it reads them back from the
     device, so a caller places it after a sync the call already has."""
-    rows, t_prompt, n_img = expert_rows
-    counters = deepseek_v2.expert_counters(rows.cpu().numpy(), t_prompt, n_img)
+    rows, t_prompt, n_img, slots = expert_rows
+    counters = deepseek_v2.expert_counters(rows.cpu().numpy(), t_prompt, n_img, slots)
     with span("image.experts", parent=parent, **counters):
         pass
 
@@ -201,18 +201,22 @@ class ImageGenEngine:
             if self.kv_quant == "int4":
                 raise ValueError("int4 KV does not support per-row offsets "
                                  "(SJD)")
-        # an MLA/MoE trunk's latent cache: model dtype, one layout, T = 1
-        self.mla = deepseek_v2.runs_mla(model)
-        if self.mla:
+        # a trunk with a cache of its own (an MLA/MoE trunk's latent cache,
+        # a GDN/MoE trunk's K/V beside its recurrent state): model dtype,
+        # one layout, T = 1
+        trunk = janus_lib.own_trunk(getattr(getattr(model, "cfg", None), "language", None))
+        self.own_cache = trunk is not None
+        if self.own_cache:
             if self.kv_quant:
                 raise NotImplementedError(
-                    f"kv_quant {self.kv_quant!r}: an int8/int4 latent cache is "
-                    "not ported for the MLA/MoE trunk")
+                    f"kv_quant {self.kv_quant!r}: an int8/int4 "
+                    f"{'latent cache' if trunk is deepseek_v2 else 'K/V cache'} is not "
+                    f"ported for the {trunk.TRUNK}")
             if self.speculative or self.kv_layout != "shbd":
                 raise NotImplementedError(
                     "speculative decoding and the bshd/bhsd layouts are not "
-                    "ported for the MLA/MoE trunk (its latent cache takes one "
-                    "row of every sequence a step)")
+                    f"ported for the {trunk.TRUNK} (its cache takes one row of "
+                    "every sequence a step)")
         # the decode-attention kernel reads the shbd model-dtype / int8
         # cache; the latent cache is read whole each step, as the kernel's is
         self.kernel_read = self.kv_layout == "shbd" and self.kv_quant != "int4"
@@ -225,24 +229,26 @@ class ImageGenEngine:
         self.step_hook = None
         # the trunk graph of the last call that replayed one
         self._graph = None
-        # an MLA/MoE trunk's last call: (its expert_rows on the device,
-        # prompt bucket, image tokens), for :meth:`take_expert_rows`
+        # a MoE trunk's last call: (its expert_rows on the device, prompt
+        # bucket, image tokens, routed slots a step and layer where the
+        # trunk holds an expert share, else 0), for :meth:`take_expert_rows`
         self._expert_rows = None
 
     def _replays_trunk(self) -> bool:
         """Whether the cached trunk step runs as a CUDA graph: on the card,
         on the decode kernel's cache (``shbd``, model-dtype or int8, MHA) or
-        an MLA trunk's latent cache, outside SJD, in a model group of one
-        (gloo's collectives cannot be captured)."""
+        a trunk's own cache (MLA/MoE, GDN/MoE), outside SJD, in a model
+        group of one (gloo's collectives cannot be captured)."""
         lc = self.model.cfg.language
         return (self.device.type == "cuda" and self.kernel_read
                 and not self.speculative
-                and (self.mla or lc.kv_heads == lc.num_heads)
+                and (self.own_cache or lc.kv_heads == lc.num_heads)
                 and mesh_lib.model_parallel_size() == 1)
 
     def take_expert_rows(self):
         """The last call's MoE counters, once: (``expert_rows`` on the
-        device, prompt bucket, image tokens), or None (a LLaMA trunk)."""
+        device, prompt bucket, image tokens, routed slots a step and layer
+        or 0), or None (a LLaMA trunk)."""
         out, self._expert_rows = self._expert_rows, None
         return out
 
@@ -319,10 +325,13 @@ class ImageGenEngine:
         if graph is not None:
             s_max = graph.s_max
 
-        # an MLA/MoE prefill's routed rows: every position's top-k, each layer
+        # a MoE prefill's routed rows: every position's top-k, each layer;
+        # a GDN/MoE trunk's recurrent and conv state bytes
         lc = cfg.language
         attrs = {"moe_rows": two_b * t_prompt * lc.num_experts_per_tok * lc.n_moe} \
-            if self.mla else {}
+            if self.own_cache else {}
+        if qwen3_next.is_hybrid(lc):
+            attrs["state_bytes"] = lc.state_bytes(two_b)
         with span("image.prefill", **attrs):
             kv = graph.fresh_cache() if graph is not None else \
                 janus_lib.init_kv_cache(params, cfg, two_b, s_max,
@@ -375,7 +384,8 @@ class ImageGenEngine:
                 outs.append(emit)
             start = end
         if "expert_rows" in kv:
-            self._expert_rows = (kv["expert_rows"].clone(), t_prompt, n_img)
+            slots = two_b * lc.num_experts_per_tok if qwen3_next.is_hybrid(lc) else 0
+            self._expert_rows = (kv["expert_rows"].clone(), t_prompt, n_img, slots)
         return torch.stack(outs, dim=1)
 
     def _cfg_logits(self, hidden: torch.Tensor, cfg_weight: float):

@@ -41,7 +41,6 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ospo_tpu_torch.models import deepseek_v2
 from ospo_tpu_torch.models import janus as janus_lib
 from ospo_tpu_torch.models import llama
 from ospo_tpu_torch.ops import quant
@@ -90,7 +89,7 @@ def parse_kv_quant(kv_quant):
 class ScoringEngine:
     def __init__(self, model: janus_lib.JanusModel, processor: Processor,
                  kv_quant=False, pre_image_prefix: bool = True):
-        deepseek_v2.refuse(model, "step 4b (the scoring engine)")
+        janus_lib.refuse_own_trunk(model, "step 4b (the scoring engine)")
         self.model = model
         self.processor = processor
         self.device = model.device

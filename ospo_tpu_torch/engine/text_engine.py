@@ -32,7 +32,6 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ospo_tpu_torch.models import deepseek_v2
 from ospo_tpu_torch.models import janus as janus_lib
 from ospo_tpu_torch.models import llama
 from ospo_tpu_torch.ops.quant import parse_kv_quant
@@ -71,7 +70,7 @@ class TextGenEngine:
         batch_cap: Optional[int] = None,
         shared_prefix: Optional[bool] = None,
     ):
-        deepseek_v2.refuse(model, "the text engine (steps 1, 2 and 4a)")
+        janus_lib.refuse_own_trunk(model, "the text engine (steps 1, 2 and 4a)")
         self.model = model
         self.device = model.device
         self.processor = processor

@@ -146,19 +146,8 @@ def is_mla(cfg) -> bool:
     return isinstance(cfg, DeepseekV2Config)
 
 
-def runs_mla(model) -> bool:
-    """Whether ``model`` (a ``JanusModel``, or an engine test's stand-in
-    that carries no config) runs this trunk."""
-    return is_mla(getattr(getattr(model, "cfg", None), "language", None))
-
-
-def refuse(model, what: str) -> None:
-    """``NotImplementedError`` naming ``what`` where ``model`` runs this
-    trunk."""
-    if runs_mla(model):
-        raise NotImplementedError(
-            f"{what} is not ported for the MLA/MoE trunk (DeepSeek-V2): it "
-            "runs step 3's image generation only")
+# how refusals name this trunk (``janus.refuse_own_trunk``)
+TRUNK = "MLA/MoE trunk (DeepSeek-V2)"
 
 
 def config_from_hf(lc: dict, dtype) -> DeepseekV2Config:
@@ -460,18 +449,24 @@ def forward(params: Params, cfg: DeepseekV2Config, inputs_embeds: torch.Tensor,
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), kv_cache
 
 
-def expert_counters(rows, t_prompt: int, n_img: int) -> Dict[str, int]:
+def expert_counters(rows, t_prompt: int, n_img: int, slots: int = 0) -> Dict[str, int]:
     """A call's MoE counters from its ``expert_rows`` (host array ``[S,
     Lm, E]``): over the cached steps (rows ``[t_prompt, t_prompt + n_img -
     1)``) the routed rows, the sum over steps and layers of the busiest
     expert's rows, the expert slots (experts × layers × steps) and those
-    with no row; the prefill's routed rows and busiest rows (row 0)."""
+    with no row; the prefill's routed rows and busiest rows (row 0).  An
+    expert share's layers route ``slots`` slots a step and layer (every
+    row's top-k): those that land on experts it does not hold are
+    ``absent_slots``."""
     steps = rows[t_prompt:t_prompt + n_img - 1]
     pre = rows[0]
-    return {"steps": int(steps.shape[0]),
-            "routed_rows": int(steps.sum()),
-            "busiest_rows": int(steps.max(axis=-1).sum()),
-            "expert_slots": int(steps.size),
-            "idle_experts": int((steps == 0).sum()),
-            "prefill_routed_rows": int(pre.sum()),
-            "prefill_busiest_rows": int(pre.max(axis=-1).sum())}
+    out = {"steps": int(steps.shape[0]),
+           "routed_rows": int(steps.sum()),
+           "busiest_rows": int(steps.max(axis=-1).sum()),
+           "expert_slots": int(steps.size),
+           "idle_experts": int((steps == 0).sum()),
+           "prefill_routed_rows": int(pre.sum()),
+           "prefill_busiest_rows": int(pre.max(axis=-1).sum())}
+    if slots:
+        out["absent_slots"] = slots * steps.shape[0] * steps.shape[1] - out["routed_rows"]
+    return out

@@ -18,7 +18,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ospo_tpu_torch.models import deepseek_v2, llama, projector, vit, vqgan
+from ospo_tpu_torch.models import deepseek_v2, llama, projector, qwen3_next, vit, vqgan
 from ospo_tpu_torch.ops import quant
 from ospo_tpu_torch.parallel import mesh as mesh_lib
 
@@ -165,21 +165,43 @@ def lm_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     return llama.logits_from_hidden(params["language_model"], hidden)
 
 
+def own_trunk(cfg):
+    """The module of a trunk with a forward and a cache of its own
+    (``deepseek_v2``, ``qwen3_next``) for the language config ``cfg``, or
+    None for the LLaMA trunk."""
+    for mod, test in ((deepseek_v2, deepseek_v2.is_mla), (qwen3_next, qwen3_next.is_hybrid)):
+        if test(cfg):
+            return mod
+    return None
+
+
+def refuse_own_trunk(model, what: str) -> None:
+    """``NotImplementedError`` naming ``what`` where ``model`` (a
+    ``JanusModel``, or an engine test's stand-in that carries no config)
+    runs a trunk of its own, which runs step 3's image generation only."""
+    mod = own_trunk(getattr(getattr(model, "cfg", None), "language", None))
+    if mod is not None:
+        raise NotImplementedError(f"{what} is not ported for the {mod.TRUNK}: it runs "
+                                  "step 3's image generation only")
+
+
 def language_forward(params: Params, cfg: JanusConfig, *args, **kwargs):
-    """The trunk's forward: ``llama.forward``, or ``deepseek_v2.forward``
-    for an MLA/MoE trunk (the same arguments and result)."""
-    if deepseek_v2.is_mla(cfg.language):
-        return deepseek_v2.forward(params["language_model"], cfg.language,
-                                   *args, **kwargs)
+    """The trunk's forward: ``llama.forward``, or the forward of an MLA/MoE
+    trunk (``deepseek_v2``) or a GDN/MoE trunk (``qwen3_next``), with the
+    same arguments and result."""
+    mod = own_trunk(cfg.language)
+    if mod is not None:
+        return mod.forward(params["language_model"], cfg.language, *args, **kwargs)
     return llama.forward(params["language_model"], cfg.language, *args, **kwargs)
 
 
 def init_kv_cache(params: Params, cfg: JanusConfig, *args, **kwargs):
     """The trunk's KV cache for the heads this process holds (all of them,
     or its tensor-parallel share): ``llama.init_kv_cache``'s arguments; an
-    MLA/MoE trunk's latent cache (``deepseek_v2.init_kv_cache``)."""
-    if deepseek_v2.is_mla(cfg.language):
-        return deepseek_v2.init_kv_cache(cfg.language, *args, **kwargs)
+    MLA/MoE trunk's latent cache, a GDN/MoE trunk's two kinds of state."""
+    mod = own_trunk(cfg.language)
+    if mod is not None:
+        return mod.init_kv_cache(cfg.language, *args, **kwargs)
     return llama.init_kv_cache(
         llama.local_config(cfg.language, params["language_model"]),
         *args, **kwargs)
@@ -367,9 +389,10 @@ class JanusModel:
         understanding tower.  The head and the understanding tower come from
         generators of their own, so leaving them out changes no other weight
         of a seed."""
-        if deepseek_v2.is_mla(cfg.language):
+        if own_trunk(cfg.language) is not None:
             raise NotImplementedError("random init (JanusModel.init) is not "
-                                      "ported for the MLA/MoE trunk: load it")
+                                      "ported for the MLA/MoE and GDN/MoE trunks: "
+                                      "load them")
         mode = quant.quant_mode(quantize)
         device = torch.device(device or "cuda")
         ini = _Init(seed, device)

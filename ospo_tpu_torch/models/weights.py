@@ -32,6 +32,7 @@ import torch
 
 from ospo_tpu_torch.models import deepseek_v2
 from ospo_tpu_torch.models import janus as janus_lib
+from ospo_tpu_torch.models import qwen3_next
 from ospo_tpu_torch.models import llama as llama_lib
 from ospo_tpu_torch.models import vit as vit_lib
 from ospo_tpu_torch.models import vqgan as vqgan_lib
@@ -107,6 +108,8 @@ def config_from_checkpoint(model_path: str) -> janus_lib.JanusConfig:
     lc = hf.get("language_config", {})
     if lc.get("model_type") == "deepseek_v2":
         lang = deepseek_v2.config_from_hf(lc, dtype)
+    elif lc.get("model_type") == "qwen3_next":
+        lang = qwen3_next.config_from_hf(lc, dtype)
     else:
         lang = llama_lib.LlamaConfig(
             vocab_size=lc.get("vocab_size", 102400),
@@ -203,6 +206,10 @@ def expected_skipped_keys(keys, cfg: janus_lib.JanusConfig,
         pre = f"vision_model.vision_tower.blocks.{i}."
         skipped |= {k for k in keys if k.startswith(pre)}
     skipped |= {k for k in keys if k.endswith("rotary_emb.inv_freq")}
+    if qwen3_next.is_hybrid(cfg.language):   # the experts other chips of a share hold
+        lo, n = cfg.language.held_range
+        skipped |= {k for k in keys if ".mlp.experts." in k
+                    and not lo <= int(k.split(".mlp.experts.")[1].split(".")[0]) < lo + n}
     prefixes = tuple(p for part in dropped for p in _PART_PREFIXES[part])
     if prefixes:
         skipped |= {k for k in keys if k.startswith(prefixes)}
@@ -283,18 +290,7 @@ def _port_deepseek_v2(ck: _Checkpoint, cfg: deepseek_v2.DeepseekV2Config,
     pre = prefix + "model.layers."
 
     def stack(keys, quantized: bool):
-        """The matrices of ``keys`` stacked on a leading axis, each read,
-        quantized and written on its own."""
-        out = None
-        for idx, key in enumerate(keys):
-            w = ck.get(key, dt)
-            parts = qfn(w) if quantized and qfn else {"w": w}
-            if out is None:
-                out = {n: torch.empty((len(keys), *t.shape), dtype=t.dtype,
-                                      device=t.device) for n, t in parts.items()}
-            for n, t in parts.items():
-                out[n][idx] = t
-        return out["w"] if "w" in out else out
+        return _stack(ck, keys, dt, qfn if quantized else None)
 
     L = cfg.num_layers
     attn = {"attn_norm": ("input_layernorm", False),
@@ -321,7 +317,9 @@ def _port_deepseek_v2(ck: _Checkpoint, cfg: deepseek_v2.DeepseekV2Config,
     }
     if cfg.n_dense:
         out["dense"] = mlp(range(cfg.n_dense), "mlp")
-    out["moe"]["w13"], out["moe"]["w2"] = _port_experts(ck, cfg, qfn, pre, moe_ids)
+    out["moe"]["w13"], out["moe"]["w2"] = _port_experts(
+        ck, qfn, dt, [f"{pre}{i}.mlp." for i in moe_ids], range(cfg.n_routed_experts),
+        "shared_experts", cfg.n_shared_experts)
     out["layers"]["w_uk"], out["layers"]["w_uv"] = deepseek_v2.absorbed(
         layers["wkv_b"], cfg)
     if lm_head:
@@ -329,21 +327,35 @@ def _port_deepseek_v2(ck: _Checkpoint, cfg: deepseek_v2.DeepseekV2Config,
     return out
 
 
-def _port_experts(ck: _Checkpoint, cfg: deepseek_v2.DeepseekV2Config, qfn,
-                  pre: str, moe_ids):
+def _stack(ck: _Checkpoint, keys, dt, qfn=None):
+    """The matrices of ``keys`` stacked on a leading axis, each read,
+    quantized by ``qfn`` (if given) and written on its own."""
+    out = None
+    for idx, key in enumerate(keys):
+        w = ck.get(key, dt)
+        parts = qfn(w) if qfn else {"w": w}
+        if out is None:
+            out = {n: torch.empty((len(keys), *t.shape), dtype=t.dtype,
+                                  device=t.device) for n, t in parts.items()}
+        for n, t in parts.items():
+            out[n][idx] = t
+    return out["w"] if "w" in out else out
+
+
+def _port_experts(ck: _Checkpoint, qfn, dt, mlps, expert_ids, shared: str, S: int):
     """``w13`` ``[Lm, E + S, 2F, D]`` (gate rows, then up rows) and ``w2``
-    ``[Lm, E + S, D, F]`` of the MoE layers: the E routed experts, then the
-    shared MLP (width ``S · F``) cut into S experts of width F (its down
-    rows quantized whole, so each part keeps the row's scale).  Each matrix
-    is read, quantized and written into stacks allocated once."""
-    E, S, F = cfg.n_routed_experts, cfg.n_shared_experts, cfg.moe_intermediate_size
-    dt = cfg.dtype
+    ``[Lm, E + S, D, F]`` of the MoE layers whose ``mlp.`` prefixes are
+    ``mlps``: the E routed experts ``expert_ids``, then the shared MLP
+    ``mlp.<shared>`` (width ``S · F``) cut into S experts of width F (its
+    down rows quantized whole, so each part keeps the row's scale).  Each
+    matrix is read, quantized and written into stacks allocated once."""
+    E = len(expert_ids)
     stacks = [None, None]
 
     def put(which, m, e, w):
         parts = qfn(w) if qfn else {"w": w}
         if stacks[which] is None:
-            stacks[which] = {n: torch.empty((len(moe_ids), E + S, *t.shape),
+            stacks[which] = {n: torch.empty((len(mlps), E + S, *t.shape),
                                             dtype=t.dtype, device=t.device)
                              for n, t in parts.items()}
         for n, t in parts.items():
@@ -352,14 +364,14 @@ def _port_experts(ck: _Checkpoint, cfg: deepseek_v2.DeepseekV2Config, qfn,
     def mats(key):
         return [ck.get(f"{key}.{n}_proj.weight", dt) for n in ("gate", "up", "down")]
 
-    for m, i in enumerate(moe_ids):
-        for e in range(E):
-            g, u, d = mats(f"{pre}{i}.mlp.experts.{e}")
+    for m, mlp in enumerate(mlps):
+        for e, ex in enumerate(expert_ids):
+            g, u, d = mats(f"{mlp}experts.{ex}")
             put(0, m, e, torch.cat([g, u]))
             put(1, m, e, d)
         if not S:
             continue
-        g, u, d = mats(f"{pre}{i}.mlp.shared_experts")
+        g, u, d = mats(mlp + shared)
         if qfn:   # the whole down rows' scales, then cut by columns
             qd = qfn(d)
             stacks[1]["q"][m, E:] = torch.stack(qd["q"].chunk(S, dim=1))
@@ -369,6 +381,72 @@ def _port_experts(ck: _Checkpoint, cfg: deepseek_v2.DeepseekV2Config, qfn,
         for j, (gj, uj) in enumerate(zip(g.chunk(S), u.chunk(S))):
             put(0, m, E + j, torch.cat([gj, uj]))
     return tuple(st["w"] if "w" in st else st for st in stacks)
+
+
+def _port_qwen3_next(ck: _Checkpoint, cfg: qwen3_next.Qwen3NextConfig, quantize,
+                     lm_head: bool, prefix: str = "language_model.") -> Params:
+    """The GDN/MoE trunk (``models/qwen3_next.py``'s tree).  ``quantize``
+    ("" or "int8") quantizes every projection, the shared expert and the
+    held routed experts, each matrix as it is read; the routers, the
+    shared-expert gates and the conv stay in the model dtype; A_log,
+    dt_bias, the gated norms' scales and every zero-centred norm's ``1 +
+    w`` are kept in fp32."""
+    from ospo_tpu_torch.ops import quant
+
+    mode = quant.quant_mode(quantize)
+    if mode not in ("", "int8"):
+        raise NotImplementedError(
+            f"quantize {mode!r}: the GDN/MoE trunk takes int8 (W8A16) or the "
+            "model dtype")
+    dt = cfg.dtype
+    qfn = quant.quant_fn(mode) if mode else None
+    pre = prefix + "model.layers."
+    L = cfg.num_layers
+    full = [i for i in range(L) if cfg.is_full(i)]
+    gdn = [i for i in range(L) if not cfg.is_full(i)]
+
+    def stack(ids, name, quantized=True):
+        return _stack(ck, [f"{pre}{i}.{name}.weight" for i in ids], dt,
+                      qfn if quantized else None)
+
+    def offset(ids, name):   # a zero-centred norm's scale 1 + w, fp32
+        return 1.0 + stack(ids, name, False).float()
+
+    def fp32(ids, name):
+        return torch.stack([ck.get(f"{pre}{i}.{name}", torch.float32) for i in ids])
+
+    lin = "linear_attn."
+    conv = stack(gdn, lin + "conv1d", False)
+    routers = [torch.cat([ck.get(f"{pre}{i}.mlp.gate.weight", dt),
+                          ck.get(f"{pre}{i}.mlp.shared_expert_gate.weight", dt)])
+               for i in range(L)]
+    lo, n = cfg.held_range
+    out = {
+        "embed": ck.get(prefix + "model.embed_tokens.weight", dt),
+        "layers": {"attn_norm": offset(range(L), "input_layernorm"),
+                   "mlp_norm": offset(range(L), "post_attention_layernorm")},
+        "gdn": {"in_qkvz": stack(gdn, lin + "in_proj_qkvz"),
+                "in_ba": stack(gdn, lin + "in_proj_ba"),
+                "conv_w": conv.reshape(len(gdn), conv.shape[1], -1).contiguous(),
+                "A_log": fp32(gdn, lin + "A_log"), "dt_bias": fp32(gdn, lin + "dt_bias"),
+                "norm": stack(gdn, lin + "norm", False).float(),
+                "out": stack(gdn, lin + "out_proj")},
+        "full": {"wq": stack(full, "self_attn.q_proj"),
+                 "wk": stack(full, "self_attn.k_proj"),
+                 "wv": stack(full, "self_attn.v_proj"),
+                 "wo": stack(full, "self_attn.o_proj"),
+                 "q_norm": offset(full, "self_attn.q_norm"),
+                 "k_norm": offset(full, "self_attn.k_norm")},
+        "moe": {"router": torch.stack(routers)},
+        "final_norm": 1.0 + ck.get(prefix + "model.norm.weight", dt).float(),
+    }
+    del routers
+    out["moe"]["w13"], out["moe"]["w2"] = _port_experts(
+        ck, qfn, dt, [f"{pre}{i}.mlp." for i in range(L)], range(lo, lo + n),
+        "shared_expert", cfg.n_shared)
+    if lm_head:
+        out["lm_head"] = ck.get(prefix + "lm_head.weight", dt)
+    return out
 
 
 def _port_vq(ck: _Checkpoint, cfg: vqgan_lib.VQConfig,
@@ -498,7 +576,8 @@ def load_janus(model_path: str, device=None,
     cfg = cfg or config_from_checkpoint(model_path)
     understanding = understanding and vision
     ck = _Checkpoint(model_path, device)
-    port = _port_deepseek_v2 if deepseek_v2.is_mla(cfg.language) else _port_llama
+    port = (_port_deepseek_v2 if deepseek_v2.is_mla(cfg.language) else
+            _port_qwen3_next if qwen3_next.is_hybrid(cfg.language) else _port_llama)
     params = {"language_model": port(ck, cfg.language, quantize, lm_head)}
     if understanding:
         params["vision_model"] = _port_vit(ck, cfg.vision)

@@ -41,6 +41,7 @@ SIGNATURES = {
     "moe_experts": ("ospo_moe_gate_up", [P] * 8 + [I] * 6 + [P]),
     "w8a16_matmul": ("ospo_w8a16_matmul", [P] * 10 + [I] * 7 + [P]),
     "suffix_attention": ("ospo_suffix_attention", [P] * 10 + [I] * 9 + [P]),
+    "gated_delta": ("ospo_gdn_decode", [P] * 9 + [I] * 4 + [F] * 2 + [P]),
 }
 
 # further exported functions of a library: symbol → argument types (each
@@ -49,7 +50,7 @@ EXTRA = {
     "int4_matmul_row": {"ospo_int4_matmul_row_clusters": [I, I]},
     "int4_matmul_group": {"ospo_int4_matmul_group_clusters": [I, I]},
     "moe_experts": {"ospo_moe_down": [P] * 8 + [I] * 5 + [P],
-                    "ospo_moe_route": [P] * 4 + [I] * 6 + [F, P],
+                    "ospo_moe_route": [P] * 4 + [I] * 6 + [F] + [I] * 3 + [P],
                     "ospo_moe_align": [P] * 7 + [I] * 4 + [P]},
 }
 

@@ -38,11 +38,18 @@
 // (bf16 products, exact, summed in fp32, the same permuted k over 32-column
 // chunks; ceil(E / 16) row tiles x 32 / that many splits, so that enough
 // loads are in flight to stream the router from device memory, where the
-// experts of the last step have pushed it), the splits' sums are added in
-// order, then one warp a token forms the fp32 softmax over the E logits
-// and picks the top k greedily (ties: the lower expert).  moe_align: one
+// experts of the last step have pushed it; past 32 tiles, one split and a
+// warp takes several tiles), the splits' sums are added in order, then one
+// warp a token forms the fp32 softmax over the E logits and picks the top
+// k greedily (ties: the lower expert).  The router may carry one more row,
+// a shared gate, whose logit weights the shared slots by its sigmoid; an
+// expert share [e0, e0 + held) writes each routed id as its place among the
+// held experts, or -1 for the others (ops/moe.py).  One instance takes
+// up to 512 routed experts: past n_routed a lane's scores read -1 and are
+// never chosen, so fewer experts route alike.  moe_align: one
 // block counts each expert's rows with shared-memory atomics (a row's rank
-// among its expert's), scans the counts into offsets and tile counts, adds
+// among its expert's; a row of id -1 is no expert's and is left out), scans
+// the counts into offsets and tile counts, adds
 // the counts to the caller's, writes the tile table and scatters every row
 // to offsets[e] + rank.  Rows of one expert may land in any order; each
 // output row depends on its own input row alone, so no value changes.
@@ -63,7 +70,7 @@ constexpr int DOWN_F = 32;        // features of D a warp
 
 constexpr int ROUTE_TOK = 8;      // tokens a routing block
 constexpr int ROUTE_THREADS = 1024;
-constexpr int MAX_ROUTED = 256;   // routed experts moe_route takes
+constexpr int MAX_ROUTED = 512;   // routed experts moe_route takes
 constexpr int MAX_TOP_K = 16;
 constexpr int MAX_EXPERTS = 1024; // experts (routed and shared) moe_align takes
 constexpr int ALIGN_THREADS = 1024;
@@ -194,26 +201,33 @@ __device__ __forceinline__ uint4 ldg16(const void* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
+// the router holds n_routed + gate rows
 __global__ void __launch_bounds__(ROUTE_THREADS)
 moe_route(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ router,
           int* __restrict__ topi, float* __restrict__ topw, int n_tok, int d,
-          int n_routed, int top_k, int n_shared, int norm, float scaling) {
-  __shared__ float part[ROUTE_THREADS / 32][16 * ROUTE_TOK];
-  __shared__ float logits[ROUTE_TOK][MAX_ROUTED + 1];
+          int n_routed, int top_k, int n_shared, int norm, float scaling, int e0,
+          int held, int gate) {
+  constexpr int WARPS_R = ROUTE_THREADS / 32;
+  constexpr int ITEMS = (MAX_ROUTED + 16) / 16 > WARPS_R ? (MAX_ROUTED + 16) / 16 : WARPS_R;
+  __shared__ float part[ITEMS][16 * ROUTE_TOK];
+  __shared__ float logits[ROUTE_TOK][MAX_ROUTED + 2];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
   const int t0 = blockIdx.x * ROUTE_TOK;
-  // warp w: router rows 16 (w % tiles) .. + 15 over split w / tiles of D
-  const int tiles = (n_routed + 15) / 16, splits = (ROUTE_THREADS / 32) / tiles;
+  const int n_rows = n_routed + gate;
+  // item i: router rows 16 (i % tiles) .. + 15 over split i / tiles of D;
+  // warp w takes items w, w + 32, ...
+  const int tiles = (n_rows + 15) / 16;
+  const int splits = tiles < WARPS_R ? WARPS_R / tiles : 1;
   const int chunks = d / 32, per = (chunks + splits - 1) / splits;
-  if (warp < tiles * splits) {
+  for (int item = warp; item < tiles * splits; item += WARPS_R) {
     // logits of rows e0 + g, e0 + g + 8 for tokens t0 + 2 tig, + 1: within
     // a 32-column chunk lane tig holds columns 8 tig .. 8 tig + 7, k-step s
     // of them 4s .. 4s + 3
-    const int e0 = 16 * (warp % tiles), split = warp / tiles;
+    const int r0 = 16 * (item % tiles), split = item / tiles;
     const int c0 = split * per, c1 = min(c0 + per, chunks);
-    const __nv_bfloat16* pa = router + (size_t)min(e0 + g, n_routed - 1) * d + 8 * tig;
-    const __nv_bfloat16* pb = router + (size_t)min(e0 + g + 8, n_routed - 1) * d + 8 * tig;
+    const __nv_bfloat16* pa = router + (size_t)min(r0 + g, n_rows - 1) * d + 8 * tig;
+    const __nv_bfloat16* pb = router + (size_t)min(r0 + g + 8, n_rows - 1) * d + 8 * tig;
     const __nv_bfloat16* px = x + (size_t)min(t0 + g, n_tok - 1) * d + 8 * tig;
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
@@ -227,12 +241,12 @@ moe_route(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      part[warp][(g + 8 * (e >> 1)) * ROUTE_TOK + 2 * tig + (e & 1)] = acc[e];
+      part[item][(g + 8 * (e >> 1)) * ROUTE_TOK + 2 * tig + (e & 1)] = acc[e];
   }
   __syncthreads();
   // the splits' partial sums, added in split order
-  for (int i = tid; i < ROUTE_TOK * n_routed; i += blockDim.x) {
-    const int e = i % n_routed, t = i / n_routed;
+  for (int i = tid; i < ROUTE_TOK * n_rows; i += blockDim.x) {
+    const int e = i % n_rows, t = i / n_rows;
     float v = 0.f;
     for (int sp = 0; sp < splits; ++sp)
       v += part[sp * tiles + e / 16][(e % 16) * ROUTE_TOK + t];
@@ -287,10 +301,14 @@ moe_route(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__
       total += bv;
     }
     if (lane < slots) {
-      int id = n_routed + lane - top_k;
-      float wt = 1.f;
+      int id = held + lane - top_k;
+      float wt = gate ? 1.f / (1.f + expf(-logits[t][n_routed])) : 1.f;
       for (int j = 0; j < top_k; ++j)
-        if (j == lane) { id = sel_i[j]; wt = (norm ? sel_w[j] / total : sel_w[j]) * scaling; }
+        if (j == lane) {
+          const int local = sel_i[j] - e0;
+          id = local >= 0 && local < held ? local : -1;
+          wt = (norm ? sel_w[j] / total : sel_w[j]) * scaling;
+        }
       topi[(size_t)tok * slots + lane] = id;
       topw[(size_t)tok * slots + lane] = wt;
     }
@@ -306,7 +324,8 @@ moe_align(const int* __restrict__ topi, int* __restrict__ counts,
   const int tid = threadIdx.x;
   for (int e = tid; e < experts; e += blockDim.x) cnt[e] = 0;
   __syncthreads();
-  for (int r = tid; r < rows; r += blockDim.x) rank[r] = atomicAdd(&cnt[topi[r]], 1);
+  for (int r = tid; r < rows; r += blockDim.x)
+    if (topi[r] >= 0) rank[r] = atomicAdd(&cnt[topi[r]], 1);
   __syncthreads();
   if (tid < 32) {
     // exclusive scans of the counts and of the tiles: lane l owns a run of
@@ -349,28 +368,35 @@ moe_align(const int* __restrict__ topi, int* __restrict__ counts,
     tile_expert[t] = lo;
     tile_start[t] = off[e] + (t - first) * bm;
   }
-  for (int r = tid; r < rows; r += blockDim.x) sorted_src[off[topi[r]] + rank[r]] = r;
+  for (int r = tid; r < rows; r += blockDim.x)
+    if (topi[r] >= 0) sorted_src[off[topi[r]] + rank[r]] = r;
 }
 
 }  // namespace
 
-// x: [N, D] bf16 tokens; router: [E, D] bf16 (E <= 256); topi, topw: [N,
-// top_k + n_shared] int32 and fp32, the routed slots then the shared
-// experts' (ids E .. E + n_shared - 1, weight 1).  D a multiple of 32,
-// top_k <= 16.  Returns a cudaError_t.
+// x: [N, D] bf16 tokens; router: [E + gate, D] bf16 (E <= 512), the shared
+// gate's row last where gate is 1; topi, topw: [N, top_k + n_shared] int32
+// and fp32, the routed slots (ids among the held experts [e0, e0 + held),
+// -1 for the others) then the shared experts' (ids held .. held + n_shared
+// - 1, weight 1 or the gate's sigmoid).  D a multiple of 32, top_k <= 16.
+// Returns a cudaError_t.
 extern "C" int ospo_moe_route(const void* x, const void* router, int* topi, float* topw,
                               int n_tok, int d, int n_routed, int top_k, int n_shared,
-                              int norm, float scaling, void* stream) {
-  if (n_routed > MAX_ROUTED || top_k > MAX_TOP_K || top_k + n_shared > 32 || d % 32)
+                              int norm, float scaling, int e0, int held, int gate,
+                              void* stream) {
+  if (n_routed > MAX_ROUTED || top_k > MAX_TOP_K || top_k + n_shared > 32 || d % 32 ||
+      e0 < 0 || held <= 0 || e0 + held > n_routed)
     return cudaErrorInvalidValue;
-  moe_route<<<(n_tok + ROUTE_TOK - 1) / ROUTE_TOK, ROUTE_THREADS, 0,
-              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(router),
-      topi, topw, n_tok, d, n_routed, top_k, n_shared, norm, scaling);
+  const dim3 grid((n_tok + ROUTE_TOK - 1) / ROUTE_TOK);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* rb = static_cast<const __nv_bfloat16*>(router);
+  moe_route<<<grid, ROUTE_THREADS, 0, st>>>(xb, rb, topi, topw, n_tok, d, n_routed, top_k,
+                                            n_shared, norm, scaling, e0, held, gate);
   return cudaGetLastError();
 }
 
-// topi: [rows] int32 expert ids; counts: [experts] int32, each expert's
+// topi: [rows] int32 expert ids (-1: no expert's); counts: [experts] int32, each expert's
 // rows added; offsets: [experts + 1]; sorted_src, rank: [rows] (rank is
 // scratch); tile_expert, tile_start: [n_tiles], n_tiles = rows / bm +
 // experts.  experts <= 1024.  Returns a cudaError_t.

@@ -42,7 +42,18 @@ ones (``w13``, ``w2`` hold ``E + n_shared``): every token takes each of them
 in a slot of its own, after its ``top_k``, with weight 1, so a token has
 ``top_k + n_shared`` slots.  A shared MLP of width ``n_shared · F`` splits
 into such experts exactly: its gate and up rows by halves, its down
-columns likewise, each part keeping the whole row's scale.
+columns likewise, each part keeping the whole row's scale.  With a shared
+gate (Qwen3-Next) the router carries one more row ``w_sg`` after the E
+routed ones, and every shared slot's weight is ``sigmoid(x · w_sg)`` (the
+logit summed as the routed ones are) instead of 1.
+
+An expert share (expert parallel): the layer holds ``held = (e0, n)``, the
+routed experts ``[e0, e0 + n)`` of the E it routes over, as the first n of
+``w13`` and ``w2``.  Routing is over all E; a slot's id is its expert's
+place among the held ones, or -1 for an expert this layer does not hold.
+Such a slot makes no grouped row and adds nothing to the combine, so the
+layer's output is the part of the FFN its own experts (and the shared
+ones) give.  Every expert held (``held`` None) is the plain layer.
 
 The kernels (``moe_route``, ``moe_align``, ``moe_gate_up``, ``moe_down``,
 ``moe_combine``) read no host value and the host reads none of theirs, so
@@ -70,7 +81,7 @@ from ospo_tpu_torch.utils.profiling import count_launch
 BLOCK_M_DECODE = 16
 BLOCK_M_PREFILL = 64
 # what the kernels take: routed experts, top-k, experts with the shared
-MAX_ROUTED = 256
+MAX_ROUTED = 512
 MAX_TOP_K = 16
 MAX_EXPERTS = 1024
 
@@ -102,16 +113,27 @@ def route_plain(x: torch.Tensor, router: torch.Tensor, top_k: int,
 
 
 def with_shared(topi: torch.Tensor, topw: torch.Tensor, experts: int,
-                n_shared: int):
+                n_shared: int, gate=None):
     """The routed slots [N, k] followed by the shared experts' slots (ids
-    ``experts + j``, weight 1)."""
+    ``experts + j``, weight 1, or ``gate`` [N] fp32 where given)."""
     if not n_shared:
         return topi, topw
     n = topi.shape[0]
     ids = torch.arange(experts, experts + n_shared, dtype=topi.dtype,
                        device=topi.device).expand(n, n_shared)
+    w = torch.ones_like(topw[:, :1]) if gate is None else gate[:, None].to(topw.dtype)
     return (torch.cat([topi, ids], dim=1),
-            torch.cat([topw, torch.ones_like(topw[:, :1]).expand(n, n_shared)], dim=1))
+            torch.cat([topw, w.expand(n, n_shared)], dim=1))
+
+
+def held_ids(topi: torch.Tensor, held) -> torch.Tensor:
+    """Routed ids [N, k] → their place among the held experts ``held = (e0,
+    n)``, -1 where the expert is not held."""
+    if held is None:
+        return topi
+    e0, n = held
+    local = topi - e0
+    return torch.where((local >= 0) & (local < n), local, torch.full_like(local, -1))
 
 
 def routing_gap(x: torch.Tensor, router: torch.Tensor, topi: torch.Tensor,
@@ -138,13 +160,16 @@ def routing_gap(x: torch.Tensor, router: torch.Tensor, topi: torch.Tensor,
 def align_plain(topi: torch.Tensor, experts: int, bm: int):
     """Grouping and tile table of the flat ids ``topi`` [N, k] → (counts
     [E], offsets [E + 1], sorted_src [N·k], tile_expert, tile_start), all
-    int32.  Rows keep their flat order within an expert."""
+    int32.  Rows keep their flat order within an expert; an id -1 (an
+    expert not held) makes no grouped row, and ``sorted_src`` past
+    ``offsets[E]`` is not read."""
     flat = topi.reshape(-1).long()
+    kept = flat >= 0
     counts = torch.zeros(experts, dtype=torch.int64, device=flat.device)
-    counts.index_add_(0, flat, torch.ones_like(flat))
+    counts.index_add_(0, flat[kept], torch.ones_like(flat[kept]))
     offsets = torch.zeros(experts + 1, dtype=torch.int64, device=flat.device)
     offsets[1:] = torch.cumsum(counts, 0)
-    sorted_src = torch.argsort(flat, stable=True)
+    sorted_src = torch.argsort(torch.where(kept, flat, experts), stable=True)
     tiles = (counts + bm - 1) // bm
     t_incl = torch.cumsum(tiles, 0)
     n_tiles = max_tiles(flat.numel(), experts, bm)
@@ -213,6 +238,8 @@ def down_plain(h: torch.Tensor, sorted_src: torch.Tensor, offsets, tile_expert,
 
 
 def combine_plain(y: torch.Tensor, topw: torch.Tensor, dtype) -> torch.Tensor:
+    """``Σ_j w[t, j] · y[t·k + j]`` in fp32 (a slot of id -1 has no grouped
+    row, and :func:`down_plain` leaves its row of y zero)."""
     n, k = topw.shape
     return (y.view(n, k, -1).float() * topw[..., None]).sum(dim=1).to(dtype)
 
@@ -234,15 +261,17 @@ def _combine_kernel():
     import triton.language as tl
 
     @triton.jit
-    def moe_combine(y_ptr, w_ptr, out_ptr, D, SLOTS: tl.constexpr,
+    def moe_combine(y_ptr, w_ptr, i_ptr, out_ptr, D, SLOTS: tl.constexpr,
                     BLOCK_D: tl.constexpr):
+        # a slot of id -1 (an expert not held) has no row in y
         t = tl.program_id(0).to(tl.int64)
         d = tl.program_id(1) * BLOCK_D + tl.arange(0, BLOCK_D)
         dmask = d < D
         acc = tl.zeros((BLOCK_D,), dtype=tl.float32)
         for j in tl.static_range(SLOTS):
             w = tl.load(w_ptr + t * SLOTS + j)
-            yv = tl.load(y_ptr + (t * SLOTS + j) * D + d, mask=dmask, other=0.0)
+            live = tl.load(i_ptr + t * SLOTS + j) >= 0
+            yv = tl.load(y_ptr + (t * SLOTS + j) * D + d, mask=dmask & live, other=0.0)
             acc += w * yv.to(tl.float32)
         tl.store(out_ptr + t * D + d, acc.to(tl.bfloat16), mask=dmask)
 
@@ -251,38 +280,48 @@ def _combine_kernel():
 
 
 def route(x: torch.Tensor, router: torch.Tensor, top_k: int, norm_topk: bool = False,
-          scaling: float = 1.0, n_shared: int = 0):
+          scaling: float = 1.0, n_shared: int = 0, held=None, shared_gate: bool = False):
     """The routing of ``routed_experts`` → (expert ids ``[N, top_k +
     n_shared]`` int32, weights fp32), the shared experts' slots last:
     ``moe_route`` for CUDA tensors (logits summed in another order than
     the plain version's, so a token whose k-th and next scores tie to fp32
-    rounding may take the other), ``route_plain`` for CPU tensors."""
-    E = router.shape[0]
+    rounding may take the other), the plain version for CPU tensors.
+    ``shared_gate``: the router's last row is the shared gate's.  ``held``
+    (e0, n): routed ids become places among the held experts, -1 for the
+    others (the module's docstring)."""
+    E = router.shape[0] - int(bool(shared_gate))
+    n_held = E if held is None else held[1]
     if x.device.type == "cpu":
-        return with_shared(*route_plain(x, router, top_k, norm_topk, scaling), E, n_shared)
+        topi, topw = route_plain(x, router[:E], top_k, norm_topk, scaling)
+        gate = torch.sigmoid(x.float() @ router[E].float()) if shared_gate else None
+        return with_shared(held_ids(topi, held), topw, n_held, n_shared, gate)
     from ospo_tpu_torch.ops import build
 
     n_tok, d = x.shape
     slots = top_k + n_shared
+    e0 = 0 if held is None else held[0]
     if x.dtype != torch.bfloat16 or router.dtype != torch.bfloat16 \
             or not (x.is_contiguous() and router.is_contiguous()) or d % 32 \
             or router.dim() != 2 or router.shape[1] != d \
-            or E > MAX_ROUTED or top_k > MAX_TOP_K or slots > 32:
+            or E > MAX_ROUTED or top_k > MAX_TOP_K or slots > 32 \
+            or not (0 <= e0 and 0 < n_held and e0 + n_held <= E):
         raise ValueError(f"moe_route: x {x.dtype} {tuple(x.shape)}, router "
                          f"{router.dtype} {tuple(router.shape)}, top-{top_k}, {slots} "
-                         f"slots; it takes contiguous bf16, D a multiple of 32, at most "
-                         f"{MAX_ROUTED} experts, top-{MAX_TOP_K} and 32 slots")
+                         f"slots, held {held}; it takes contiguous bf16, D a multiple of "
+                         f"32, at most {MAX_ROUTED} experts, top-{MAX_TOP_K} and 32 "
+                         f"slots, a held range inside the routed experts")
     topi = torch.empty((n_tok, slots), dtype=torch.int32, device=x.device)
     topw = torch.empty((n_tok, slots), dtype=torch.float32, device=x.device)
     build.check(build.load("moe_experts").ospo_moe_route(
         x.data_ptr(), router.data_ptr(), topi.data_ptr(), topw.data_ptr(), n_tok, d, E,
-        top_k, n_shared, int(bool(norm_topk)), float(scaling),
-        torch.cuda.current_stream(x.device).cuda_stream), "moe_route")
+        top_k, n_shared, int(bool(norm_topk)), float(scaling), e0, n_held,
+        int(bool(shared_gate)), torch.cuda.current_stream(x.device).cuda_stream),
+        "moe_route")
     count_launch("moe_route")
     return topi, topw
 
 
-def _check_cuda(x, router, w13, w2, counts, n_shared: int) -> None:
+def _check_cuda(x, router, w13, w2, counts, experts: int) -> None:
     if x.dtype != torch.bfloat16 or router.dtype != torch.bfloat16:
         raise ValueError(f"moe kernels: x {x.dtype}, router {router.dtype}; "
                          "they take bf16")
@@ -299,7 +338,6 @@ def _check_cuda(x, router, w13, w2, counts, n_shared: int) -> None:
     if d % 32 or f % 16:
         raise ValueError(f"moe kernels: D={d}, F={f}; they take D a multiple "
                          "of 32 and F of 16")
-    experts = router.shape[0] + n_shared
     shapes = {"w13 q": (experts, 2 * f, d), "w13 s": (experts, 2 * f),
               "w2 q": (experts, d, f), "w2 s": (experts, d)}
     got = {"w13 q": w13["q"].shape, "w13 s": w13["s"].shape, "w2 q": w2["q"].shape,
@@ -307,9 +345,9 @@ def _check_cuda(x, router, w13, w2, counts, n_shared: int) -> None:
     if any(tuple(got[n]) != want for n, want in shapes.items()) \
             or router.shape[1] != d:
         raise ValueError(f"moe kernels: x {tuple(x.shape)}, router "
-                         f"{tuple(router.shape)}, {n_shared} shared, "
-                         f"{ {n: tuple(v) for n, v in got.items()} }; they take "
-                         f"{shapes} and the router [E, D]")
+                         f"{tuple(router.shape)}, {experts} experts held with the "
+                         f"shared, { {n: tuple(v) for n, v in got.items()} }; they "
+                         f"take {shapes} and the router [E, D]")
     if experts > MAX_EXPERTS:
         raise ValueError(f"moe kernels: {experts} experts; they take at most "
                          f"{MAX_EXPERTS}")
@@ -323,23 +361,25 @@ def _check_cuda(x, router, w13, w2, counts, n_shared: int) -> None:
 
 def routed_experts(x: torch.Tensor, router: torch.Tensor, w13, w2, top_k: int,
                    counts: torch.Tensor, norm_topk: bool = False,
-                   scaling: float = 1.0, n_shared: int = 0) -> torch.Tensor:
+                   scaling: float = 1.0, n_shared: int = 0, held=None,
+                   shared_gate: bool = False) -> torch.Tensor:
     """The experts of the MoE FFN (the module's docstring) for tokens ``x
     [N, D]`` → ``[N, D]`` in x's dtype: the ``top_k`` routed ones and the
-    ``n_shared`` shared ones that follow them in ``w13`` and ``w2``.
-    ``counts`` ``[E + n_shared]`` int32, zeroed by the caller, receives
-    each expert's rows.  CUDA tensors launch the kernels; CPU tensors take
-    the plain version."""
+    ``n_shared`` shared ones that follow them in ``w13`` and ``w2``;
+    ``held`` (e0, n) an expert share, ``shared_gate`` the router's last
+    row gating the shared ones.  ``counts`` ``[held + n_shared]`` int32,
+    zeroed by the caller, receives each expert's rows.  CUDA tensors launch
+    the kernels; CPU tensors take the plain version."""
     n_tok, d = x.shape
-    E = router.shape[0]
+    E = router.shape[0] - int(bool(shared_gate))
     slots = top_k + n_shared
-    experts = E + n_shared
+    experts = (E if held is None else held[1]) + n_shared
     rows = n_tok * slots
     bm = block_m(rows, experts)
     cuda = x.device.type == "cuda"
     if cuda:
-        _check_cuda(x, router, w13, w2, counts, n_shared)
-    topi, topw = route(x, router, top_k, norm_topk, scaling, n_shared)
+        _check_cuda(x, router, w13, w2, counts, experts)
+    topi, topw = route(x, router, top_k, norm_topk, scaling, n_shared, held, shared_gate)
     if not cuda:
         c, offsets, src, tile_e, tile_s = align_plain(topi, experts, bm)
         counts.add_(c)
@@ -375,6 +415,7 @@ def routed_experts(x: torch.Tensor, router: torch.Tensor, w13, w2, top_k: int,
     count_launch("moe_down")
     triton, combine = _combine_kernel()
     out = torch.empty((n_tok, d), dtype=x.dtype, device=x.device)
-    combine[(n_tok, triton.cdiv(d, 1024))](y, topw, out, d, SLOTS=slots, BLOCK_D=1024)
+    combine[(n_tok, triton.cdiv(d, 1024))](y, topw, topi, out, d, SLOTS=slots,
+                                           BLOCK_D=1024)
     count_launch("moe_combine")
     return out

@@ -153,10 +153,9 @@ def get_model(config) -> Tuple[janus_lib.JanusModel, object, Processor]:
         image_size=model.cfg.image_size)
     tp = int(config.get("tensor_parallel") or 1)
     if tp > 1:
-        from ospo_tpu_torch.models import deepseek_v2
         from ospo_tpu_torch.parallel import mesh as mesh_lib
 
-        deepseek_v2.refuse(model, f"tensor parallel (tensor_parallel {tp})")
+        janus_lib.refuse_own_trunk(model, f"tensor parallel (tensor_parallel {tp})")
 
         mesh = mesh_lib.create_mesh(tp)
         print(f"# Sharding params over mesh {mesh.shape} (model rank "

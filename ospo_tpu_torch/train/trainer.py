@@ -78,7 +78,6 @@ import torch.distributed as dist
 from ospo_tpu_torch.config import save_config
 from ospo_tpu_torch.constants import IGNORE_ID
 from ospo_tpu_torch.io import process_count, process_index
-from ospo_tpu_torch.models import deepseek_v2
 from ospo_tpu_torch.models import janus as janus_lib
 from ospo_tpu_torch.models import llama as llama_lib
 from ospo_tpu_torch.models import vqgan
@@ -121,7 +120,7 @@ def _parse_quantize_base(value):
 
 class SimPOTrainer:
     def __init__(self, config, model: janus_lib.JanusModel, processor):
-        deepseek_v2.refuse(model, "step 5 (SimPO training)")
+        janus_lib.refuse_own_trunk(model, "step 5 (SimPO training)")
         self.config = config
         self.model = model
         self.processor = processor

@@ -138,7 +138,8 @@ def experts(reps: int = 20) -> None:
 
         def route():
             lib.ospo_moe_route(x.data_ptr(), router.data_ptr(), ti.data_ptr(), tw.data_ptr(),
-                               N, D, E, k, S, 0, 1.0, torch.cuda.current_stream().cuda_stream)
+                               N, D, E, k, S, 0, 1.0, 0, E, 0,
+                               torch.cuda.current_stream().cuda_stream)
 
         def align():
             lib.ospo_moe_align(ti.data_ptr(), counts.data_ptr(), o2.data_ptr(), s2.data_ptr(),

@@ -1109,3 +1109,148 @@ def test_suffix_kernel_in_a_scoring_call(cuda, monkeypatch):
           for m, n in zip(a["answer_metadata"], b["answer_metadata"]) for k in ("p_yes", "p_no")]
     assert len(ps) == 2 * 9
     assert max(abs(g - r) / abs(r) for g, r in ps) <= 2 ** -5
+
+
+# ---------------------------------------------------------------------------
+# the Gated DeltaNet decode kernel and the MoE routing at 512 experts
+# (Qwen3-Next's widths: 16 key and 32 value heads of 128, conv of width 4)
+# ---------------------------------------------------------------------------
+
+
+def _gdn_inputs(cuda, rows, seed, hk=16, hv=32, d=128, K=4):
+    """bf16 projections, weights drawn as the benchmark's (A_log the log of
+    U(1, 16), dt_bias the inverse softplus of exp(U(log 1e-3, log 1e-1)),
+    the conv N(0, 1/4), the gated norm's scale near 1), a bf16 conv state
+    and an fp32 state of unit scale."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    C = 2 * hk * d + hv * d
+    qkvz = torch.randn((rows, hk * (2 * d + 4 * d)), generator=g, device=cuda).bfloat16()
+    ba = torch.randn((rows, hk * 4), generator=g, device=cuda).bfloat16()
+    conv_w = (0.5 * torch.randn((C, K), generator=g, device=cuda)).bfloat16()
+    conv_state = torch.randn((rows, K - 1, C), generator=g, device=cuda).bfloat16()
+    state = torch.randn((rows, hv, d, d), generator=g, device=cuda)
+    a_log = torch.log(1 + 15 * torch.rand((hv,), generator=g, device=cuda))
+    dt = torch.exp(-6.9 + 4.6 * torch.rand((hv,), generator=g, device=cuda))
+    dt_bias = dt + torch.log(-torch.expm1(-dt))
+    norm_w = 1 + 0.1 * torch.randn((d,), generator=g, device=cuda)
+    return qkvz, ba, conv_w, conv_state, state, a_log, dt_bias, norm_w
+
+
+def test_gdn_decode_kernel_matches_plain(cuda):
+    """One step at the cell's 192 rows: the kernel's output within a bf16
+    rounding of the plain version's (the same fp32 math, sums in another
+    order: 2^-7 relative plus 1e-3 of the scale), its states within fp32
+    rounding (1e-5 relative plus 1e-6), its conv state bit-equal (a shift
+    of bf16 values), in one launch; a repeat is bit-equal."""
+    from ospo_tpu_torch.ops import gated_delta as gd
+
+    qkvz, ba, conv_w, cs, st, a_log, dt_bias, norm_w = _gdn_inputs(cuda, 192, 0)
+    args = (16, 128, 128, 2, 1e-6)
+    cs_p, st_p = cs.clone(), st.clone()
+    want = gd.decode_plain(qkvz, ba, conv_w, cs_p, st_p, a_log, dt_bias, norm_w, *args)
+    outs = []
+    for _ in range(2):
+        cs_k, st_k = cs.clone(), st.clone()
+        n0 = kernel_launches()
+        outs.append(gd.decode(qkvz, ba, conv_w, cs_k, st_k, a_log, dt_bias, norm_w, *args))
+        assert _launched(n0, "gdn_decode") == (1,)
+    got = outs[0]
+    assert torch.equal(outs[0], outs[1])
+    err = (got.float() - want.float()).abs()
+    assert (err <= 2 ** -7 * want.float().abs() + 1e-3 * want.float().abs().max()).all()
+    assert torch.equal(cs_k, cs_p)
+    torch.testing.assert_close(st_k, st_p, atol=1e-6, rtol=1e-5)
+
+
+def _run_steps(step, qkvz_seq, ba, conv_w, cs, st, a_log, dt_bias, norm_w, bf16_state=False):
+    for qkvz in qkvz_seq:
+        step(qkvz, ba, conv_w, cs, st, a_log, dt_bias, norm_w, 16, 128, 128, 2, 1e-6)
+        if bf16_state:
+            st.copy_(st.bfloat16().float())
+    return st
+
+
+def test_gdn_state_after_576_steps_fails_a_bf16_state(cuda):
+    """576 steps (an image's tokens) from a zero state through the kernel
+    and through the plain fp32 step: the states agree to 1e-4 of their
+    scale (fp32 rounding in another order, held down by the decay); the
+    same steps with the state rounded to bf16 after each are far outside
+    it, so a state kept in bf16 would fail."""
+    from ospo_tpu_torch.ops import gated_delta as gd
+
+    rows = 4
+    _, ba, conv_w, cs, st, a_log, dt_bias, norm_w = _gdn_inputs(cuda, rows, 1)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    seq = [torch.randn((rows, 16 * 768), generator=g, device=cuda).bfloat16()
+           for _ in range(576)]
+    st.zero_()
+    cs.zero_()
+    kern = _run_steps(gd.decode, seq, ba, conv_w, cs.clone(), st.clone(), a_log, dt_bias,
+                      norm_w)
+    plain = _run_steps(gd.decode_plain, seq, ba, conv_w, cs.clone(), st.clone(), a_log,
+                       dt_bias, norm_w)
+    low = _run_steps(gd.decode_plain, seq, ba, conv_w, cs.clone(), st.clone(), a_log,
+                     dt_bias, norm_w, bf16_state=True)
+    scale = plain.abs().max()
+    tol = 1e-4 * scale
+    assert (kern - plain).abs().max() <= tol
+    assert (low - plain).abs().max() > 10 * tol
+
+
+def test_moe_route_at_512_experts_top10(cuda):
+    """``moe_route`` over 512 experts, top-10 renormalised, the shared
+    gate's row after them (513 router rows, one more tile than a warp
+    each): the experts of the plain routing but where scores tie to fp32
+    rounding, weights within 1e-5, the shared slot's weight the gate's
+    sigmoid within 1e-5; with a share of 64 experts from 64 on, the same
+    routing with ids outside it -1 and those inside it shifted."""
+    from ospo_tpu_torch.ops import moe
+
+    E, D, k = 512, 2048, 10
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((192, D), generator=g, device=cuda).bfloat16()
+    router = (torch.randn((E + 1, D), generator=g, device=cuda) * D ** -0.5).bfloat16()
+    topi, topw = moe.route(x, router, k, True, 1.0, 1, shared_gate=True)
+    differ, shortfall, w_err = moe.routing_gap(x, router[:E], topi, topw, k, norm_topk=True)
+    assert differ <= 1 and shortfall <= 1e-6 and w_err <= 1e-5
+    assert torch.equal(topi[:, k], torch.full_like(topi[:, k], E))
+    gate = torch.sigmoid(x.float() @ router[E].float())
+    assert (topw[:, k] - gate).abs().max() <= 1e-5
+    ti, tw = moe.route(x, router, k, True, 1.0, 1, held=(64, 64), shared_gate=True)
+    assert torch.equal(ti[:, :k], moe.held_ids(topi[:, :k], (64, 64)))
+    assert torch.equal(ti[:, k], torch.full_like(ti[:, k], 64))
+    assert torch.equal(tw, topw)
+
+
+def test_moe_kernels_with_an_expert_share_match_the_plain_version(cuda):
+    """The expert kernels on a share (64 of 512 held, top-10, one gated
+    shared expert, D 2048, F 512) at a decode step's 192 rows, given the
+    kernels' own routing: the same counts (absent slots make no grouped
+    row), outputs within bf16 rounding of each stage."""
+    from ospo_tpu_torch.ops import moe
+
+    E, D, Fe, k, held = 512, 2048, 512, 10, (0, 64)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((192, D), generator=g, device=cuda).bfloat16()
+    router = (torch.randn((E + 1, D), generator=g, device=cuda) * D ** -0.5).bfloat16()
+    w13 = torch.randn((65, 2 * Fe, D), generator=g, device=cuda) * D ** -0.5
+    w2 = torch.randn((65, D, Fe), generator=g, device=cuda) * Fe ** -0.5
+
+    def q8(w):
+        s = w.abs().amax(-1) / 127
+        return {"q": torch.round(w / s[..., None]).to(torch.int8).contiguous(),
+                "s": s.float().contiguous()}
+
+    w13, w2 = q8(w13), q8(w2)
+    counts = torch.zeros(65, dtype=torch.int32, device=cuda)
+    got = moe.routed_experts(x, router, w13, w2, k, counts, True, 1.0, 1, held=held,
+                             shared_gate=True)
+    topi, topw = moe.route(x, router, k, True, 1.0, 1, held=held, shared_gate=True)
+    bm = moe.block_m(topi.numel(), 65)
+    c, offsets, src, te, ts = moe.align_plain(topi, 65, bm)
+    assert torch.equal(counts, c) and int(c[64]) == 192
+    h = moe.gate_up_plain(x, src, offsets, te, ts, w13, k + 1, bm)
+    want = moe.combine_plain(moe.down_plain(h, src, offsets, te, ts, w2, bm), topw,
+                             x.dtype).float()
+    err = (got.float() - want).abs()
+    assert (err <= 2 ** -7 * want.abs() + 1e-2 * want.abs().max()).all()
