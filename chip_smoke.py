@@ -25,7 +25,9 @@ fails):
 4. the step-3 main path: ``ospo_tpu_torch.pipeline.step3.main`` on the
    serving configuration (``configs/step3.yaml``) at the full Janus-Pro-7B
    width (random int8 weights), 24 prompt items; its kernels' launch
-   counters must move, and the PNG tree must hold real images;
+   counters must move (the layer tail's three at 61, 30 and 30 launches a
+   forward: the prefill and each of 575 steps a group), and the PNG tree
+   must hold real images;
 5. the step-5 main path: ``ospo_tpu_torch.pipeline.step5.main`` on
    ``configs/step5.yaml`` at the 7B width (random bf16 trunk) with
    ``attn_impl: flash``, 3 optimizer steps over the 21 records of
@@ -220,7 +222,10 @@ dropped, one expert's down scales read from the next) outside that
 tolerance.  It holds ``ops/gated_delta.py``'s ``gdn_decode`` against
 ``decode_plain`` at the Qwen3-Next cell's 192 rows (phase 2's GDN check:
 the state within 1e-5, which a bf16 state fails) and times it against the
-bytes' bound.
+bytes' bound.  It holds ``ops/layer_tail.py``'s three kernels
+(``add_rms_norm``, ``rope_kv_write``, ``silu_mul``) against their plain
+forms at the 7B and 1B decode steps (48 rows, a device position, an int8
+cache) and times each, and its plain chain, against the bytes' bound.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -431,7 +436,8 @@ def merged(base: dict, over: dict) -> dict:
 # kernels whose ptxas report phase 1 reads: a register spill fails the run
 SPILL_CHECKED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                  "decode_attention", "int4_matmul_row", "int4_matmul_group",
-                 "moe_experts", "w8a16_matmul", "suffix_attention", "gated_delta")
+                 "moe_experts", "w8a16_matmul", "suffix_attention", "gated_delta",
+                 "layer_tail")
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, int8 tensor cores,
 # HBM3 bandwidth
@@ -1304,6 +1310,102 @@ class Smoke:
         del a, b, caches, kd, vd, kf, vf, allowed
         torch.cuda.empty_cache()
 
+    def layer_tail_kernels(self):
+        """The layer tail's three kernels (``ops/layer_tail.py``) against
+        their plain forms at the 7B and 1B decode steps (48 rows, T = 1, a
+        device position, an int8 cache, q/k/v as views of one projection):
+        the residual sum, rope, the cache rows and scales and SiLU·up
+        bit-equal, the normed output within the tie of the normalised value
+        (one bf16 step of x · rms, under two of the output) on at most 0.1%
+        of its elements.  Times: CUDA-graph replay of each kernel and of its
+        plain form (the op chain it replaced), inputs hot in L2 as the step
+        leaves them, beside the bytes' bound (every byte once); and the
+        tail of one step at these times."""
+        from ospo_tpu_torch.models import llama
+        from ospo_tpu_torch.ops import layer_tail
+
+        dev = torch.device("cuda")
+        M, S, at_len, iters = 48, 960, 672, 200
+        rows = {}
+        for size, (H, D, F, L) in (("7b", (32, 4096, 11008, 30)),
+                                   ("1b", (16, 2048, 5632, 24))):
+            g = torch.Generator(device=dev).manual_seed(D)
+            x = (torch.randn((M, 1, D), generator=g, device=dev) * 3).bfloat16()
+            y = torch.randn((M, 1, D), generator=g, device=dev).bfloat16()
+            w = (1 + 0.3 * torch.randn(D, generator=g, device=dev)).bfloat16()
+            qkv = (torch.randn((M, 1, 3 * D), generator=g, device=dev) * 2).bfloat16()
+            q, k, v = (t.view(M, 1, H, 128) for t in qkv.split(D, dim=-1))
+            gate, up = ((torch.randn((M, 1, F), generator=g, device=dev) * 4).bfloat16()
+                        for _ in range(2))
+            cfg = llama.LlamaConfig(hidden_size=D, num_heads=H, intermediate_size=F,
+                                    num_layers=2)
+            cos, sin = llama.rope_frequencies(
+                cfg, torch.full((M, 1), at_len, device=dev))
+            at = torch.tensor([at_len], device=dev)
+            cache = llama.init_kv_cache(cfg, M, S, quantized="int8", device=dev)
+            plain_cache = dict(cache, **{n: cache[n].clone() for n in ("k", "v", "k_s", "v_s")})
+
+            gx, gh = layer_tail.add_rms_norm(x, y, w, 1e-6)
+            px, ph = layer_tail.add_rms_norm_plain(x, y, w, 1e-6)
+            # the sum of squares in another order: one bf16 step of x · rms,
+            # which the weight's rounding carries to under two of the output
+            differ = float((gh != ph).float().mean())
+            step = bf16_step(torch.maximum(gh.float().abs(), ph.float().abs()))
+            norm_ok = (torch.equal(gx, px) and differ <= 1e-3
+                       and bool(((gh.float() - ph.float()).abs() <= 2 * step).all()))
+            gq = layer_tail.rope_kv_write(q, k, v, cos, sin, cache, 1, at)[0]
+            pq = layer_tail.rope_kv_write_plain(q, k, v, cos, sin, plain_cache, 1, at)[0]
+            rope_ok = torch.equal(gq, pq) and all(
+                torch.equal(cache[n], plain_cache[n]) for n in ("k", "v", "k_s", "v_s"))
+            silu_ok = torch.equal(layer_tail.silu_mul(gate, up),
+                                  layer_tail.silu_mul_plain(gate, up))
+            self.check(norm_ok and rope_ok and silu_ok,
+                       f"layer tail {size} M={M} D={D} H={H} F={F}: add_rms_norm's sum "
+                       f"bit-equal and its output differing on {100 * differ:.4f}% of "
+                       f"elements (<= 0.1%, each within two bf16 steps): {norm_ok}; "
+                       f"rope_kv_write's q, int8 rows and scales bit-equal: {rope_ok}; "
+                       f"silu_mul bit-equal: {silu_ok}")
+            cases = {
+                "add_rms_norm": (lambda: layer_tail.add_rms_norm(x, y, w, 1e-6),
+                                 lambda: layer_tail.add_rms_norm_plain(x, y, w, 1e-6),
+                                 8 * M * D + 2 * D),
+                "rope_kv_write": (
+                    lambda: layer_tail.rope_kv_write(q, k, v, cos, sin, cache, 1, at),
+                    lambda: layer_tail.rope_kv_write_plain(q, k, v, cos, sin,
+                                                           plain_cache, 1, at),
+                    8 * M * H * 128 + 2 * M * 64 * 4 + 2 * M * H * (128 + 4)),
+                "silu_mul": (lambda: layer_tail.silu_mul(gate, up),
+                             lambda: layer_tail.silu_mul_plain(gate, up), 6 * M * F),
+            }
+            step_ms = {}
+            for name, (kern, plain, nbytes) in cases.items():
+                ms = cuda_ms_graph([kern], iters)
+                plain_ms = cuda_ms_graph([plain], iters)
+                bound_ms = nbytes / PEAK_BYTES * 1e3
+                step_ms[name] = (ms, plain_ms)
+                rows[(size, name)] = (ms, plain_ms, bound_ms)
+                print(f"{name} {size} (M={M}): kernel {ms:.5f} ms hot in L2 "
+                      f"({100 * bound_ms / ms:.1f}% of bound); plain chain "
+                      f"{plain_ms:.5f} ms; bound {bound_ms:.6f} ms ({nbytes / 1e6:.3f} MB)")
+            a, r, m = (step_ms[n] for n in cases)
+            print(f"layer tail: one {size} decode step's tail at these times ({L} layers x "
+                  f"(2 norms, rope, SiLU) + the final norm): kernels "
+                  f"{(2 * L + 1) * a[0] + L * (r[0] + m[0]):.3f} ms, plain chain "
+                  f"{(2 * L + 1) * a[1] + L * (r[1] + m[1]):.3f} ms")
+            del x, y, qkv, gate, up, cache, plain_cache
+        torch.cuda.empty_cache()
+        for name in ("add_rms_norm", "rope_kv_write", "silu_mul"):
+            ms, plain_ms, bound_ms = rows[("7b", name)]
+            self.kernels[name] = {
+                "name": name, "route": "cuda",
+                "source": "ospo_tpu_torch/ops/csrc/layer_tail.cu",
+                "replaces": None, "launches": None, "max_abs_err": None,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "bytes", "library_ms": None,
+                "library_note": "no single PyTorch call computes this chain; the 7B "
+                                "decode step's shape, CUDA-graph replay, hot in L2",
+            }
+
     def text_kernels(self):
         """The flash forward at the step-2 prefix prefill and the decode
         kernel at the text plain-path shape (module docstring)."""
@@ -1831,7 +1933,17 @@ class Smoke:
                    f"w8a16_matmul launches {counts['w8a16_matmul']} == 4 x "
                    f"{layers} x {n_img - 1} x {groups} groups (q, k and v; o; "
                    "gate and up; down)")
-        for name, n in counts.items():
+        tail = {k: d[k] for k in ("add_rms_norm", "rope_kv_write", "silu_mul")}
+        forwards = n_img * groups   # a group's prefill and its 575 cached steps
+        print(f"main path step 3 tail launches: {tail}; a step: "
+              f"{ {k: n / forwards for k, n in tail.items()} }")
+        self.check(tail == {"add_rms_norm": (2 * layers + 1) * forwards,
+                            "rope_kv_write": layers * forwards,
+                            "silu_mul": layers * forwards},
+                   f"tail launches {tail} == {2 * layers + 1}, {layers} and {layers} "
+                   f"a forward x {n_img} forwards x {groups} groups (two norms a "
+                   "layer and the final one; rope and the cache write; SiLU·up)")
+        for name, n in {**counts, **tail}.items():
             self.launches[name] = self.launches.get(name, 0) + n
 
         data = read_json(FIXTURE)[:N_ITEMS]
@@ -4543,6 +4655,7 @@ def main() -> int:
             smoke.phase("gdn_decode kernel vs plain", smoke.gdn_kernel)
             smoke.phase("w8a16_matmul kernel vs plain", smoke.w8a16_kernel)
             smoke.phase("suffix_attention kernel vs plain", smoke.suffix_kernel)
+            smoke.phase("layer tail kernels vs plain", smoke.layer_tail_kernels)
             smoke.phase("flash_fwd and decode_attention at the text shapes",
                         smoke.text_kernels)
             smoke.phase("flash_fwd at the step-4b scoring shapes",

@@ -19,7 +19,7 @@ growing windows bound each read.  ``speculative: W`` runs speculative
 Jacobi decoding (``_generate_tokens_sjd``) on a ``bshd`` / ``bhsd`` cache.
 
 On the card the kernel's cached trunk step is captured once as a CUDA
-graph (``_TrunkGraph``) and replayed for every step: the step's ~90 small
+graph (``_TrunkGraph``) and replayed for every step: the step's ~10
 kernels a layer are launched by one call instead of one Python call each,
 so the host no longer sets the decode's pace.  Where a graph cannot hold,
 the loop stays eager: the CPU, the plain reads (``bshd``/``bhsd``, int4

@@ -22,7 +22,9 @@ pre-image segment) prefill and T = 1 take the plain prefix forms of
 caches, per-row offsets, the CPU) goes through the plain
 ``xla_attention``.  Numerics
 follow the reference: weights in the model dtype, RMSNorm / RoPE / softmax
-/ SiLU in fp32.
+/ SiLU in fp32; on the card a cached step over the ``shbd`` cache runs the
+norms, rope with the cache write and SiLU·up as three hand-written kernels
+with the same roundings (``ops/layer_tail.py``).
 
 Without a cache the trunk is the training forward: LoRA adapters with
 dropout, per-layer activation checkpointing, and attention through the
@@ -39,11 +41,13 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ospo_tpu_torch.ops import layer_tail
 from ospo_tpu_torch.ops.attention import (HEAD_AXIS, POS_AXIS, attention,
                                           prefix_decode_attention,
                                           xla_attention)
 from ospo_tpu_torch.ops.decode_attention import decode_attention
 from ospo_tpu_torch.ops.int4_matmul import int4_matmul_decode
+from ospo_tpu_torch.ops.layer_tail import apply_rope, quantize_rows, rms_norm
 from ospo_tpu_torch.ops.quant import (_pack_halves, quantized_matmul,
                                       quantized_matmul_int4,
                                       quantized_matmul_int4_group,
@@ -122,14 +126,6 @@ def tiny_config(vocab_size: int = 512, hidden_size: int = 64,
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    """fp32 statistics; the normalised value is cast to x's dtype BEFORE the
-    weight multiply (``llama.py:129-132``)."""
-    xf = x.float()
-    rms = torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
-    return ((xf * rms).to(x.dtype) * weight).to(x.dtype)
-
-
 def rope_frequencies(cfg: LlamaConfig, positions: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 cos/sin tables for the given positions ([B, T] → [B, T, Dh/2]).
@@ -142,15 +138,6 @@ def rope_frequencies(cfg: LlamaConfig, positions: torch.Tensor
                                           device=positions.device), exponent)
     angles = positions.float()[..., None] * inv_freq
     return torch.cos(angles), torch.sin(angles)
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """HF-Llama rotate-half convention in fp32. x: [B, T, H, Dh]."""
-    half = x.shape[-1] // 2
-    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
-    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
-    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
-    return out.to(x.dtype)
 
 
 def linear(x: torch.Tensor, w, row_parallel: bool = False) -> torch.Tensor:
@@ -287,14 +274,6 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
     return out
 
 
-def _quantize_rows(x: torch.Tensor):
-    """[..., Dh] → (int8 values, fp32 scales [...]) per row (``llama.py:289``)."""
-    xf = x.float()
-    s = xf.abs().amax(dim=-1).clamp_min(1e-12) / 127.0
-    q = torch.round(xf / s[..., None]).clamp(-127, 127).to(torch.int8)
-    return q, s
-
-
 def _quantize_rows_int4(x: torch.Tensor):
     """[..., H, Dh] → (packed int8 [..., H/2, Dh], fp32 scales [..., H])
     (``llama.py:297-316``): 15-level symmetric per (row, head), head j in
@@ -339,7 +318,7 @@ def _write_kv(cache: Dict[str, Any], li: int, start,
                          "cache")
     for name, x in (("k", k), ("v", v)):
         if "k_s" in cache:
-            xq, xs = _quantize_rows_int4(x) if int4 else _quantize_rows(x)
+            xq, xs = _quantize_rows_int4(x) if int4 else quantize_rows(x)
             rows = [(name, xq.permute(_ROW_PERM[layout])),
                     (name + "_s", xs.permute(_SCALE_PERM[layout]))]
         else:
@@ -471,7 +450,12 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     layer's cache, the path of the JAX package without its decode kernel;
     ``attn_window`` truncates that read to the first ``attn_window``
     positions (and the mask with it), and an ``shbd`` T > 1 step reads only
-    the ``length + T`` rows its causality reaches.
+    the ``length + T`` rows its causality reaches.  Over such an ``shbd``
+    MHA cache (no int4 payload, no per-row offsets), bf16 activations on the
+    card run the chain between the products as the kernels of
+    ``ops/layer_tail.py`` (``layer_tail.takes``): each residual add with the
+    norm after it, rope with the cache write, SiLU·up; everywhere else it
+    runs as plain ops.
 
     ``cache['length']`` may instead be an int32 tensor ``[1]`` in device
     memory, for a T = 1 step on the decode kernel's cache (``shbd``, a
@@ -578,19 +562,32 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     window = cache_len + T if shbd_read and T > 1 else attn_window
     mask_w = attention_mask if window is None else attention_mask[:, :window]
 
+    # on the card the chain between the products runs as three kernels
+    # (``ops/layer_tail.py``); on either route each residual add is taken
+    # with the norm after it, so a layer's normed input comes from the
+    # layer before and the last one's is the final norm
+    tail = shbd_read and mha and layer_tail.takes(x, kv_cache, cfg.dim_head,
+                                                  cfg.intermediate_size)
+    add_norm = layer_tail.add_rms_norm if tail else layer_tail.add_rms_norm_plain
+    silu_mul = layer_tail.silu_mul if tail else layer_tail.silu_mul_plain
+    eps, norms = cfg.rms_norm_eps, params["layers"]["attn_norm"]
+    h = add_norm(x, None, norms[0], eps)[1]
     pm = None if prefix_kv is None else prefix_kv["mask"]
     for li in range(cfg.num_layers):
         lp = _layer(params["layers"], li)
         pk = pv = None
         if prefix_kv is not None:
             pk, pv = prefix_kv["k"][li], prefix_kv["v"][li]
-        h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         q, k, v = linears(h, (lp["wq"], lp["wk"], lp["wv"]))
         q = q.view(B, T, cfg.num_heads, cfg.dim_head)
         k = k.view(B, T, cfg.kv_heads, cfg.dim_head)
         v = v.view(B, T, cfg.kv_heads, cfg.dim_head)
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        _write_kv(kv_cache, li, write_at, k, v, cache_positions)
+        if tail:
+            q, k = layer_tail.rope_kv_write(q, k, v, cos, sin, kv_cache, li,
+                                            write_at, roped_k=self_attn)
+        else:
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+            _write_kv(kv_cache, li, write_at, k, v, cache_positions)
         if self_attn:
             attn = attention(q, k, v, mask=attention_mask, prefix_k=pk,
                              prefix_v=pv, prefix_mask=pm)
@@ -615,18 +612,19 @@ def forward(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
                 q, k_att, v_att, mask_w,
                 cache_positions if per_row else cache_len, True, pk, pv, pm,
                 kv_layout=layout)
-        x = x + _row_parallel(linear(
-            attn.reshape(B, T, cfg.num_heads * cfg.dim_head), lp["wo"], tp), tp)
-        h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+        x, h = add_norm(x, _row_parallel(linear(
+            attn.reshape(B, T, cfg.num_heads * cfg.dim_head), lp["wo"], tp), tp),
+            lp["mlp_norm"], eps)
         gate, up = linears(h, (lp["w_gate"], lp["w_up"]))
-        act = F.silu(gate.float()).to(h.dtype) * up
-        x = x + _row_parallel(linear(act, lp["w_down"], tp), tp)
+        last = li == cfg.num_layers - 1
+        x, h = add_norm(x, _row_parallel(linear(silu_mul(gate, up), lp["w_down"], tp), tp),
+                        params["final_norm"] if last else norms[li + 1], eps)
 
     if device_len:
         cache_len.add_(T)
     else:
         kv_cache["length"] = read_len
-    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), kv_cache
+    return h, kv_cache
 
 
 def logits_from_hidden(params: Params, hidden: torch.Tensor) -> torch.Tensor:

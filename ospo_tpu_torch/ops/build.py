@@ -42,6 +42,7 @@ SIGNATURES = {
     "w8a16_matmul": ("ospo_w8a16_matmul", [P] * 10 + [I] * 7 + [P]),
     "suffix_attention": ("ospo_suffix_attention", [P] * 10 + [I] * 9 + [P]),
     "gated_delta": ("ospo_gdn_decode", [P] * 9 + [I] * 4 + [F] * 2 + [P]),
+    "layer_tail": ("ospo_add_rms_norm", [P] * 5 + [I] * 2 + [F] + [P]),
 }
 
 # further exported functions of a library: symbol → argument types (each
@@ -52,6 +53,8 @@ EXTRA = {
     "moe_experts": {"ospo_moe_down": [P] * 8 + [I] * 5 + [P],
                     "ospo_moe_route": [P] * 4 + [I] * 6 + [F] + [I] * 3 + [P],
                     "ospo_moe_align": [P] * 7 + [I] * 4 + [P]},
+    "layer_tail": {"ospo_rope_kv_write": [P] * 12 + [I] * 14 + [P],
+                   "ospo_silu_mul": [P] * 3 + [I] + [P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -113,7 +113,7 @@ def suffix_inputs(B, T, H, cur_len, C, kind, seed, device, prefix_mask="shared",
     ``[0, cur_len + 5)`` masked (and its prefix row, per image), so its
     first suffix rows have no allowed key.  → dict of the kernel's keyword
     arguments."""
-    from ospo_tpu_torch.models.llama import _quantize_rows
+    from ospo_tpu_torch.ops.layer_tail import quantize_rows
 
     g = torch.Generator(device=device).manual_seed(seed)
     dh, L, S = 128, 2, cur_len + T + 8
@@ -134,7 +134,7 @@ def suffix_inputs(B, T, H, cur_len, C, kind, seed, device, prefix_mask="shared",
     args = dict(q=q, layer_idx=1, cur_len=cur_len)
     for n, x in rows.items():
         if kind == "int8":
-            xq, xs = _quantize_rows(x)
+            xq, xs = quantize_rows(x)
             args[n + "_cache"], args[n[0] + "_scale"] = xq, xs.contiguous()
         else:
             args[n + "_cache"] = x.to(torch.bfloat16)

@@ -1254,3 +1254,207 @@ def test_moe_kernels_with_an_expert_share_match_the_plain_version(cuda):
                              x.dtype).float()
     err = (got.float() - want).abs()
     assert (err <= 2 ** -7 * want.abs() + 1e-2 * want.abs().max()).all()
+
+
+# -- the layer tail (ops/layer_tail.py, csrc/layer_tail.cu) --------------------
+
+# (B, T, heads, hidden, ffn): the 7B and 1B decode steps (48 rows, a device
+# position) and step 4b's question suffixes at both widths (a host start)
+TAIL_SHAPES = [(48, 1, 32, 4096, 11008), (48, 1, 16, 2048, 5632),
+               (8, 96, 32, 4096, 11008), (8, 96, 16, 2048, 5632)]
+
+
+def _norm_ties(got, ref):
+    """(fraction of elements that differ, whether each lies within the tie
+    of the normalised value): the norm's sum of squares runs in another
+    order, so its fp32 statistic can differ by an ulp and move the rounding
+    of x · rms across a boundary, one bf16 step of that value; times the
+    weight and rounded again, that step is less than two steps of the
+    output (the product's binade is at most one above the step's), so
+    each output lies within two bf16 steps of the larger of the two."""
+    g, r = got.float(), ref.float()
+    step = _bf16_step(torch.maximum(g.abs(), r.abs()))
+    return float((g != r).float().mean()), bool(((g - r).abs() <= 2 * step).all())
+
+
+@pytest.mark.parametrize("add", [True, False])
+@pytest.mark.parametrize("B,T,H,D,F", TAIL_SHAPES)
+def test_add_rms_norm_kernel_matches_plain(cuda, B, T, H, D, F, add):
+    """The residual sum bit-equal; the normed output within the tie of the
+    normalised value (``_norm_ties``) on at most 0.1% of its elements, the
+    rest bit-equal."""
+    from ospo_tpu_torch.ops import layer_tail
+
+    g = torch.Generator(device=cuda).manual_seed(D + T)
+    x = (torch.randn((B, T, D), generator=g, device=cuda) * 3).bfloat16()
+    y = torch.randn((B, T, D), generator=g, device=cuda).bfloat16() if add else None
+    w = (1 + 0.3 * torch.randn(D, generator=g, device=cuda)).bfloat16()
+    n0 = kernel_launches()
+    got_x, got_h = layer_tail.add_rms_norm(x, y, w, 1e-6)
+    want_x, want_h = layer_tail.add_rms_norm_plain(x, y, w, 1e-6)
+    torch.cuda.synchronize()
+    assert _launched(n0, "add_rms_norm") == (1,)
+    assert torch.equal(got_x, want_x)
+    share, within = _norm_ties(got_h, want_h)
+    assert within and share <= 1e-3, share
+
+
+def _tail_qkv(cuda, B, T, H, seed):
+    """q, k and v as views of one fused projection output [B, T, 3·H·128]."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = (torch.randn((B, T, 3 * H * 128), generator=g, device=cuda) * 2).bfloat16()
+    return [t.view(B, T, H, 128) for t in qkv.split(H * 128, dim=-1)], g
+
+
+@pytest.mark.parametrize("kv", ["int8", "bf16"])
+@pytest.mark.parametrize("B,T,H,D,F", TAIL_SHAPES)
+def test_rope_kv_write_kernel_matches_plain(cuda, B, T, H, D, F, kv):
+    """Rope on q and k and the cache write, from the fused projection's
+    views: roped q and k, every cache payload and scale (untouched rows
+    included) bit-equal to the plain form; T = 1 at a device position, T >
+    1 at a host start after 640 image rows."""
+    from ospo_tpu_torch.models import llama
+    from ospo_tpu_torch.ops import layer_tail
+
+    (q, k, v), g = _tail_qkv(cuda, B, T, H, D + T)
+    start = 640 if T > 1 else 301
+    S = start + T + 8
+    pos = start + torch.arange(T, device=cuda)[None].expand(B, T) \
+        - torch.randint(0, 20, (B, 1), generator=g, device=cuda)
+    cfg = llama.LlamaConfig(hidden_size=D, num_heads=H, intermediate_size=F)
+    cos, sin = llama.rope_frequencies(cfg, pos)
+    at = torch.tensor([start], device=cuda) if T == 1 else start
+
+    def cache():
+        if kv == "int8":
+            c = {n: torch.randint(-127, 128, (2, S, H, B, 128), generator=g, device=cuda,
+                                  dtype=torch.int8) for n in ("k", "v")}
+            c.update({n: torch.rand((2, S, H, B), generator=g, device=cuda)
+                      for n in ("k_s", "v_s")})
+        else:
+            c = {n: torch.randn((2, S, H, B, 128), generator=g, device=cuda).bfloat16()
+                 for n in ("k", "v")}
+        return c
+
+    got_c = cache()
+    want_c = {n: t.clone() for n, t in got_c.items()}
+    n0 = kernel_launches()
+    got = layer_tail.rope_kv_write(q, k, v, cos, sin, got_c, 1, at, roped_k=True)
+    want = layer_tail.rope_kv_write_plain(q, k, v, cos, sin, want_c, 1, at, roped_k=True)
+    torch.cuda.synchronize()
+    assert _launched(n0, "rope_kv_write") == (1,)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for name in want_c:
+        assert torch.equal(got_c[name], want_c[name]), name
+
+
+@pytest.mark.parametrize("B,T,H,D,F", TAIL_SHAPES)
+def test_silu_mul_kernel_matches_plain(cuda, B, T, H, D, F):
+    from ospo_tpu_torch.ops import layer_tail
+
+    g = torch.Generator(device=cuda).manual_seed(F + T)
+    gate, up = ((torch.randn((B, T, F), generator=g, device=cuda) * 4).bfloat16()
+                for _ in range(2))
+    n0 = kernel_launches()
+    got = layer_tail.silu_mul(gate, up)
+    torch.cuda.synchronize()
+    assert _launched(n0, "silu_mul") == (1,)
+    assert torch.equal(got, layer_tail.silu_mul_plain(gate, up))
+
+
+def test_tail_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from ospo_tpu_torch.ops import layer_tail
+
+    x = torch.zeros((4, 1, 256), device=cuda, dtype=torch.bfloat16)
+    w = torch.ones(256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        layer_tail.add_rms_norm(x.float(), None, w, 1e-6)
+    buf = torch.zeros(4 * 256 + 1, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        layer_tail.add_rms_norm(buf[1:].view(4, 1, 256), None, w, 1e-6)
+    (q, k, v), _ = _tail_qkv(cuda, 2, 1, 2, 0)
+    cos = sin = torch.zeros((2, 1, 64), device=cuda)
+    c = {n: torch.zeros((1, 8, 2, 2, 128), device=cuda, dtype=torch.int8) for n in "kv"}
+    c.update({n + "_s": torch.zeros((1, 8, 2, 2), device=cuda) for n in "kv"})
+    with pytest.raises(ValueError, match="int64"):
+        layer_tail.rope_kv_write(q, k, v, cos, sin, c, 0,
+                                 torch.tensor([3], device=cuda, dtype=torch.int32))
+    with pytest.raises(ValueError, match="positions"):
+        layer_tail.rope_kv_write(q, k, v, cos, sin, c, 0, 8)
+    with pytest.raises(ValueError, match="int8 rows"):
+        layer_tail.rope_kv_write(q, k, v, cos, sin, {**c, "k_s": c["k_s"].half()}, 0, 3)
+    with pytest.raises(ValueError, match="bfloat16"):
+        layer_tail.silu_mul(x, x.float())
+
+
+def test_a_1b_decode_step_on_the_tail_route_against_the_plain_route(cuda, monkeypatch):
+    """The 1B trunk (24 layers, int8 weights, norms not all ones, int8
+    cache, 48 rows): a prefill and three T = 1 steps at a device length,
+    through the kernels and through the plain ops (``takes`` refused) with
+    the norm kernel in place of ``rms_norm``: hidden states and every cache
+    tensor bit-equal, so the routes differ by the norm's sum order alone.
+    (Against the plain norm, those ties grow over 24 layers of random
+    weights to ~1% of the hidden states' RMS.)"""
+    from ospo_tpu_torch.models import janus, llama
+    from ospo_tpu_torch.ops import layer_tail
+
+    cfg = llama.LLAMA_1B
+    params = janus._init_language(janus._Init(5, cuda), cfg, "int8")
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for holder, name in ((params["layers"], "attn_norm"), (params["layers"], "mlp_norm"),
+                         (params, "final_norm")):
+        w = holder[name]
+        holder[name] = (1 + 0.3 * torch.randn(w.shape, generator=g, device=cuda)).bfloat16()
+    B, T, S = 48, 40, 64
+    xs = [(torch.randn((B, n, cfg.hidden_size), generator=g, device=cuda) * 0.5).bfloat16()
+          for n in (T, 1, 1, 1)]
+    mask = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    mask[:, :5] = 0
+    prompt_mask = mask[:, :T].contiguous()
+    pos = llama.positions_from_mask(prompt_mask)
+    real = layer_tail.takes
+
+    def run(take):
+        monkeypatch.setattr(layer_tail, "takes", real if take else lambda *a: False)
+        n0 = kernel_launches()
+        cache = llama.init_kv_cache(cfg, B, S, quantized="int8", device=cuda)
+        outs = [llama.forward(params, cfg, xs[0], prompt_mask, pos, kv_cache=cache,
+                              self_attn=True)[0]]
+        cache["length"] = torch.tensor([T], dtype=torch.int32, device=cuda)
+        for i, x in enumerate(xs[1:]):
+            outs.append(llama.forward(params, cfg, x, mask, pos[:, -1:] + 1 + i,
+                                      kv_cache=cache)[0])
+        torch.cuda.synchronize()
+        return outs, cache, _launched(n0, "add_rms_norm", "rope_kv_write", "silu_mul")
+
+    got, got_c, n_tail = run(True)
+    monkeypatch.setattr(layer_tail, "rms_norm",
+                        lambda x, w, eps: layer_tail.add_rms_norm(x, None, w, eps)[1])
+    want, want_c, n_plain = run(False)
+    L = cfg.num_layers
+    assert n_tail == (4 * (2 * L + 1), 4 * L, 4 * L)
+    assert n_plain == (4 * (2 * L + 1), 0, 0)   # the swapped-in norms alone
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), i
+    for name in ("k", "v", "k_s", "v_s"):
+        assert torch.equal(got_c[name], want_c[name]), name
+
+
+def test_a_replayed_step_launches_the_tail_kernels(cuda):
+    """The replayed trunk step of a bf16 model over an int8 cache runs two
+    norms a layer plus the final one, one rope and one SiLU·up a layer, and
+    so does the eager prefill: n_img forwards a call."""
+    import numpy as np
+
+    from ospo_tpu_torch.processing import t2i_prompt
+
+    model, proc = _card_janus(cuda, _small_card_config(torch.bfloat16), quantize="int8")
+    n_img, layers = 24, model.cfg.language.num_layers
+    graph, _ = _graph_engines(model, proc, n_img, "int8")
+    prompts = [t2i_prompt(proc, p) for p in GRAPH_PROMPTS[:2]]
+    forced = np.zeros((2, n_img), np.int64)
+    graph.forced_cfg_logits(prompts, forced)   # captures
+    n0 = kernel_launches()
+    graph.forced_cfg_logits(prompts, forced)   # replays
+    assert _launched(n0, "add_rms_norm", "rope_kv_write", "silu_mul") == (
+        (2 * layers + 1) * n_img, layers * n_img, layers * n_img)

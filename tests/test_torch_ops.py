@@ -566,7 +566,7 @@ def test_quantize_matrix_bit_equal(dtype):
 
 def test_quantize_rows_equal():
     from ospo_tpu.models.llama import _quantize_rows as jrows
-    from ospo_tpu_torch.models.llama import _quantize_rows as trows
+    from ospo_tpu_torch.ops.layer_tail import quantize_rows as trows
 
     x = np.random.default_rng(7).standard_normal((5, 4, 3, 32), np.float32)
     jq, js = jrows(jnp.asarray(x))

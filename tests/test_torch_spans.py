@@ -326,7 +326,8 @@ PORT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
            "int4_matmul_row", "int4_matmul_group", "moe_route", "moe_align",
            "moe_gate_up", "moe_down", "moe_combine", "w8a16_matmul",
-           "suffix_attention", "gdn_decode")
+           "suffix_attention", "gdn_decode", "add_rms_norm", "rope_kv_write",
+           "silu_mul")
 
 
 def _trees(package):
@@ -352,7 +353,7 @@ def _launch_sites():
 
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_launch_table_matches_the_kernels(kernel):
-    """The table holds the fourteen kernels, and each has exactly one launch
+    """The table holds the seventeen kernels, and each has exactly one launch
     site under ``ops/``."""
     assert tuple(profiling.kernel_launches()) == KERNELS
     assert [name for _, name in _launch_sites()].count(kernel) == 1
