@@ -210,8 +210,20 @@ dQ and dK/dV at phase 18's shard (rows 8, H = 8); its 1B training shape
     launch 36 times and each MoE kernel 48 times; and ``moe_route`` at 512
     experts top-10 over 192 tokens against ``route_plain`` (as phase 2's
     MoE check), its held range's ids and weights those of the same slots,
-    the shared slots' weight the gate's sigmoid.  ``--moe-only`` runs phase
-    1, phase 2's MoE and GDN checks, phase 19 and this phase.
+    the shared slots' weight the gate's sigmoid.
+21. the Kimi Linear trunk at its full width and depth
+    (``benchmark/configs/janus-kimi-linear-48b-a3b.json``: 27 layers, 20 of
+    them Kimi Delta Attention, 7 NoPE MLA, 26 MoE with 64 of 256 sigmoid-
+    routed experts held, top-8, a shared expert), the harness's random
+    weights quantized to int8, through an ``ImageGenEngine`` whose trunk
+    graph is captured and replayed: teacher-forced logits of 8 CFG pairs
+    over 8 image tokens; counted from a ``kernel_launches()`` read just
+    before the replayed call, ``kda_decode`` must launch 20 times a prompt
+    position (the prefill runs the step once a position) and a step, and
+    ``moe_route`` and ``moe_gate_up`` 26 times a pass; and ``moe_route``'s
+    sigmoid mode at 256 experts top-8 with layer 1's correction bias against
+    ``route_plain``.  ``--moe-only`` runs phase 1, phase 2's MoE, GDN and KDA
+    checks and phases 19 to 21.
 
 Phase 2 also holds ``ops/moe.py``'s kernels (``routed_experts`` on card
 tensors) against the plain functions on the same tensors at
@@ -222,7 +234,8 @@ dropped, one expert's down scales read from the next) outside that
 tolerance.  It holds ``ops/gated_delta.py``'s ``gdn_decode`` against
 ``decode_plain`` at the Qwen3-Next cell's 192 rows (phase 2's GDN check:
 the state within 1e-5, which a bf16 state fails) and times it against the
-bytes' bound.  It holds ``ops/layer_tail.py``'s three kernels
+bytes' bound, and ``kda_decode`` against ``kda_decode_plain`` at the Kimi
+Linear cell's 192 rows and 32 heads in the same way.  It holds ``ops/layer_tail.py``'s three kernels
 (``add_rms_norm``, ``rope_kv_write``, ``silu_mul``) against their plain
 forms at the 7B and 1B decode steps (48 rows, a device position, an int8
 cache) and times each, and its plain chain, against the bytes' bound.
@@ -3064,6 +3077,158 @@ class Smoke:
             "library_ms": None,
             "library_note": "no PyTorch call computes a gated delta-rule step"}
 
+    def kda_kernel(self):
+        """``ops/gated_delta.py``'s ``kda_decode`` (``kda_decode`` on card
+        tensors) against ``kda_decode_plain`` on copies of the same tensors,
+        at the Kimi Linear cell's shapes: 192 rows, 32 heads of 128, a conv
+        of width 4, one T = 1 step from a state of 8 earlier plain steps.
+        The state within 1e-5 of the plain one (relative Frobenius distance,
+        a row and head), the conv state equal, the output within one bf16
+        rounding; the plain state rounded to bf16 (a control) outside the
+        state's tolerance.  Time: CUDA-graph replay, every call reading its
+        403 MB state from device memory, against the bytes' bound
+        (``benchmark/roofline/kda.py``'s count)."""
+        from ospo_tpu_torch.ops import gated_delta as gd
+
+        dev = torch.device("cuda")
+        g = torch.Generator(device=dev).manual_seed(6)
+        R, H, D, K, eps = 192, 32, 128, 4, 1e-5
+        width = H * D
+        bf = dict(dtype=torch.bfloat16, device=dev)
+
+        def randn(*shape, std=1.0):
+            return torch.randn(shape, generator=g, device=dev) * std
+
+        conv_w = randn(3 * width, K, std=0.5).to(torch.bfloat16)
+        a_log = torch.log(1 + 15 * torch.rand((H,), generator=g, device=dev))
+        dt_bias = randn(width, std=0.5) - 4.0
+        norm_w = 1 + randn(D, std=0.1)
+        conv_state = torch.zeros((R, K - 1, 3 * width), **bf)
+        state = torch.zeros((R, H, D, D), dtype=torch.float32, device=dev)
+        args = (a_log, dt_bias, norm_w, H, eps)
+
+        def inputs():
+            xs = [randn(R, width).to(torch.bfloat16) for _ in range(5)]
+            return (*xs[:4], randn(R, H).to(torch.bfloat16), xs[4])
+
+        for _ in range(8):
+            gd.kda_decode_plain(*inputs(), conv_w, conv_state, state, *args)
+        xs = inputs()
+        cs_k, st_k = conv_state.clone(), state.clone()
+        n0 = kernel_launches()
+        out = gd.kda_decode(*xs, conv_w, cs_k, st_k, *args)
+        torch.cuda.synchronize()
+        once = launched(n0, "kda_decode")["kda_decode"] == 1
+        cs_p, st_p = conv_state.clone(), state.clone()
+        want = gd.kda_decode_plain(*xs, conv_w, cs_p, st_p, *args)
+
+        def rel(a, b):
+            return float(((a - b).pow(2).sum((-2, -1))
+                          / b.pow(2).sum((-2, -1))).sqrt().max())
+
+        err_state, err_ctl = rel(st_k, st_p), rel(st_p.to(torch.bfloat16).float(), st_p)
+        wf = want.float()
+        out_ok = bool(((out.float() - wf).abs()
+                       <= 2 ** -7 * wf.abs() + 1e-3 * float(wf.abs().max())).all())
+        self.check(once and err_state <= 1e-5 and torch.equal(cs_k, cs_p) and out_ok
+                   and err_ctl > 1e-5,
+                   f"kda_decode at {R} rows, {H} heads of {D}: launched once {once}; state "
+                   f"distance {err_state:.3g} (tol 1e-5), conv state equal "
+                   f"{torch.equal(cs_k, cs_p)}, output within one bf16 rounding {out_ok} "
+                   f"(max|d| {max_err(out, want):.3g}); control, the state in bf16: "
+                   f"{err_ctl:.3g}, outside the tolerance")
+        ms = cuda_ms_graph([lambda: gd.kda_decode(*xs, conv_w, cs_k, st_k, *args)], 10)
+        plain_ms = cuda_ms(lambda: gd.kda_decode_plain(*xs, conv_w, cs_p, st_p, *args), 3, 1)
+        state_b = R * H * D * D * 4
+        nbytes = (2 * state_b + 2 * R * (K - 1) * 3 * width * 2
+                  + R * (3 * width + 2 * width + H) * 2 + 3 * width * K * 2
+                  + H * 4 + width * 4 + D * 4 + R * width * 2)
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        print(f"kda_decode, one layer at {R} rows: {ms:.4f} ms (graph replay, cold; "
+              f"{100 * bound_ms / ms:.1f}% of bound), plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms (bytes: {nbytes / 1e6:.1f} MB)")
+        self.kernels["kda_decode"] = {
+            "name": "kda_decode", "route": "cuda",
+            "source": "ospo_tpu_torch/ops/csrc/gated_delta.cu",
+            "replaces": None, "launches": None, "max_abs_err": max_err(out, want),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None,
+            "library_note": "no PyTorch call computes a delta-rule step with a "
+                            "per-channel decay"}
+
+    # -- phase 21 --------------------------------------------------------
+    def kimi_step(self):
+        """The Kimi Linear trunk through the image engine (module docstring,
+        phase 21)."""
+        import gc
+
+        import numpy as np
+
+        sys.path.insert(0, os.path.join(ROOT, "benchmark"))
+        from harness.port import load_model, processor_for
+        from harness.weights_kimi_linear import make_weights
+
+        from ospo_tpu_torch.engine.image_engine import ImageGenEngine
+        from ospo_tpu_torch.ops import moe
+
+        gc.collect()  # the previous phase's model goes first
+        torch.cuda.empty_cache()
+        with open(os.path.join(ROOT, "benchmark", "configs",
+                               "janus-kimi-linear-48b-a3b.json")) as f:
+            cfg = json.load(f)
+        dev = torch.device("cuda")
+        t0 = time.time()
+        weights = make_weights(cfg, ("language", "generation"), 4321, dev)
+        model = load_model(cfg, weights, os.path.join(self.workdir, "kimi_linear"), dev,
+                           quantize="int8")
+        del weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        params, mc = model.params, model.cfg
+        lc = mc.language
+        print(f"kimi step: Kimi Linear trunk ({lc.num_layers} layers, {lc.n_kda} KDA, "
+              f"{lc.n_mla} MLA, {lc.held} of {lc.experts} experts held) loaded and "
+              f"quantized in {time.time() - t0:.1f} s")
+        engine = ImageGenEngine(model, processor_for(model, cfg), image_token_num=8,
+                                img_size=2 * mc.vq.downsample_factor,
+                                patch_size=mc.vq.downsample_factor)
+        prompts = [f"a photo of object {i}" for i in range(8)]
+        forced = np.random.default_rng(7).integers(0, mc.image_token_size, (8, 8))
+        engine.forced_cfg_logits(prompts, forced)           # capture
+        t_prompt = engine.build_cfg_batch(prompts)[0].shape[1]
+        n0 = kernel_launches()
+        a = engine.forced_cfg_logits(prompts, forced)       # replays
+        got = launched(n0)
+        steps = engine.image_token_num - 1
+        names = ("kda_decode", "moe_route", "moe_gate_up")
+        want = {"kda_decode": lc.n_kda * (steps + t_prompt),
+                "moe_route": lc.n_moe * engine.image_token_num,
+                "moe_gate_up": lc.n_moe * engine.image_token_num}
+        replayed = engine._graph is not None and engine._graph.graph is not None
+        self.check(replayed and all(got[n] == want[n] for n in names)
+                   and bool(np.isfinite(a).all()),
+                   f"kimi step: {steps} replayed steps of {2 * len(prompts)} rows launch "
+                   f"{ {n: got[n] for n in names} } (want {want}: {lc.n_kda} kda_decode a "
+                   f"step and a prompt position), replayed {replayed}, logits finite")
+        for name in names:
+            self.launches[name] = self.launches.get(name, 0) + got[name]
+        # moe_route's sigmoid mode at 256 experts top-8 on layer 1's router
+        # and correction bias against the plain routing
+        mp = params["language_model"]["moe"]
+        router, bias = mp["router"][0], mp["bias"][0]
+        g = torch.Generator(device=dev).manual_seed(8)
+        x = torch.randn((192, lc.hidden_size), generator=g, device=dev).to(torch.bfloat16)
+        k, s = lc.num_experts_per_tok, lc.routed_scaling_factor
+        ti, tw = moe.route(x, router, k, True, s, score_bias=bias)
+        differ, shortfall, w_err = moe.routing_gap(x, router, ti, tw, k, True, s, bias)
+        self.check(differ <= 192 // 500 and shortfall <= 1e-6 and w_err <= 1e-5,
+                   f"moe_route sigmoid at {lc.experts} experts top-{k} (192 tokens): "
+                   f"{differ} tokens differ, shortfall {shortfall:.3g} (tol 1e-6), weights "
+                   f"max|d| {w_err:.3g} (tol 1e-5)")
+        del model, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # -- phase 20 --------------------------------------------------------
     def hybrid_step(self):
         """A step of the Qwen3-Next trunk (module docstring, phase 20)."""
@@ -4609,8 +4774,8 @@ def main() -> int:
                         help="stop after phase 3 (kernel and small-model "
                              "checks only)")
     parser.add_argument("--moe-only", action="store_true",
-                        help="phase 1, phase 2's MoE and GDN kernels, phases 19 "
-                             "and 20 only")
+                        help="phase 1, phase 2's MoE, GDN and KDA kernels, phases "
+                             "19 to 21 only")
     parser.add_argument("--tp-worker", metavar="DIR",
                         help="run one rank of phase 16 on the inputs in DIR "
                              "(started by the script itself)")
@@ -4641,9 +4806,12 @@ def main() -> int:
         if args.moe_only:
             smoke.phase("moe kernels vs plain", smoke.moe_kernels)
             smoke.phase("gdn_decode kernel vs plain", smoke.gdn_kernel)
+            smoke.phase("kda_decode kernel vs plain", smoke.kda_kernel)
             smoke.phase("main path: step 3 on an MLA/MoE trunk at DeepSeek-V2-Lite "
                         "width", smoke.moe_path)
             smoke.phase("main path: a step of the Qwen3-Next trunk", smoke.hybrid_step)
+            smoke.phase("main path: the Kimi Linear trunk through the engine's graph",
+                        smoke.kimi_step)
         else:
             smoke.phase("flash_fwd kernel vs plain", smoke.flash_kernel)
             smoke.phase("flash dQ and dK/dV kernels vs plain",
@@ -4653,6 +4821,7 @@ def main() -> int:
                         smoke.int4_kernels)
             smoke.phase("moe kernels vs plain", smoke.moe_kernels)
             smoke.phase("gdn_decode kernel vs plain", smoke.gdn_kernel)
+            smoke.phase("kda_decode kernel vs plain", smoke.kda_kernel)
             smoke.phase("w8a16_matmul kernel vs plain", smoke.w8a16_kernel)
             smoke.phase("suffix_attention kernel vs plain", smoke.suffix_kernel)
             smoke.phase("layer tail kernels vs plain", smoke.layer_tail_kernels)
@@ -4712,6 +4881,8 @@ def main() -> int:
             smoke.phase("main path: step 3 on an MLA/MoE trunk at DeepSeek-V2-Lite "
                         "width", smoke.moe_path)
             smoke.phase("main path: a step of the Qwen3-Next trunk", smoke.hybrid_step)
+            smoke.phase("main path: the Kimi Linear trunk through the engine's graph",
+                        smoke.kimi_step)
     finally:
         if smoke is not None:
             smoke.close()

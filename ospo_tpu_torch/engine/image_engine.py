@@ -202,15 +202,15 @@ class ImageGenEngine:
                 raise ValueError("int4 KV does not support per-row offsets "
                                  "(SJD)")
         # a trunk with a cache of its own (an MLA/MoE trunk's latent cache,
-        # a GDN/MoE trunk's K/V beside its recurrent state): model dtype,
-        # one layout, T = 1
+        # a GDN/MoE trunk's K/V or a KDA/MLA/MoE trunk's latent cache beside
+        # its recurrent states): model dtype, one layout, T = 1
         trunk = janus_lib.own_trunk(getattr(getattr(model, "cfg", None), "language", None))
         self.own_cache = trunk is not None
         if self.own_cache:
             if self.kv_quant:
                 raise NotImplementedError(
                     f"kv_quant {self.kv_quant!r}: an int8/int4 "
-                    f"{'latent cache' if trunk is deepseek_v2 else 'K/V cache'} is not "
+                    f"{'K/V cache' if trunk is qwen3_next else 'latent cache'} is not "
                     f"ported for the {trunk.TRUNK}")
             if self.speculative or self.kv_layout != "shbd":
                 raise NotImplementedError(
@@ -237,8 +237,8 @@ class ImageGenEngine:
     def _replays_trunk(self) -> bool:
         """Whether the cached trunk step runs as a CUDA graph: on the card,
         on the decode kernel's cache (``shbd``, model-dtype or int8, MHA) or
-        a trunk's own cache (MLA/MoE, GDN/MoE), outside SJD, in a model
-        group of one (gloo's collectives cannot be captured)."""
+        a trunk's own cache (MLA/MoE, GDN/MoE, KDA/MLA/MoE), outside SJD, in
+        a model group of one (gloo's collectives cannot be captured)."""
         lc = self.model.cfg.language
         return (self.device.type == "cuda" and self.kernel_read
                 and not self.speculative
@@ -326,11 +326,11 @@ class ImageGenEngine:
             s_max = graph.s_max
 
         # a MoE prefill's routed rows: every position's top-k, each layer;
-        # a GDN/MoE trunk's recurrent and conv state bytes
+        # a GDN/MoE or KDA/MLA/MoE trunk's recurrent and conv state bytes
         lc = cfg.language
         attrs = {"moe_rows": two_b * t_prompt * lc.num_experts_per_tok * lc.n_moe} \
             if self.own_cache else {}
-        if qwen3_next.is_hybrid(lc):
+        if janus_lib.is_hybrid(lc):
             attrs["state_bytes"] = lc.state_bytes(two_b)
         with span("image.prefill", **attrs):
             kv = graph.fresh_cache() if graph is not None else \
@@ -384,7 +384,7 @@ class ImageGenEngine:
                 outs.append(emit)
             start = end
         if "expert_rows" in kv:
-            slots = two_b * lc.num_experts_per_tok if qwen3_next.is_hybrid(lc) else 0
+            slots = two_b * lc.num_experts_per_tok if janus_lib.is_hybrid(lc) else 0
             self._expert_rows = (kv["expert_rows"].clone(), t_prompt, n_img, slots)
         return torch.stack(outs, dim=1)
 

@@ -17,7 +17,9 @@ Block (HF ``modeling_deepseek``, DeepSeek-V2-Lite): ``x += Wo · MLA(n1(x))``,
   mscale) / mscale(factor, mscale_all_dim)``.  It rotates the interleaved
   pairs ``(2i, 2i + 1)`` (one complex product) and leaves them in place;
   HF writes them de-interleaved (``view(d/2, 2).transpose``), a permutation
-  of queries and keys alike, so every ``q_pe·k_pe`` is the same.
+  of queries and keys alike, so every ``q_pe·k_pe`` is the same.  With
+  ``use_nope`` (Kimi Linear's MLA layers, ``mla_use_nope``) nothing is
+  rotated: ``q_pe`` and ``k_pe`` enter the scores as projected.
 - FFN: the first ``first_k_dense_replace`` layers a SiLU-gated MLP; the
   rest MoE: fp32 router logits, softmax, greedy top-k, weights
   renormalised only under ``norm_topk_prob``, times
@@ -102,6 +104,7 @@ class DeepseekV2Config:
     rms_norm_eps: float = 1e-6
     max_seq_len: int = 163840
     dtype: Any = torch.bfloat16
+    use_nope: bool = False              # no rope: the rope dims unrotated
 
     @property
     def q_head_dim(self) -> int:
@@ -380,10 +383,8 @@ def forward(params: Params, cfg: DeepseekV2Config, inputs_embeds: torch.Tensor,
         raise NotImplementedError("tensor parallel is not ported for the "
                                   "MLA/MoE trunk")
     x = inputs_embeds.to(cfg.dtype)
-    B, T = x.shape[:2]
-    H, dn, dr = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    R = cfg.kv_lora_rank
-    rot = rope_rotation(cfg, positions)
+    T = x.shape[1]
+    rot = None if cfg.use_nope else rope_rotation(cfg, positions)
     cached = kv_cache is not None and not self_attn
     if kv_cache is None:
         counts = torch.zeros((cfg.n_moe, cfg.n_routed_experts + cfg.n_shared_experts),
@@ -399,36 +400,12 @@ def forward(params: Params, cfg: DeepseekV2Config, inputs_embeds: torch.Tensor,
                 "the latent cache: T = 1 only")
         counts = kv_cache["step_counts"]
         counts.zero_()
-    device_len = isinstance(length, torch.Tensor)
-    write_at = length.long() if device_len else length
-    if cached:   # the positions a step reads: [0, length + 1) that the mask admits
-        S = kv_cache["ckv"].shape[2]
-        cols = torch.arange(S, device=x.device)
-        valid = (attention_mask[:, :S] != 0) & (cols < length + 1)[None, :]
-        bias = torch.where(valid, 0.0, NEG_FILL).to(cfg.dtype)[:, None, :]
+    write_at = length.long() if isinstance(length, torch.Tensor) else length
+    bias = step_bias(attention_mask, kv_cache, cfg) if cached else None
     for li in range(cfg.num_layers):
         lp = _layer(params["layers"], li)
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-        q, ckv = linears(h, (lp["wq"], lp["wkv_a"]))
-        q = q.view(B, T, H, dn + dr)
-        c = rms_norm(ckv[..., :R], lp["kv_norm"], cfg.rms_norm_eps)
-        q_pe = apply_rope(q[..., dn:], rot)
-        k_pe = apply_rope(ckv[..., None, R:], rot)[:, :, 0]
-        if not cached:
-            if kv_cache is not None:
-                kv_cache["ckv"][li, :, :T] = torch.cat([c, k_pe], dim=-1)
-            attn = _attend_full(q[..., :dn], q_pe, c, k_pe, lp["wkv_b"],
-                                attention_mask, cfg)
-        else:
-            row = torch.cat([c, k_pe], dim=-1)                  # [B, 1, R+dr]
-            layer_cache = kv_cache["ckv"][li]
-            if device_len:
-                layer_cache.index_copy_(1, write_at, row)
-            else:
-                layer_cache[:, write_at:write_at + 1] = row
-            attn = _attend_latent(q[..., :dn], q_pe, layer_cache, lp["w_uk"],
-                                  lp["w_uv"], bias, cfg)
-        x = x + linear(attn, lp["wo"])
+        x = x + mla(h, lp, li, kv_cache, cached, attention_mask, rot, bias, write_at, cfg)
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
         if li < cfg.n_dense:
             x = x + _mlp(h, _layer(params["dense"], li))
@@ -436,17 +413,68 @@ def forward(params: Params, cfg: DeepseekV2Config, inputs_embeds: torch.Tensor,
             m = li - cfg.n_dense
             x = x + _moe(h, _layer(params["moe"], m), counts[m], cfg)
     if kv_cache is not None:
-        rows = kv_cache["expert_rows"]
-        routed = counts[:, :cfg.n_routed_experts]
-        if device_len:
-            rows.index_add_(0, write_at, routed[None])
-        else:
-            rows[0 if self_attn else write_at] += routed
-        if device_len:
-            length.add_(T)
-        else:
-            kv_cache["length"] = length + T
+        advance(kv_cache, counts[:, :cfg.n_routed_experts], self_attn, write_at, T)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), kv_cache
+
+
+def step_bias(attention_mask: torch.Tensor, kv_cache, cfg: DeepseekV2Config):
+    """A cached step's read of the latent cache: 0 over ``[0, length + 1)``
+    where ``attention_mask`` admits a position, ``NEG_FILL`` elsewhere →
+    ``[B, 1, S]`` in the model dtype."""
+    S = kv_cache["ckv"].shape[2]
+    cols = torch.arange(S, device=attention_mask.device)
+    valid = (attention_mask[:, :S] != 0) & (cols < kv_cache["length"] + 1)[None, :]
+    return torch.where(valid, 0.0, NEG_FILL).to(cfg.dtype)[:, None, :]
+
+
+def advance(kv_cache, routed: torch.Tensor, self_attn: bool, write_at, T: int) -> None:
+    """After a pass: the routed experts' rows ``routed`` ``[Lm, E]`` added to
+    ``expert_rows`` (the prefill's at row 0, a step's at the row it wrote)
+    and the cache's length advanced by T (in place where it is a device
+    tensor)."""
+    rows, length = kv_cache["expert_rows"], kv_cache["length"]
+    if isinstance(length, torch.Tensor):
+        rows.index_add_(0, write_at, routed[None])
+        length.add_(T)
+    else:
+        rows[0 if self_attn else write_at] += routed
+        kv_cache["length"] = length + T
+
+
+def mla(h: torch.Tensor, lp: Params, li: int, kv_cache, cached: bool, mask, rot, bias,
+        write_at, cfg: DeepseekV2Config) -> torch.Tensor:
+    """Layer ``li``'s MLA mixer over ``h`` ``[B, T, D]`` through ``Wo`` →
+    ``[B, T, D]``: without a cached step the plain form over the T
+    positions (the prefill writes its latent rows into an empty cache), a
+    cached T = 1 step the absorbed read after writing its row at
+    ``write_at``; ``rot`` the rope rotation (None under ``use_nope``),
+    ``bias`` :func:`step_bias`'s.  ``lp`` holds ``wq``, ``wkv_a``,
+    ``kv_norm``, ``wkv_b``, ``wo`` and the absorbed ``w_uk``, ``w_uv``."""
+    B, T = h.shape[:2]
+    H, dn, dr = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    R = cfg.kv_lora_rank
+    q, ckv = linears(h, (lp["wq"], lp["wkv_a"]))
+    q = q.view(B, T, H, dn + dr)
+    c = rms_norm(ckv[..., :R], lp["kv_norm"], cfg.rms_norm_eps)
+    if rot is None:
+        q_pe, k_pe = q[..., dn:], ckv[..., R:]
+    else:
+        q_pe = apply_rope(q[..., dn:], rot)
+        k_pe = apply_rope(ckv[..., None, R:], rot)[:, :, 0]
+    if not cached:
+        if kv_cache is not None:
+            kv_cache["ckv"][li, :, :T] = torch.cat([c, k_pe], dim=-1)
+        attn = _attend_full(q[..., :dn], q_pe, c, k_pe, lp["wkv_b"], mask, cfg)
+    else:
+        row = torch.cat([c, k_pe], dim=-1)                  # [B, 1, R+dr]
+        layer_cache = kv_cache["ckv"][li]
+        if isinstance(write_at, torch.Tensor):
+            layer_cache.index_copy_(1, write_at, row)
+        else:
+            layer_cache[:, write_at:write_at + 1] = row
+        attn = _attend_latent(q[..., :dn], q_pe, layer_cache, lp["w_uk"], lp["w_uv"],
+                              bias, cfg)
+    return linear(attn, lp["wo"])
 
 
 def expert_counters(rows, t_prompt: int, n_img: int, slots: int = 0) -> Dict[str, int]:

@@ -18,7 +18,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ospo_tpu_torch.models import deepseek_v2, llama, projector, qwen3_next, vit, vqgan
+from ospo_tpu_torch.models import (deepseek_v2, kimi_linear, llama, projector, qwen3_next,
+                                   vit, vqgan)
 from ospo_tpu_torch.ops import quant
 from ospo_tpu_torch.parallel import mesh as mesh_lib
 
@@ -166,13 +167,21 @@ def lm_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
 
 
 def own_trunk(cfg):
-    """The module of a trunk with a forward and a cache of its own
-    (``deepseek_v2``, ``qwen3_next``) for the language config ``cfg``, or
-    None for the LLaMA trunk."""
-    for mod, test in ((deepseek_v2, deepseek_v2.is_mla), (qwen3_next, qwen3_next.is_hybrid)):
+    """The module of a trunk with a forward and a cache of its own for the
+    language config ``cfg``: ``deepseek_v2`` (MLA/MoE), ``qwen3_next``
+    (GDN/MoE) or ``kimi_linear`` (KDA/MLA/MoE); None for the LLaMA trunk."""
+    for mod, test in ((deepseek_v2, deepseek_v2.is_mla), (qwen3_next, qwen3_next.is_hybrid),
+                      (kimi_linear, kimi_linear.is_kimi)):
         if test(cfg):
             return mod
     return None
+
+
+def is_hybrid(cfg) -> bool:
+    """Whether the trunk keeps recurrent states beside its attention cache
+    and holds an expert share of its MoE layers (``state_bytes``,
+    ``held_range``): the GDN/MoE and KDA/MLA/MoE trunks."""
+    return qwen3_next.is_hybrid(cfg) or kimi_linear.is_kimi(cfg)
 
 
 def refuse_own_trunk(model, what: str) -> None:
@@ -186,8 +195,8 @@ def refuse_own_trunk(model, what: str) -> None:
 
 
 def language_forward(params: Params, cfg: JanusConfig, *args, **kwargs):
-    """The trunk's forward: ``llama.forward``, or the forward of an MLA/MoE
-    trunk (``deepseek_v2``) or a GDN/MoE trunk (``qwen3_next``), with the
+    """The trunk's forward: ``llama.forward``, or the forward of a trunk of
+    its own (:func:`own_trunk`: MLA/MoE, GDN/MoE or KDA/MLA/MoE), with the
     same arguments and result."""
     mod = own_trunk(cfg.language)
     if mod is not None:
@@ -198,7 +207,8 @@ def language_forward(params: Params, cfg: JanusConfig, *args, **kwargs):
 def init_kv_cache(params: Params, cfg: JanusConfig, *args, **kwargs):
     """The trunk's KV cache for the heads this process holds (all of them,
     or its tensor-parallel share): ``llama.init_kv_cache``'s arguments; an
-    MLA/MoE trunk's latent cache, a GDN/MoE trunk's two kinds of state."""
+    MLA/MoE trunk's latent cache, a GDN/MoE trunk's K/V beside its recurrent
+    states, a KDA/MLA/MoE trunk's latent cache beside its recurrent states."""
     mod = own_trunk(cfg.language)
     if mod is not None:
         return mod.init_kv_cache(cfg.language, *args, **kwargs)
@@ -391,8 +401,8 @@ class JanusModel:
         of a seed."""
         if own_trunk(cfg.language) is not None:
             raise NotImplementedError("random init (JanusModel.init) is not "
-                                      "ported for the MLA/MoE and GDN/MoE trunks: "
-                                      "load them")
+                                      "ported for the MLA/MoE, GDN/MoE and KDA/MLA/MoE "
+                                      "trunks: load them")
         mode = quant.quant_mode(quantize)
         device = torch.device(device or "cuda")
         ini = _Init(seed, device)

@@ -32,6 +32,7 @@ import torch
 
 from ospo_tpu_torch.models import deepseek_v2
 from ospo_tpu_torch.models import janus as janus_lib
+from ospo_tpu_torch.models import kimi_linear
 from ospo_tpu_torch.models import qwen3_next
 from ospo_tpu_torch.models import llama as llama_lib
 from ospo_tpu_torch.models import vit as vit_lib
@@ -110,6 +111,8 @@ def config_from_checkpoint(model_path: str) -> janus_lib.JanusConfig:
         lang = deepseek_v2.config_from_hf(lc, dtype)
     elif lc.get("model_type") == "qwen3_next":
         lang = qwen3_next.config_from_hf(lc, dtype)
+    elif lc.get("model_type") == "kimi_linear":
+        lang = kimi_linear.config_from_hf(lc, dtype)
     else:
         lang = llama_lib.LlamaConfig(
             vocab_size=lc.get("vocab_size", 102400),
@@ -206,10 +209,10 @@ def expected_skipped_keys(keys, cfg: janus_lib.JanusConfig,
         pre = f"vision_model.vision_tower.blocks.{i}."
         skipped |= {k for k in keys if k.startswith(pre)}
     skipped |= {k for k in keys if k.endswith("rotary_emb.inv_freq")}
-    if qwen3_next.is_hybrid(cfg.language):   # the experts other chips of a share hold
+    if janus_lib.is_hybrid(cfg.language):   # the experts other chips of a share hold
         lo, n = cfg.language.held_range
-        skipped |= {k for k in keys if ".mlp.experts." in k
-                    and not lo <= int(k.split(".mlp.experts.")[1].split(".")[0]) < lo + n}
+        skipped |= {k for k in keys if ".experts." in k
+                    and not lo <= int(k.split(".experts.")[1].split(".")[0]) < lo + n}
     prefixes = tuple(p for part in dropped for p in _PART_PREFIXES[part])
     if prefixes:
         skipped |= {k for k in keys if k.startswith(prefixes)}
@@ -342,13 +345,16 @@ def _stack(ck: _Checkpoint, keys, dt, qfn=None):
     return out["w"] if "w" in out else out
 
 
-def _port_experts(ck: _Checkpoint, qfn, dt, mlps, expert_ids, shared: str, S: int):
+def _port_experts(ck: _Checkpoint, qfn, dt, mlps, expert_ids, shared: str, S: int,
+                  names=("gate_proj", "up_proj", "down_proj")):
     """``w13`` ``[Lm, E + S, 2F, D]`` (gate rows, then up rows) and ``w2``
     ``[Lm, E + S, D, F]`` of the MoE layers whose ``mlp.`` prefixes are
     ``mlps``: the E routed experts ``expert_ids``, then the shared MLP
     ``mlp.<shared>`` (width ``S · F``) cut into S experts of width F (its
     down rows quantized whole, so each part keeps the row's scale).  Each
-    matrix is read, quantized and written into stacks allocated once."""
+    matrix is read, quantized and written into stacks allocated once.
+    ``names``: a routed expert's gate, up and down matrices (the shared
+    MLP's are always ``gate_proj``, ``up_proj``, ``down_proj``)."""
     E = len(expert_ids)
     stacks = [None, None]
 
@@ -361,12 +367,12 @@ def _port_experts(ck: _Checkpoint, qfn, dt, mlps, expert_ids, shared: str, S: in
         for n, t in parts.items():
             stacks[which][n][m, e] = t
 
-    def mats(key):
-        return [ck.get(f"{key}.{n}_proj.weight", dt) for n in ("gate", "up", "down")]
+    def mats(key, parts=("gate_proj", "up_proj", "down_proj")):
+        return [ck.get(f"{key}.{n}.weight", dt) for n in parts]
 
     for m, mlp in enumerate(mlps):
         for e, ex in enumerate(expert_ids):
-            g, u, d = mats(f"{mlp}experts.{ex}")
+            g, u, d = mats(f"{mlp}experts.{ex}", names)
             put(0, m, e, torch.cat([g, u]))
             put(1, m, e, d)
         if not S:
@@ -444,6 +450,81 @@ def _port_qwen3_next(ck: _Checkpoint, cfg: qwen3_next.Qwen3NextConfig, quantize,
     out["moe"]["w13"], out["moe"]["w2"] = _port_experts(
         ck, qfn, dt, [f"{pre}{i}.mlp." for i in range(L)], range(lo, lo + n),
         "shared_expert", cfg.n_shared)
+    if lm_head:
+        out["lm_head"] = ck.get(prefix + "lm_head.weight", dt)
+    return out
+
+
+def _port_kimi_linear(ck: _Checkpoint, cfg: kimi_linear.KimiLinearConfig, quantize,
+                      lm_head: bool, prefix: str = "language_model.") -> Params:
+    """The KDA/MLA/MoE trunk (``models/kimi_linear.py``'s tree).  ``quantize``
+    ("" or "int8") quantizes every projection (the KDA layers' low-rank
+    ones too), the dense MLP, the shared expert and the held routed
+    experts, each matrix as it is read; the routers and the conv stay in
+    the model dtype; the correction biases, A_log, dt_bias and ``o_norm``'s
+    scale are kept in fp32.  Keys: ``self_attn.*`` for both mixers (KDA's
+    ``q_proj``, ``k_proj``, ``v_proj``, ``q_conv1d``, ``k_conv1d``,
+    ``v_conv1d``, ``f_a_proj``, ``f_b_proj``, ``g_a_proj``, ``g_b_proj``,
+    ``b_proj``, ``A_log``, ``dt_bias``, ``o_norm``, ``o_proj``; MLA's
+    DeepSeek-V2 names), ``mlp.*`` for the dense layer, and
+    ``block_sparse_moe.gate`` (``weight``, ``e_score_correction_bias``),
+    ``block_sparse_moe.experts.{e}.w1/w3/w2`` (gate, up, down) and
+    ``block_sparse_moe.shared_experts.*`` for the MoE layers."""
+    from ospo_tpu_torch.ops import quant
+
+    mode = quant.quant_mode(quantize)
+    if mode not in ("", "int8"):
+        raise NotImplementedError(
+            f"quantize {mode!r}: the {kimi_linear.TRUNK} takes int8 (W8A16) or the "
+            "model dtype")
+    dt = cfg.dtype
+    qfn = quant.quant_fn(mode) if mode else None
+    pre = prefix + "model.layers."
+    L = cfg.num_layers
+    kda = list(cfg.kda_layers)
+    mla = [i for i in range(L) if not cfg.is_kda(i)]
+    moe_ids = range(cfg.n_dense, L)
+
+    def stack(ids, name, quantized=True):
+        return _stack(ck, [f"{pre}{i}.{name}.weight" for i in ids], dt,
+                      qfn if quantized else None)
+
+    def fp32(ids, name):
+        return torch.stack([ck.get(f"{pre}{i}.{name}", torch.float32).reshape(-1)
+                            for i in ids])
+
+    a = "self_attn."
+    conv = torch.cat([stack(kda, a + f"{n}_conv1d", False) for n in "qkv"], dim=1)
+    mla_tree = {name: stack(mla, a + hf, q) for name, (hf, q) in {
+        "wq": ("q_proj", True), "wkv_a": ("kv_a_proj_with_mqa", True),
+        "kv_norm": ("kv_a_layernorm", False), "wkv_b": ("kv_b_proj", True),
+        "wo": ("o_proj", True)}.items()}
+    mla_tree["w_uk"], mla_tree["w_uv"] = deepseek_v2.absorbed(mla_tree["wkv_b"], cfg.mla)
+    moe_pre = [f"{pre}{i}.block_sparse_moe." for i in moe_ids]
+    lo, n = cfg.held_range
+    out = {
+        "embed": ck.get(prefix + "model.embed_tokens.weight", dt),
+        "layers": {"attn_norm": stack(range(L), "input_layernorm", False),
+                   "mlp_norm": stack(range(L), "post_attention_layernorm", False)},
+        "kda": {name: stack(kda, a + hf) for name, hf in (
+            ("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"), ("f_a", "f_a_proj"),
+            ("f_b", "f_b_proj"), ("g_a", "g_a_proj"), ("g_b", "g_b_proj"),
+            ("wb", "b_proj"), ("wo", "o_proj"))},
+        "mla": mla_tree,
+        "moe": {"router": _stack(ck, [p + "gate.weight" for p in moe_pre], dt),
+                "bias": torch.stack([ck.get(p + "gate.e_score_correction_bias",
+                                            torch.float32) for p in moe_pre])},
+        "final_norm": ck.get(prefix + "model.norm.weight", dt),
+    }
+    out["kda"].update(conv_w=conv.reshape(len(kda), conv.shape[1], -1).contiguous(),
+                      A_log=fp32(kda, a + "A_log"), dt_bias=fp32(kda, a + "dt_bias"),
+                      norm=stack(kda, a + "o_norm", False).float())
+    if cfg.n_dense:
+        out["dense"] = {name: stack(range(cfg.n_dense), f"mlp.{hf}") for name, hf in (
+            ("w_gate", "gate_proj"), ("w_up", "up_proj"), ("w_down", "down_proj"))}
+    out["moe"]["w13"], out["moe"]["w2"] = _port_experts(
+        ck, qfn, dt, moe_pre, range(lo, lo + n), "shared_experts", cfg.n_shared,
+        names=("w1", "w3", "w2"))
     if lm_head:
         out["lm_head"] = ck.get(prefix + "lm_head.weight", dt)
     return out
@@ -577,7 +658,8 @@ def load_janus(model_path: str, device=None,
     understanding = understanding and vision
     ck = _Checkpoint(model_path, device)
     port = (_port_deepseek_v2 if deepseek_v2.is_mla(cfg.language) else
-            _port_qwen3_next if qwen3_next.is_hybrid(cfg.language) else _port_llama)
+            _port_qwen3_next if qwen3_next.is_hybrid(cfg.language) else
+            _port_kimi_linear if kimi_linear.is_kimi(cfg.language) else _port_llama)
     params = {"language_model": port(ck, cfg.language, quantize, lm_head)}
     if understanding:
         params["vision_model"] = _port_vit(ck, cfg.vision)

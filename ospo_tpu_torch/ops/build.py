@@ -51,8 +51,9 @@ EXTRA = {
     "int4_matmul_row": {"ospo_int4_matmul_row_clusters": [I, I]},
     "int4_matmul_group": {"ospo_int4_matmul_group_clusters": [I, I]},
     "moe_experts": {"ospo_moe_down": [P] * 8 + [I] * 5 + [P],
-                    "ospo_moe_route": [P] * 4 + [I] * 6 + [F] + [I] * 3 + [P],
+                    "ospo_moe_route": [P] * 5 + [I] * 6 + [F] + [I] * 3 + [P],
                     "ospo_moe_align": [P] * 7 + [I] * 4 + [P]},
+    "gated_delta": {"ospo_kda_decode": [P] * 13 + [I] * 4 + [F] * 2 + [P]},
     "layer_tail": {"ospo_rope_kv_write": [P] * 12 + [I] * 14 + [P],
                    "ospo_silu_mul": [P] * 3 + [I] + [P]},
 }

@@ -41,7 +41,10 @@
 // experts of the last step have pushed it; past 32 tiles, one split and a
 // warp takes several tiles), the splits' sums are added in order, then one
 // warp a token forms the fp32 softmax over the E logits and picks the top
-// k greedily (ties: the lower expert).  The router may carry one more row,
+// k greedily (ties: the lower expert).  With a correction bias (Kimi's
+// sigmoid router) a token's scores are the sigmoids of its logits, the top
+// k is taken over score + bias, and the weights are the chosen experts'
+// unbiased scores, renormalised over (sum + 1e-20).  The router may carry one more row,
 // a shared gate, whose logit weights the shared slots by its sigmoid; an
 // expert share [e0, e0 + held) writes each routed id as its place among the
 // held experts, or -1 for the others (ops/moe.py).  One instance takes
@@ -201,10 +204,12 @@ __device__ __forceinline__ uint4 ldg16(const void* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-// the router holds n_routed + gate rows
+// the router holds n_routed + gate rows; bias (nullptr: softmax routing)
+// the n_routed fp32 correction biases of sigmoid routing
 __global__ void __launch_bounds__(ROUTE_THREADS)
 moe_route(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ router,
-          int* __restrict__ topi, float* __restrict__ topw, int n_tok, int d,
+          const float* __restrict__ bias, int* __restrict__ topi,
+          float* __restrict__ topw, int n_tok, int d,
           int n_routed, int top_k, int n_shared, int norm, float scaling, int e0,
           int held, int gate) {
   constexpr int WARPS_R = ROUTE_THREADS / 32;
@@ -257,32 +262,43 @@ moe_route(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__
   for (int t = warp; t < ROUTE_TOK; t += blockDim.x >> 5) {
     const int tok = t0 + t;
     if (tok >= n_tok) break;
+    // p: what the top k is taken over, the softmax or sigmoid + bias; a
+    // chosen expert's weight is its softmax, or its sigmoid formed again
+    // from its logit (one register array, as 1024 threads leave 64 a thread)
     float p[MAX_ROUTED / 32];
-    float m = neg_inf();
+    if (bias == nullptr) {
+      float m = neg_inf();
 #pragma unroll
-    for (int j = 0; j < MAX_ROUTED / 32; ++j) {
-      const int e = lane + 32 * j;
-      p[j] = e < n_routed ? logits[t][e] : neg_inf();
-      m = fmaxf(m, p[j]);
+      for (int j = 0; j < MAX_ROUTED / 32; ++j) {
+        const int e = lane + 32 * j;
+        p[j] = e < n_routed ? logits[t][e] : neg_inf();
+        m = fmaxf(m, p[j]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < MAX_ROUTED / 32; ++j) {
+        p[j] = lane + 32 * j < n_routed ? expf(p[j] - m) : 0.f;
+        sum += p[j];
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+#pragma unroll
+      for (int j = 0; j < MAX_ROUTED / 32; ++j)
+        p[j] = lane + 32 * j < n_routed ? p[j] / sum : neg_inf();
+    } else {
+#pragma unroll
+      for (int j = 0; j < MAX_ROUTED / 32; ++j) {
+        const int e = lane + 32 * j;
+        p[j] = e < n_routed ? 1.f / (1.f + expf(-logits[t][e])) + bias[e] : neg_inf();
+      }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < MAX_ROUTED / 32; ++j) {
-      p[j] = lane + 32 * j < n_routed ? expf(p[j] - m) : 0.f;
-      sum += p[j];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-#pragma unroll
-    for (int j = 0; j < MAX_ROUTED / 32; ++j)
-      p[j] = lane + 32 * j < n_routed ? p[j] / sum : -1.f;
     float sel_w[MAX_TOP_K];
     int sel_i[MAX_TOP_K];
     float total = 0.f;
     for (int j = 0; j < top_k; ++j) {
-      float bv = -2.f;
+      float bv = neg_inf();
       int bi = 1 << 30;
 #pragma unroll
       for (int jj = 0; jj < MAX_ROUTED / 32; ++jj)
@@ -295,11 +311,13 @@ moe_route(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__
       }
 #pragma unroll
       for (int jj = 0; jj < MAX_ROUTED / 32; ++jj)
-        if (lane + 32 * jj == bi) p[jj] = -1.f;
+        if (lane + 32 * jj == bi) p[jj] = neg_inf();
+      if (bias != nullptr) bv = 1.f / (1.f + expf(-logits[t][bi]));
       sel_w[j < MAX_TOP_K ? j : 0] = bv;
       sel_i[j < MAX_TOP_K ? j : 0] = bi;
       total += bv;
     }
+    const float denom = bias == nullptr ? total : total + 1e-20f;
     if (lane < slots) {
       int id = held + lane - top_k;
       float wt = gate ? 1.f / (1.f + expf(-logits[t][n_routed])) : 1.f;
@@ -307,7 +325,7 @@ moe_route(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__
         if (j == lane) {
           const int local = sel_i[j] - e0;
           id = local >= 0 && local < held ? local : -1;
-          wt = (norm ? sel_w[j] / total : sel_w[j]) * scaling;
+          wt = (norm ? sel_w[j] / denom : sel_w[j]) * scaling;
         }
       topi[(size_t)tok * slots + lane] = id;
       topw[(size_t)tok * slots + lane] = wt;
@@ -375,12 +393,14 @@ moe_align(const int* __restrict__ topi, int* __restrict__ counts,
 }  // namespace
 
 // x: [N, D] bf16 tokens; router: [E + gate, D] bf16 (E <= 512), the shared
-// gate's row last where gate is 1; topi, topw: [N, top_k + n_shared] int32
+// gate's row last where gate is 1; bias: nullptr (softmax routing) or [E]
+// fp32 (sigmoid routing with that correction bias); topi, topw: [N, top_k + n_shared] int32
 // and fp32, the routed slots (ids among the held experts [e0, e0 + held),
 // -1 for the others) then the shared experts' (ids held .. held + n_shared
 // - 1, weight 1 or the gate's sigmoid).  D a multiple of 32, top_k <= 16.
 // Returns a cudaError_t.
-extern "C" int ospo_moe_route(const void* x, const void* router, int* topi, float* topw,
+extern "C" int ospo_moe_route(const void* x, const void* router, const float* bias,
+                              int* topi, float* topw,
                               int n_tok, int d, int n_routed, int top_k, int n_shared,
                               int norm, float scaling, int e0, int held, int gate,
                               void* stream) {
@@ -391,7 +411,7 @@ extern "C" int ospo_moe_route(const void* x, const void* router, int* topi, floa
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* rb = static_cast<const __nv_bfloat16*>(router);
-  moe_route<<<grid, ROUTE_THREADS, 0, st>>>(xb, rb, topi, topw, n_tok, d, n_routed, top_k,
+  moe_route<<<grid, ROUTE_THREADS, 0, st>>>(xb, rb, bias, topi, topw, n_tok, d, n_routed, top_k,
                                             n_shared, norm, scaling, e0, held, gate);
   return cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 """The gated delta rule of a Gated DeltaNet (GDN) layer (Qwen3-Next's linear
-attention): the T = 1 decode step as one hand-written CUDA kernel
-(``csrc/gated_delta.cu``) and its plain PyTorch version, and the chunked
-plain form a prefill runs.
+attention) and of a Kimi Delta Attention (KDA) layer (Kimi Linear's): each
+T = 1 decode step as one hand-written CUDA kernel (``csrc/gated_delta.cu``:
+``gdn_decode``, ``kda_decode``) and its plain PyTorch version; the chunked
+plain form a GDN prefill runs, and the KDA prefill as its steps in turn.
 
 No TPU kernel of the JAX package has this function: the JAX package runs
 no linear-attention trunk.  The step's work is the recurrent state, a
@@ -34,6 +35,20 @@ layer (``r()`` rounds to the model dtype):
 A padded prompt position (mask 0) has conv input 0, β = 0 and g = 0: it
 leaves both states as they were, so a left-padded prompt gives the
 outputs of the same prompt unpadded.
+
+KDA departs from GDN in four places, for one row and layer:
+
+- inputs: three projections q, k, v ``[..., H·D]`` (one value head a key
+  head), each with its own conv channels (the conv input is ``[q ‖ k ‖ v]``
+  as for GDN, the conv state likewise); the decay's low-rank projection f
+  ``[..., H·Dk]``, b ``[..., H]`` and the output gate's low-rank projection
+  og ``[..., H·Dv]``;
+- the decay is a vector a head: ``g = −exp(A_log[h]) · softplus(f +
+  dt_bias)`` with ``dt_bias`` ``[H·Dk]``, and ``S ← Diag(exp(g))·S`` scales
+  each key row of the state by its own factor;
+- the gated norm gates by ``sigmoid(og)`` in place of ``silu(z)``;
+- a prefill runs the step once a position (:func:`kda_prefill`); a padded
+  position has q, k, v 0 and f, b −∞, so g = 0 and β = 0.
 """
 
 from __future__ import annotations
@@ -48,6 +63,8 @@ L2_EPS = 1e-6
 KERNEL_DK = KERNEL_DV = 128
 KERNEL_CONV = 4
 KERNEL_RATIO = 2
+# KDA heads a block of the kernel takes: their number must divide by it
+KDA_PAIR = 2
 
 
 def split_heads(qkvz: torch.Tensor, ba: torch.Tensor, hk: int, dk: int, dv: int,
@@ -206,3 +223,95 @@ def decode(qkvz, ba, conv_w, conv_state, state, a_log, dt_bias, norm_w,
         torch.cuda.current_stream(qkvz.device).cuda_stream), "gdn_decode")
     count_launch("gdn_decode")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Kimi Delta Attention (KDA): a decay a key row
+# ---------------------------------------------------------------------------
+
+
+def kda_decode_plain(q, k, v, f, b, og, conv_w, conv_state, state, a_log, dt_bias,
+                     norm_w, heads: int, eps: float) -> torch.Tensor:
+    """One T = 1 KDA step for rows ``q``, ``k``, ``v``, ``f``, ``og`` ``[B,
+    H·D]`` and ``b`` ``[B, H]``: updates ``conv_state`` ``[B, K - 1, 3·H·D]``
+    and ``state`` ``[B, H, Dk, Dv]`` in place → the gated norm's output
+    ``[B, H·Dv]`` in q's dtype."""
+    B = q.shape[0]
+    x = torch.cat([q, k, v], dim=-1)
+    window = torch.cat([conv_state, x[:, None].to(conv_state.dtype)], dim=1)  # [B, K, C]
+    conv = (window.float() * conv_w.float().T[None]).sum(1)
+    conv_state.copy_(window[:, 1:])
+    act = F.silu(conv).view(B, 3, heads, -1)
+    dk = act.shape[-1]
+    qh, kh, vh = _l2(act[:, 0]) * dk ** -0.5, _l2(act[:, 1]), act[:, 2]
+    beta = torch.sigmoid(b.float())
+    g = -torch.exp(a_log.float())[:, None] * F.softplus(
+        f.float().view(B, heads, -1) + dt_bias.float().view(heads, -1))
+    S = state * g.exp()[..., None]
+    u = beta[..., None] * (vh - torch.einsum("bhkv,bhk->bhv", S, kh))
+    S = S + kh[..., :, None] * u[..., None, :]
+    state.copy_(S)
+    o = torch.einsum("bhkv,bhk->bhv", S, qh)
+    o = o * torch.rsqrt(o.pow(2).mean(-1, keepdim=True) + eps)
+    gate = torch.sigmoid(og.float().view(B, heads, -1))
+    return (o * norm_w.float() * gate).to(q.dtype).reshape(B, -1)
+
+
+def kda_decode(q, k, v, f, b, og, conv_w, conv_state, state, a_log, dt_bias, norm_w,
+               heads: int, eps: float) -> torch.Tensor:
+    """:func:`kda_decode_plain`'s step: the plain version on the CPU, the
+    ``kda_decode`` kernel on the card.  The kernel takes bf16 inputs with a
+    unit column stride (q, k, v, f and og with one row stride), heads of
+    128 in pairs, a conv of width 4, a contiguous bf16 conv state, a
+    contiguous fp32 state and the weights' dtypes below; any other CUDA
+    input raises ``ValueError``."""
+    if q.device.type == "cpu":
+        return kda_decode_plain(q, k, v, f, b, og, conv_w, conv_state, state, a_log,
+                                dt_bias, norm_w, heads, eps)
+    from ospo_tpu_torch.ops import build
+
+    rows, width = q.shape
+    xs = (q, k, v, f, og)
+    if not (all(t.dtype == torch.bfloat16 and t.shape == (rows, width) and t.stride(-1) == 1
+                and t.stride(0) == q.stride(0) for t in xs)
+            and b.dtype == torch.bfloat16 and b.shape == (rows, heads) and b.stride(-1) == 1
+            and width == heads * KERNEL_DK and heads % KDA_PAIR == 0
+            and conv_state.shape == (rows, KERNEL_CONV - 1, 3 * width)
+            and conv_state.dtype == torch.bfloat16 and conv_state.is_contiguous()
+            and state.shape == (rows, heads, KERNEL_DK, KERNEL_DV)
+            and state.dtype == torch.float32 and state.is_contiguous()):
+        raise ValueError(
+            f"kda_decode: q {q.dtype} {tuple(q.shape)} (strides {q.stride()}), b {b.dtype} "
+            f"{tuple(b.shape)}, conv state {conv_state.dtype} {tuple(conv_state.shape)}, "
+            f"state {state.dtype} {tuple(state.shape)}, {heads} heads; it takes bf16 rows "
+            f"with a unit column stride and one row stride, heads of {KERNEL_DK} in pairs, "
+            f"a conv of width {KERNEL_CONV}, a contiguous bf16 conv state and fp32 state")
+    for t, dt in ((conv_w, torch.bfloat16), (a_log, torch.float32),
+                  (dt_bias, torch.float32), (norm_w, torch.float32)):
+        if not t.is_contiguous() or t.dtype != dt:
+            raise ValueError("kda_decode: the layer's weights must be contiguous, the "
+                             "conv's bf16, A_log, dt_bias and the norm's fp32")
+    out = torch.empty((rows, width), dtype=q.dtype, device=q.device)
+    build.check(build.load("gated_delta").ospo_kda_decode(
+        *(t.data_ptr() for t in (q, k, v, f, b, og, conv_w, conv_state, state, a_log,
+                                 dt_bias, norm_w, out)),
+        rows, heads, q.stride(0), b.stride(0), L2_EPS, float(eps),
+        torch.cuda.current_stream(q.device).cuda_stream), "kda_decode")
+    count_launch("kda_decode")
+    return out
+
+
+def kda_prefill(q, k, v, f, b, og, valid, conv_w, conv_state, state, a_log, dt_bias,
+                norm_w, heads: int, eps: float) -> torch.Tensor:
+    """T positions ``[B, T, ·]`` from the given states (updated in place) as
+    T steps of :func:`kda_decode` → ``[B, T, H·Dv]``.  ``valid`` ``[B, T]``
+    bool (or None): a padded position has q, k, v 0 and f, b −∞, so it
+    leaves both states as they were (conv input 0, ``g = 0``, ``β = 0``)."""
+    if valid is not None:
+        keep = valid[..., None]
+        q, k, v = (t * keep.to(t.dtype) for t in (q, k, v))
+        f, b = (torch.where(keep, t, torch.full_like(t, -float("inf"))) for t in (f, b))
+    return torch.stack([
+        kda_decode(q[:, t], k[:, t], v[:, t], f[:, t], b[:, t], og[:, t], conv_w,
+                   conv_state, state, a_log, dt_bias, norm_w, heads, eps)
+        for t in range(q.shape[1])], dim=1)

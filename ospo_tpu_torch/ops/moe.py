@@ -19,6 +19,11 @@ Semantics, shared by the kernels and the plain version, for tokens
   softmax over the E experts, the ``top_k`` largest scores in order
   (ties: the lower expert), their weights the scores themselves, or
   renormalised to sum 1 with ``norm_topk``, times ``scaling``;
+- sigmoid routing (Kimi, a ``score_bias`` given): the scores are the
+  logits' sigmoids, the ``top_k`` are taken over ``score + score_bias``
+  (the fp32 correction bias ``[E]``), and the weights are the chosen
+  experts' unbiased scores, renormalised with ``norm_topk`` over ``(Σ +
+  1e-20)``, times ``scaling``;
 - the N · top_k (token, slot) rows are grouped by expert: ``counts[e]``,
   ``offsets`` ``[E + 1]`` (exclusive prefix sums) and ``sorted_src``
   ``[N·k]``, the flat (token · k + slot) index of each grouped row; within
@@ -101,15 +106,32 @@ def max_tiles(rows: int, experts: int, bm: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def route_plain(x: torch.Tensor, router: torch.Tensor, top_k: int,
-                norm_topk: bool = False, scaling: float = 1.0):
-    """→ (expert ids [N, k] int32, weights [N, k] fp32)."""
+def _scores(x: torch.Tensor, router: torch.Tensor, score_bias=None):
+    """→ (each expert's score [N, E], what the top-k is taken over) in fp32:
+    the softmax twice, or the sigmoid and the sigmoid plus ``score_bias``."""
     logits = x.float() @ router.float().T
-    scores = torch.softmax(logits, dim=-1)
-    w, idx = torch.topk(scores, top_k, dim=-1)
+    if score_bias is None:
+        scores = torch.softmax(logits, dim=-1)
+        return scores, scores
+    scores = torch.sigmoid(logits)
+    return scores, scores + score_bias.float()
+
+
+def _weights(chosen: torch.Tensor, norm_topk: bool, score_bias, scaling: float):
+    """The chosen experts' scores [N, k] → their weights."""
     if norm_topk:
-        w = w / w.sum(dim=-1, keepdim=True)
-    return idx.to(torch.int32), w * scaling
+        total = chosen.sum(dim=-1, keepdim=True)
+        chosen = chosen / (total if score_bias is None else total + 1e-20)
+    return chosen * scaling
+
+
+def route_plain(x: torch.Tensor, router: torch.Tensor, top_k: int,
+                norm_topk: bool = False, scaling: float = 1.0, score_bias=None):
+    """→ (expert ids [N, k] int32, weights [N, k] fp32)."""
+    scores, choice = _scores(x, router, score_bias)
+    idx = torch.topk(choice, top_k, dim=-1).indices
+    w = _weights(scores.gather(1, idx), norm_topk, score_bias, scaling)
+    return idx.to(torch.int32), w
 
 
 def with_shared(topi: torch.Tensor, topw: torch.Tensor, experts: int,
@@ -138,23 +160,22 @@ def held_ids(topi: torch.Tensor, held) -> torch.Tensor:
 
 def routing_gap(x: torch.Tensor, router: torch.Tensor, topi: torch.Tensor,
                 topw: torch.Tensor, top_k: int, norm_topk: bool = False,
-                scaling: float = 1.0):
+                scaling: float = 1.0, score_bias=None):
     """How a routing (``route``'s ids and weights; the shared slots past
     ``top_k`` are not read) departs from ``route_plain``'s on the same
     tokens → (tokens whose routed experts differ, the largest shortfall of
-    a chosen expert's plain score below the plain k-th score, the largest
-    weight error against the plain weights of the chosen experts).  A
-    routing whose logits are summed in another order differs only where
+    a chosen expert's plain choice score below the plain k-th one, the
+    largest weight error against the plain weights of the chosen experts).
+    A routing whose logits are summed in another order differs only where
     scores tie to fp32 rounding, so its shortfall stays ~1e-7."""
-    scores = torch.softmax(x.float() @ router.float().T, dim=-1)
+    scores, choice = _scores(x, router, score_bias)
     ids = topi[:, :top_k].long()
-    chosen = scores.gather(1, ids)
-    kth = scores.topk(top_k, dim=-1).values[:, -1:]
-    want = route_plain(x, router, top_k, norm_topk, scaling)[0].long()
+    kth = choice.topk(top_k, dim=-1).values[:, -1:]
+    want = route_plain(x, router, top_k, norm_topk, scaling, score_bias)[0].long()
     differ = int((ids.sort(dim=1).values != want.sort(dim=1).values).any(dim=1).sum())
-    w = chosen / chosen.sum(dim=-1, keepdim=True) if norm_topk else chosen
-    return (differ, float((kth - chosen).clamp_min(0).max()),
-            float((topw[:, :top_k] - w * scaling).abs().max()))
+    w = _weights(scores.gather(1, ids), norm_topk, score_bias, scaling)
+    return (differ, float((kth - choice.gather(1, ids)).clamp_min(0).max()),
+            float((topw[:, :top_k] - w).abs().max()))
 
 
 def align_plain(topi: torch.Tensor, experts: int, bm: int):
@@ -280,7 +301,8 @@ def _combine_kernel():
 
 
 def route(x: torch.Tensor, router: torch.Tensor, top_k: int, norm_topk: bool = False,
-          scaling: float = 1.0, n_shared: int = 0, held=None, shared_gate: bool = False):
+          scaling: float = 1.0, n_shared: int = 0, held=None, shared_gate: bool = False,
+          score_bias=None):
     """The routing of ``routed_experts`` → (expert ids ``[N, top_k +
     n_shared]`` int32, weights fp32), the shared experts' slots last:
     ``moe_route`` for CUDA tensors (logits summed in another order than
@@ -288,11 +310,12 @@ def route(x: torch.Tensor, router: torch.Tensor, top_k: int, norm_topk: bool = F
     rounding may take the other), the plain version for CPU tensors.
     ``shared_gate``: the router's last row is the shared gate's.  ``held``
     (e0, n): routed ids become places among the held experts, -1 for the
-    others (the module's docstring)."""
+    others; ``score_bias`` (fp32 ``[E]``): sigmoid routing (the module's
+    docstring)."""
     E = router.shape[0] - int(bool(shared_gate))
     n_held = E if held is None else held[1]
     if x.device.type == "cpu":
-        topi, topw = route_plain(x, router[:E], top_k, norm_topk, scaling)
+        topi, topw = route_plain(x, router[:E], top_k, norm_topk, scaling, score_bias)
         gate = torch.sigmoid(x.float() @ router[E].float()) if shared_gate else None
         return with_shared(held_ids(topi, held), topw, n_held, n_shared, gate)
     from ospo_tpu_torch.ops import build
@@ -304,16 +327,21 @@ def route(x: torch.Tensor, router: torch.Tensor, top_k: int, norm_topk: bool = F
             or not (x.is_contiguous() and router.is_contiguous()) or d % 32 \
             or router.dim() != 2 or router.shape[1] != d \
             or E > MAX_ROUTED or top_k > MAX_TOP_K or slots > 32 \
-            or not (0 <= e0 and 0 < n_held and e0 + n_held <= E):
+            or not (0 <= e0 and 0 < n_held and e0 + n_held <= E) \
+            or (score_bias is not None and not (
+                score_bias.dtype == torch.float32 and score_bias.is_contiguous()
+                and score_bias.shape == (E,) and score_bias.device == x.device)):
         raise ValueError(f"moe_route: x {x.dtype} {tuple(x.shape)}, router "
                          f"{router.dtype} {tuple(router.shape)}, top-{top_k}, {slots} "
                          f"slots, held {held}; it takes contiguous bf16, D a multiple of "
                          f"32, at most {MAX_ROUTED} experts, top-{MAX_TOP_K} and 32 "
-                         f"slots, a held range inside the routed experts")
+                         f"slots, a held range inside the routed experts, a correction "
+                         f"bias of contiguous fp32 [E] on x's device")
     topi = torch.empty((n_tok, slots), dtype=torch.int32, device=x.device)
     topw = torch.empty((n_tok, slots), dtype=torch.float32, device=x.device)
     build.check(build.load("moe_experts").ospo_moe_route(
-        x.data_ptr(), router.data_ptr(), topi.data_ptr(), topw.data_ptr(), n_tok, d, E,
+        x.data_ptr(), router.data_ptr(), None if score_bias is None else score_bias.data_ptr(),
+        topi.data_ptr(), topw.data_ptr(), n_tok, d, E,
         top_k, n_shared, int(bool(norm_topk)), float(scaling), e0, n_held,
         int(bool(shared_gate)), torch.cuda.current_stream(x.device).cuda_stream),
         "moe_route")
@@ -362,12 +390,12 @@ def _check_cuda(x, router, w13, w2, counts, experts: int) -> None:
 def routed_experts(x: torch.Tensor, router: torch.Tensor, w13, w2, top_k: int,
                    counts: torch.Tensor, norm_topk: bool = False,
                    scaling: float = 1.0, n_shared: int = 0, held=None,
-                   shared_gate: bool = False) -> torch.Tensor:
+                   shared_gate: bool = False, score_bias=None) -> torch.Tensor:
     """The experts of the MoE FFN (the module's docstring) for tokens ``x
     [N, D]`` → ``[N, D]`` in x's dtype: the ``top_k`` routed ones and the
     ``n_shared`` shared ones that follow them in ``w13`` and ``w2``;
     ``held`` (e0, n) an expert share, ``shared_gate`` the router's last
-    row gating the shared ones.  ``counts`` ``[held + n_shared]`` int32,
+    row gating the shared ones, ``score_bias`` sigmoid routing.  ``counts`` ``[held + n_shared]`` int32,
     zeroed by the caller, receives each expert's rows.  CUDA tensors launch
     the kernels; CPU tensors take the plain version."""
     n_tok, d = x.shape
@@ -379,7 +407,8 @@ def routed_experts(x: torch.Tensor, router: torch.Tensor, w13, w2, top_k: int,
     cuda = x.device.type == "cuda"
     if cuda:
         _check_cuda(x, router, w13, w2, counts, experts)
-    topi, topw = route(x, router, top_k, norm_topk, scaling, n_shared, held, shared_gate)
+    topi, topw = route(x, router, top_k, norm_topk, scaling, n_shared, held, shared_gate,
+                       score_bias)
     if not cuda:
         c, offsets, src, tile_e, tile_s = align_plain(topi, experts, bm)
         counts.add_(c)

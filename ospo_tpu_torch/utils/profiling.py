@@ -227,7 +227,7 @@ _LAUNCHES = dict.fromkeys((
     "int4_matmul_row", "int4_matmul_group", "moe_route", "moe_align",
     "moe_gate_up", "moe_down", "moe_combine", "w8a16_matmul",
     "suffix_attention", "gdn_decode", "add_rms_norm", "rope_kv_write",
-    "silu_mul"), 0)
+    "silu_mul", "kda_decode"), 0)
 
 
 def count_launch(name: str) -> None:

@@ -1256,6 +1256,135 @@ def test_moe_kernels_with_an_expert_share_match_the_plain_version(cuda):
     assert (err <= 2 ** -7 * want.abs() + 1e-2 * want.abs().max()).all()
 
 
+# ---------------------------------------------------------------------------
+# the Kimi Delta Attention decode kernel and the sigmoid routing (Kimi
+# Linear's widths: 32 heads of 128, conv of width 4, 256 experts top-8)
+# ---------------------------------------------------------------------------
+
+
+def _kda_inputs(cuda, rows, seed, heads=32, d=128, K=4):
+    """bf16 projections (q, k, v, f, og of 32 heads of 128 and b), weights
+    drawn as the benchmark's (A_log the log of U(1, 16), dt_bias a channel
+    the inverse softplus of exp(U(log 1e-3, log 1e-1)), the conv N(0, 1/4),
+    the norm's scale near 1), a bf16 conv state and an fp32 state of unit
+    scale."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    width = heads * d
+    proj = [torch.randn((rows, width), generator=g, device=cuda).bfloat16() for _ in range(5)]
+    b = torch.randn((rows, heads), generator=g, device=cuda).bfloat16()
+    conv_w = (0.5 * torch.randn((3 * width, K), generator=g, device=cuda)).bfloat16()
+    conv_state = torch.randn((rows, K - 1, 3 * width), generator=g, device=cuda).bfloat16()
+    state = torch.randn((rows, heads, d, d), generator=g, device=cuda)
+    a_log = torch.log(1 + 15 * torch.rand((heads,), generator=g, device=cuda))
+    dt = torch.exp(-6.9 + 4.6 * torch.rand((width,), generator=g, device=cuda))
+    dt_bias = dt + torch.log(-torch.expm1(-dt))
+    norm_w = 1 + 0.1 * torch.randn((d,), generator=g, device=cuda)
+    q, k, v, f, og = proj
+    return (q, k, v, f, b, og), conv_w, conv_state, state, a_log, dt_bias, norm_w
+
+
+def test_kda_decode_kernel_matches_plain(cuda):
+    """One step at the cell's 192 rows: the kernel's output within a bf16
+    rounding of the plain version's (2^-7 relative plus 1e-3 of the scale),
+    its states within fp32 rounding (1e-5 relative plus 1e-6), its conv
+    state bit-equal, in one launch; a repeat is bit-equal; the inputs as
+    slices of a prefill's ``[B, T, ·]`` projections (one row stride) give the
+    same step; an odd head count raises."""
+    from ospo_tpu_torch.ops import gated_delta as gd
+
+    xs, conv_w, cs, st, a_log, dt_bias, norm_w = _kda_inputs(cuda, 192, 0)
+    args = (a_log, dt_bias, norm_w, 32, 1e-5)
+    cs_p, st_p = cs.clone(), st.clone()
+    want = gd.kda_decode_plain(*xs, conv_w, cs_p, st_p, *args)
+    outs = []
+    for _ in range(2):
+        cs_k, st_k = cs.clone(), st.clone()
+        n0 = kernel_launches()
+        outs.append(gd.kda_decode(*xs, conv_w, cs_k, st_k, *args))
+        assert _launched(n0, "kda_decode") == (1,)
+    got = outs[0]
+    assert torch.equal(outs[0], outs[1])
+    err = (got.float() - want.float()).abs()
+    assert (err <= 2 ** -7 * want.float().abs() + 1e-3 * want.float().abs().max()).all()
+    assert torch.equal(cs_k, cs_p)
+    torch.testing.assert_close(st_k, st_p, atol=1e-6, rtol=1e-5)
+    # a prefill's slices: [B, 3, ·] tensors read at position 1
+    wide = [torch.stack([torch.zeros_like(t), t, torch.zeros_like(t)], 1) for t in xs]
+    cs_s, st_s = cs.clone(), st.clone()
+    sliced = gd.kda_decode(*(t[:, 1] for t in wide), conv_w, cs_s, st_s, *args)
+    assert torch.equal(sliced, got) and torch.equal(st_s, st_k)
+    with pytest.raises(ValueError, match="kda_decode"):
+        gd.kda_decode(*(t[:, :31 * 128] if t.shape[1] == 4096 else t[:, :31] for t in xs),
+                      conv_w[:93 * 128], cs[..., :93 * 128].contiguous(), st[:, :31].contiguous(),
+                      a_log[:31], dt_bias[:31 * 128], norm_w, 31, 1e-5)
+
+
+def test_kda_state_after_576_steps_fails_a_bf16_state_and_a_scalar_decay(cuda):
+    """576 steps (an image's tokens) from a zero state through the kernel
+    and through the plain fp32 step: the states agree to 1e-4 of their
+    scale; the same steps with the state rounded to bf16 after each, and
+    with each head's decay the mean of its per-channel one (a GDN's
+    arithmetic), are far outside it."""
+    from ospo_tpu_torch.ops import gated_delta as gd
+
+    rows = 4
+    xs, conv_w, cs, st, a_log, dt_bias, norm_w = _kda_inputs(cuda, rows, 1)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    seqs = [[torch.randn(t.shape, generator=g, device=cuda).bfloat16() for t in xs]
+            for _ in range(576)]
+    st.zero_()
+    cs.zero_()
+
+    def run(step, bf16_state=False, scalar=False):
+        c, s = cs.clone(), st.clone()
+        for q, k, v, f, b, og in seqs:
+            if scalar:   # f + dt_bias whose softplus is one value a head
+                fh = torch.nn.functional.softplus(f.float().view(rows, 32, 128)
+                                                  + dt_bias.view(32, 128))
+                sp = fh.mean(-1, keepdim=True).expand_as(fh)
+                f = (sp + torch.log(-torch.expm1(-sp)) - dt_bias.view(32, 128)).view(rows, -1)
+                f = f.bfloat16()
+            step(q, k, v, f, b, og, conv_w, c, s, a_log, dt_bias, norm_w, 32, 1e-5)
+            if bf16_state:
+                s.copy_(s.bfloat16().float())
+        return s
+
+    kern, plain = run(gd.kda_decode), run(gd.kda_decode_plain)
+    tol = 1e-4 * plain.abs().max()
+    assert (kern - plain).abs().max() <= tol
+    assert (run(gd.kda_decode_plain, bf16_state=True) - plain).abs().max() > 10 * tol
+    assert (run(gd.kda_decode_plain, scalar=True) - plain).abs().max() > 10 * tol
+
+
+def test_moe_route_sigmoid_with_a_correction_bias(cuda):
+    """``moe_route``'s sigmoid mode over 256 experts, top-8 renormalised
+    over (Σ + 1e-20) and times 2.446, with a correction bias that moves
+    some tokens' experts, against ``route_plain``: the same experts but
+    where the choice scores tie to fp32 rounding, the weights the unbiased
+    sigmoids within 1e-5; with a share of 64 experts, the same routing with
+    ids outside it -1; the softmax mode of the same launch site unchanged."""
+    from ospo_tpu_torch.ops import moe
+
+    E, D, k, scale = 256, 2304, 8, 2.446
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((192, D), generator=g, device=cuda).bfloat16()
+    router = (torch.randn((E, D), generator=g, device=cuda) * D ** -0.5).bfloat16()
+    bias = 0.05 * torch.randn((E,), generator=g, device=cuda)
+    topi, topw = moe.route(x, router, k, True, scale, 1, score_bias=bias)
+    differ, shortfall, w_err = moe.routing_gap(x, router, topi, topw, k, True, scale, bias)
+    assert differ <= 1 and shortfall <= 1e-6 and w_err <= 1e-5
+    plain_i, _ = moe.route_plain(x, router, k, True, scale)
+    moved = (topi[:, :k].sort(1).values != plain_i.sort(1).values).any(1)
+    assert int(moved.sum()) > 0
+    assert torch.equal(topi[:, k], torch.full_like(topi[:, k], E))
+    assert torch.equal(topw[:, k], torch.ones_like(topw[:, k]))
+    ti, tw = moe.route(x, router, k, True, scale, 1, held=(0, 64), score_bias=bias)
+    assert torch.equal(ti[:, :k], moe.held_ids(topi[:, :k], (0, 64)))
+    assert torch.equal(tw, topw)
+    si, sw = moe.route(x, router, k, True, scale)
+    assert moe.routing_gap(x, router, si, sw, k, True, scale)[0] <= 1
+
+
 # -- the layer tail (ops/layer_tail.py, csrc/layer_tail.cu) --------------------
 
 # (B, T, heads, hidden, ffn): the 7B and 1B decode steps (48 rows, a device

@@ -327,7 +327,7 @@ KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
            "int4_matmul_row", "int4_matmul_group", "moe_route", "moe_align",
            "moe_gate_up", "moe_down", "moe_combine", "w8a16_matmul",
            "suffix_attention", "gdn_decode", "add_rms_norm", "rope_kv_write",
-           "silu_mul")
+           "silu_mul", "kda_decode")
 
 
 def _trees(package):
